@@ -1,0 +1,300 @@
+"""Fused U-Net conv chain: wrapper of csrc/conv_chain.cu.
+
+Replaces rvdd_tpu/ops/pallas/conv_pallas.py:fused_conv_chain together with
+its XLA glue: ``pool`` is the whole 2x2 max pool of an emitted layer (the
+TPU kernel pools rows and rvdd_tpu/models/fast_unet.py:185-188 the lanes)
+and ``upsample_input`` the whole bilinear 2x align_corners=False upsample
+of a half-res input (rows at conv_pallas.py:193-227, lanes at
+fast_unet.py:191-209).  A chain runs as one launch of the layer kernel per
+conv; the kernel reads an aux channel window as the second half of layer
+1's input, pools in its epilogue, upsamples in its prologue and writes the
+combined fp32 recurrence state straight from its accumulator.
+
+What bounds it on the H100 is operations (~1.07 TFLOP a 1080p frame,
+~1.0 ms at the bf16 tensor-core peak); see the kernel's source note for
+what this first cut does about it.
+
+Numerics are rvdd_tpu's ``fast`` preset: bf16 activations and weights,
+fp32 accumulation and bias, bf16 bands between layers, and for the layers
+marked split, weights split by mantissa masking into w_hi + w_lo
+(conv_pallas.py:654-669) and accumulated as two products.  The plain
+version repeats those rounding points with F.conv2d in fp32 and is what a
+CPU tensor runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rvdd_tpu_torch import _build
+from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [
+    _P, _I, _I, _I, _I, _I, _I,      # in0, c, stride, off, h, w, upsample
+    _P, _I, _I, _I,                  # aux, c, stride, off
+    _P, _P, _P,                      # w_hi, w_lo, bias
+    _I, _I, _I, _I, _I,              # ks, cin0_pad, cout, cout_pad, relu
+    _I, _I, _I,                      # B, H, W
+    _P, _P,                          # out, pooled
+    _P, _I, _I, _I,                  # state, stride, off, zero
+    _P,                              # stream
+]
+MAX_COUT = 48  # the kernel holds at most three 16-channel output fragments
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def split_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w = hi + lo as a bf16 pair: hi by masking the low 16 mantissa bits
+    (exact in bf16), lo = bf16(w - hi)."""
+    wf = w.float().contiguous()
+    hi = (wf.view(torch.int32) & -65536).view(torch.float32)
+    return hi.to(torch.bfloat16), (wf - hi).to(torch.bfloat16)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainLayer:
+    """One packed conv layer.  Kernel matrix row k = (dy, dx, ci) over
+    ci in [conv input padded to cin0_pad | aux channels], columns = output
+    channels padded to cout_pad."""
+
+    ks: int
+    cin0: int
+    cin0_pad: int
+    aux_c: int
+    cout: int
+    cout_pad: int
+    relu: bool
+    split: bool
+    w_plain: torch.Tensor  # OIHW fp32 holding the weights the kernel multiplies by
+    w_hi: torch.Tensor     # [ks*ks*(cin0_pad+aux_c), cout_pad] bf16
+    w_lo: Optional[torch.Tensor]
+    bias: torch.Tensor     # [cout] fp32
+
+
+@dataclasses.dataclass(frozen=True)
+class Chain:
+    layers: Tuple[ChainLayer, ...]
+
+
+def pack_chain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+               acts: Sequence[str], ks: Sequence[int], *,
+               weight_split: Optional[Sequence[bool]] = None) -> Chain:
+    """Pack HWIO fp32 weights ``ws[l]`` [k, k, cin, cout] and biases for
+    :func:`conv_chain`, once per set of weights.  Layer 1's cin may exceed
+    layer 0's cout: the excess is the aux channels concatenated after the
+    conv output.  ``weight_split[l]`` marks layers with hi/lo weights."""
+    nl = len(ws)
+    split = tuple(weight_split) if weight_split is not None else (False,) * nl
+    if not (len(bs) == len(acts) == len(ks) == len(split) == nl):
+        raise ValueError("pack_chain: ws, bs, acts, ks and weight_split differ in length")
+    layers = []
+    prev = None
+    for l in range(nl):
+        w = ws[l].float()
+        k, k2, cin, cout = w.shape
+        if k != k2 or k != ks[l] or k not in (1, 3):
+            raise NotImplementedError(f"layer {l}: kernel {tuple(w.shape)} (3x3 or 1x1 only)")
+        if acts[l] not in ("relu", "none"):
+            raise NotImplementedError(f"layer {l}: activation {acts[l]!r}")
+        if cout > MAX_COUT:
+            raise NotImplementedError(f"layer {l}: cout {cout} > {MAX_COUT}")
+        cin0 = cin if prev is None else prev
+        aux_c = cin - cin0
+        if aux_c and l != 1:
+            raise ValueError(f"layer {l}: cin {cin} != previous cout {cin0}")
+        if aux_c < 0 or aux_c % 16:
+            raise NotImplementedError(f"layer {l}: aux channels {aux_c} (want a multiple of 16)")
+        cin0_pad, cout_pad = _ceil16(cin0), _ceil16(cout)
+        if split[l]:
+            hi, lo = split_weight(w)
+            w_used = hi.float() + lo.float()
+        else:
+            hi, lo = w.to(torch.bfloat16), None
+            w_used = hi.float()
+
+        def kmat(m):
+            m0 = F.pad(m[:, :, :cin0], (0, 0, 0, cin0_pad - cin0))
+            m = torch.cat([m0, m[:, :, cin0:]], dim=2)
+            m = F.pad(m, (0, cout_pad - cout))
+            return m.reshape(k * k * (cin0_pad + aux_c), cout_pad).contiguous()
+
+        layers.append(ChainLayer(
+            ks=k, cin0=cin0, cin0_pad=cin0_pad, aux_c=aux_c, cout=cout,
+            cout_pad=cout_pad, relu=acts[l] == "relu", split=bool(split[l]),
+            w_plain=w_used.permute(3, 2, 0, 1).contiguous(),
+            w_hi=kmat(hi), w_lo=kmat(lo) if lo is not None else None,
+            bias=bs[l].float().contiguous(),
+        ))
+        prev = cout
+    return Chain(tuple(layers))
+
+
+def _state_plan(state_out, chain: Chain):
+    """(n_channels, {layer: (offset, zero_fill)}): every state channel no
+    layer writes must directly follow one that does, which then zero-fills
+    it."""
+    n, offs = state_out[0], dict(state_out[1])
+    spans = sorted((off, off + chain.layers[l].cout, l) for l, off in offs.items())
+    plan = {}
+    pos = 0
+    for i, (lo, hi, l) in enumerate(spans):
+        if lo != pos:
+            raise NotImplementedError(f"state channels [{pos}, {lo}) are written by no layer")
+        nxt = spans[i + 1][0] if i + 1 < len(spans) else n
+        if nxt < hi:
+            raise ValueError("state_out layers overlap or exceed the state width")
+        plan[l] = (lo, nxt - hi)
+        pos = nxt
+    return n, plan
+
+
+def _conv_nhwc(x, w_oihw, bias, ks):
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, padding=ks // 2)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
+                     pool=(), upsample_input=False, state_out=None):
+    """Plain PyTorch version of :func:`conv_chain`, same rounding points."""
+    nl = len(chain.layers)
+    emit = tuple(emit) or (nl - 1,)
+    h = x.float()
+    if upsample_input:
+        h = upsample2x_bilinear(h, align_corners=False).to(torch.bfloat16).float()
+    b, hh, ww, _ = h.shape
+    auxw = None
+    if aux is not None:
+        off, n = aux_channels if aux_channels else (0, aux.shape[-1])
+        auxw = aux[..., off:off + n].float()
+    state = plan = None
+    if state_out is not None:
+        n_state, plan = _state_plan(state_out, chain)
+        state = torch.zeros(b, hh, ww, n_state, dtype=torch.float32, device=x.device)
+    outs = {}
+    for l, layer in enumerate(chain.layers):
+        inp = torch.cat([h, auxw], dim=-1) if (l == 1 and layer.aux_c) else h
+        y = _conv_nhwc(inp, layer.w_plain, layer.bias, layer.ks)
+        if layer.relu:
+            y = torch.relu(y)
+        band = y.to(torch.bfloat16)
+        if plan is not None and l in plan:
+            off = plan[l][0]
+            state[..., off:off + layer.cout] = y
+        elif state_out is None and l in emit:
+            outs[l] = maxpool2x2(band) if l in pool else band
+        h = band.float()
+    return (state,) if state_out is not None else tuple(outs[l] for l in emit)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_bf16(name, t, device):
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"conv_chain: {name} must be on {device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"conv_chain: {name} must be bfloat16, got {t.dtype}")
+    if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"conv_chain: {name} must be a contiguous, 16-byte aligned "
+                         f"[B, H, W, C] tensor, got {tuple(t.shape)}")
+
+
+def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = None,
+               aux_channels: Optional[Tuple[int, int]] = None,
+               emit: Sequence[int] = (), pool: Sequence[int] = (),
+               upsample_input: bool = False, state_out=None):
+    """Run a packed conv chain (see :func:`pack_chain`) on NHWC bf16 input.
+
+    x: [B, H, W, Cx], or [B, H/2, W/2, Cx] with ``upsample_input``.
+    aux: [B, H, W, Ca] joined to layer 1's input after layer 0's output;
+    ``aux_channels=(offset, n)`` reads a channel window of it.
+    emit: layers returned as bf16 [B, H, W, Cout] (default: the last);
+    those in ``pool`` are returned 2x2 max-pooled.
+    state_out: ``(n_channels, ((layer, offset), ...))`` makes the chain
+    return only ``(state,)``, a fresh [B, H, W, n_channels] fp32 tensor the
+    named layers write from their fp32 accumulators (channels no layer
+    writes must follow one that does and are zero).
+
+    CUDA tensors launch one kernel per layer (counted in
+    ``conv_chain.launches``); CPU tensors run :func:`conv_chain_plain`.
+    """
+    if x.device.type == "cpu":
+        return conv_chain_plain(x, chain, aux=aux, aux_channels=aux_channels,
+                                emit=emit, pool=pool,
+                                upsample_input=upsample_input, state_out=state_out)
+    dev = x.device
+    _check_bf16("x", x, dev)
+    nl = len(chain.layers)
+    emit = tuple(emit) or (nl - 1,)
+    pool = tuple(pool)
+    if not set(pool) <= set(emit):
+        raise ValueError("conv_chain: pool layers must be emitted")
+    b, hx, wx, cx = x.shape
+    hh, ww = (2 * hx, 2 * wx) if upsample_input else (hx, wx)
+    if cx != chain.layers[0].cin0:
+        raise ValueError(f"conv_chain: x has {cx} channels, layer 0 wants {chain.layers[0].cin0}")
+    aux_off = aux_stride = 0
+    if nl > 1 and chain.layers[1].aux_c:
+        if aux is None:
+            raise ValueError("conv_chain: layer 1 reads aux channels but aux is None")
+        _check_bf16("aux", aux, dev)
+        aux_off, n = aux_channels if aux_channels else (0, aux.shape[-1])
+        aux_stride = aux.shape[-1]
+        if tuple(aux.shape[:3]) != (b, hh, ww) or n != chain.layers[1].aux_c \
+                or aux_off < 0 or aux_off + n > aux_stride:
+            raise ValueError(f"conv_chain: aux {tuple(aux.shape)} window {aux_channels} "
+                             f"does not fit [{b}, {hh}, {ww}, *] with {chain.layers[1].aux_c} channels")
+    elif aux is not None:
+        raise ValueError("conv_chain: aux given but layer 1 reads no aux channels")
+    for layer in chain.layers:
+        if layer.w_hi.device != dev:
+            raise ValueError("conv_chain: the packed chain lies on another device")
+
+    state, plan, n_state = None, {}, 0
+    if state_out is not None:
+        n_state, plan = _state_plan(state_out, chain)
+        state = torch.empty(b, hh, ww, n_state, dtype=torch.float32, device=dev)
+
+    lib = _build.load_library("conv_chain")
+    fn = lib.rvdd_conv_layer
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cur, ch, cw = x, hx, wx
+    outs = {}
+    for l, layer in enumerate(chain.layers):
+        emitted = state_out is None and l in emit
+        band = l < nl - 1 or (emitted and l not in pool)
+        out = torch.empty(b, hh, ww, layer.cout, dtype=torch.bfloat16, device=dev) if band else None
+        pooled = (torch.empty(b, hh // 2, ww // 2, layer.cout, dtype=torch.bfloat16, device=dev)
+                  if emitted and l in pool else None)
+        st_off, st_zero = plan.get(l, (0, 0))
+        use_aux = l == 1 and layer.aux_c > 0
+        rc = fn(cur.data_ptr(), cur.shape[-1], cur.shape[-1], 0, ch, cw,
+                int(l == 0 and upsample_input),
+                aux.data_ptr() if use_aux else None, layer.aux_c if use_aux else 0,
+                aux_stride, aux_off,
+                layer.w_hi.data_ptr(), _ptr(layer.w_lo), layer.bias.data_ptr(),
+                layer.ks, layer.cin0_pad, layer.cout, layer.cout_pad, int(layer.relu),
+                b, hh, ww, _ptr(out), _ptr(pooled),
+                state.data_ptr() if l in plan else None, n_state, st_off, st_zero,
+                stream)
+        conv_chain.launches += 1
+        _build.check(lib, rc, f"conv_chain layer {l}")
+        if emitted:
+            outs[l] = pooled if l in pool else out
+        cur, ch, cw = out, hh, ww
+    return (state,) if state_out is not None else tuple(outs[l] for l in emit)
+
+
+conv_chain.launches = 0

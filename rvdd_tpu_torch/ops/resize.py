@@ -1,0 +1,72 @@
+"""Spatial resampling with torch-parity semantics, NHWC (port of
+rvdd_tpu/ops/resize.py): bilinear resize with align_corners True or False,
+the 2x align_corners=False upsample of the convunet decoder, and the 2x2
+max pool with floor semantics."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _axis_indices(in_size: int, out_size: int, align_corners: bool):
+    """Source taps (i0, i1) and lerp weight t for one axis (numpy, static)."""
+    if out_size == 1:
+        src = np.zeros((1,), np.float64)
+    elif align_corners:
+        src = np.arange(out_size, dtype=np.float64) * (in_size - 1) / (out_size - 1)
+    else:
+        src = (np.arange(out_size, dtype=np.float64) + 0.5) * in_size / out_size - 0.5
+        src = np.maximum(src, 0.0)  # torch clamps negative source indices
+    i0 = np.minimum(np.floor(src).astype(np.int64), in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    t = (src - i0).astype(np.float32)
+    return i0, i1, t
+
+
+def _up2x_nac_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x2 bilinear upsample along one axis, align_corners=False:
+    out[2k] = 0.25 x[k-1] + 0.75 x[k], out[2k+1] = 0.75 x[k] + 0.25 x[k+1],
+    edges clamped."""
+    x = x.movedim(dim, 0)
+    prev = torch.cat([x[:1], x[:-1]], dim=0)
+    nxt = torch.cat([x[1:], x[-1:]], dim=0)
+    even = 0.25 * prev + 0.75 * x
+    odd = 0.75 * x + 0.25 * nxt
+    out = torch.stack([even, odd], dim=1).reshape((2 * x.shape[0],) + x.shape[1:])
+    return out.movedim(0, dim)
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of [..., H, W, C] to [..., out_h, out_w, C]."""
+    h, w = x.shape[-3], x.shape[-2]
+    if (h, w) == (out_h, out_w):
+        return x
+    if not align_corners and out_h == 2 * h and out_w == 2 * w:
+        return _up2x_nac_axis(_up2x_nac_axis(x, x.ndim - 3), x.ndim - 2)
+
+    def lerp(a, dim, in_size, out_size):
+        i0, i1, t = _axis_indices(in_size, out_size, align_corners)
+        i0 = torch.as_tensor(i0, device=a.device)
+        i1 = torch.as_tensor(i1, device=a.device)
+        shape = [1] * a.ndim
+        shape[dim] = out_size
+        tt = torch.as_tensor(t, device=a.device, dtype=a.dtype).reshape(shape)
+        return a.index_select(dim, i0) * (1.0 - tt) + a.index_select(dim, i1) * tt
+
+    x = lerp(x, x.ndim - 3, h, out_h)
+    return lerp(x, x.ndim - 2, w, out_w)
+
+
+def upsample2x_bilinear(x: torch.Tensor, align_corners: bool = False) -> torch.Tensor:
+    h, w = x.shape[-3], x.shape[-2]
+    return resize_bilinear(x, 2 * h, 2 * w, align_corners)
+
+
+def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 max pool with floor semantics (torch nn.MaxPool2d(2))."""
+    *lead, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    x = x[..., : 2 * h2, : 2 * w2, :].reshape(*lead, h2, 2, w2, 2, c)
+    return x.amax(dim=(-4, -2))

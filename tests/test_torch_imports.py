@@ -1,0 +1,64 @@
+"""The port stands alone: no module of rvdd_tpu_torch, and not chip_smoke.py,
+imports jax, flax or rvdd_tpu; and its entry points refuse to run without a
+card unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rvdd_tpu")
+
+
+def _sources():
+    files = sorted((ROOT / "rvdd_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_rvdd_tpu_imports(path):
+    roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
+    assert not roots & set(FORBIDDEN), f"{path.name} imports {sorted(roots & set(FORBIDDEN))}"
+
+
+def test_entry_points_need_a_card_unless_cpu(monkeypatch):
+    from rvdd_tpu_torch import bench, resolve_device
+    from rvdd_tpu_torch.models import build_network
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        build_network("convunet-mode=fixedfeatures+feat", 6, 3)
+    with pytest.raises(RuntimeError):
+        bench.run(frames=1)
+    with pytest.raises(RuntimeError):
+        bench.run(frames=1, device="cpu")  # the benchmark only measures the card
+    assert resolve_device("cpu") == torch.device("cpu")
+    net = build_network("convunet-mode=fixedfeatures+feat", 6, 3, device="cpu")
+    assert next(net.parameters()).device.type == "cpu"
+
+
+def test_kernel_sources_ship_with_the_package():
+    from rvdd_tpu_torch import _build
+
+    for name in _build.SOURCES:
+        assert (_build.CSRC_DIR / f"{name}.cu").is_file()
+    assert "rvdd_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()

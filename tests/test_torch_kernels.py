@@ -1,0 +1,365 @@
+"""The port's kernels (rvdd_tpu_torch/ops/cuda) against rvdd_tpu's Pallas
+kernels and against their own plain versions.
+
+On the CPU the wrappers run their plain PyTorch versions, which are held
+against rvdd_tpu's ``fused_conv_chain`` and ``warp_planar_pallas`` run in
+interpret mode (as tests/test_conv_pallas.py and test_warp_rowmajor.py run
+them).  The tests marked ``gpu`` launch the CUDA kernels and hold them
+against the plain versions; they skip without a card.  Inputs come from
+numpy seeds and go to both packages.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
+    conv_chain,
+    conv_chain_plain,
+    pack_chain,
+)
+from rvdd_tpu_torch.ops.cuda.warp_bicubic import (  # noqa: E402
+    warp_bicubic,
+    warp_bicubic_plain,
+)
+
+BF16 = torch.bfloat16
+
+
+@pytest.fixture(scope="module")
+def tpu():
+    """rvdd_tpu's kernels and glue (skips where JAX is absent)."""
+    jax = pytest.importorskip("jax")
+    from rvdd_tpu.models import fast_unet
+    from rvdd_tpu.ops.pallas import conv_pallas, warp_rowmajor
+
+    return SimpleNamespace(jnp=jax.numpy, conv=conv_pallas, warp=warp_rowmajor,
+                           fu=fast_unet)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: see README)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bf16(a):
+    """numpy fp32 rounded to bf16 values (kept in fp32)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(BF16).float().numpy()
+
+
+# ------------------------------------------------------------ conv chains
+
+# chans[0] is the input width; aux = (full width, offset, n) joins layer 1
+CASES = {
+    "single": dict(h=16, w=40, chans=(8, 16), acts=("relu",), ks=(3,)),
+    "aux_window": dict(h=16, w=40, chans=(8, 16, 16, 16),
+                       acts=("none", "relu", "relu"), ks=(3, 3, 3), aux=(32, 8, 16)),
+    "pool_emit": dict(h=16, w=40, chans=(16, 16, 16, 16),
+                      acts=("relu", "relu", "none"), ks=(3, 3, 3),
+                      emit=(1, 2), pool=(2,)),
+    "upsample_input": dict(h=16, w=40, chans=(16, 16, 16, 16),
+                           acts=("relu",) * 3, ks=(3, 3, 3), aux=(16, 0, 16),
+                           upsample=True),
+    "state_split": dict(h=16, w=40, chans=(16, 16, 16, 16, 16, 3),
+                        acts=("relu",) * 4 + ("none",), ks=(3, 3, 3, 3, 1),
+                        aux=(16, 0, 16), upsample=True,
+                        split=(False, False, False, True, True),
+                        state=(24, ((4, 0), (3, 8)))),
+}
+
+# card-only: rvdd_tpu's kernel needs channel counts divisible by 8, the
+# port's takes the main path's 6-channel input and 56-channel state as is
+CARD_CASES = dict(CASES, six_channel_input=dict(
+    h=16, w=40, chans=(6, 16, 16), acts=("none", "relu"), ks=(3, 3), aux=(56, 8, 16)))
+
+
+def make_case(case, seed=0, h=None, w=None):
+    """numpy inputs and HWIO weights (kaiming scale) for one chain case."""
+    rng = np.random.default_rng(seed)
+    h, w = h or case["h"], w or case["w"]
+    hx, wx = (h // 2, w // 2) if case.get("upsample") else (h, w)
+    x = _bf16(rng.standard_normal((1, hx, wx, case["chans"][0])))
+    aux = None
+    if "aux" in case:
+        aux = _bf16(rng.standard_normal((1, h, w, case["aux"][0])))
+    ws, bs = [], []
+    for l in range(len(case["ks"])):
+        cin = case["chans"][l] + (case["aux"][2] if (l == 1 and "aux" in case) else 0)
+        k = case["ks"][l]
+        ws.append((rng.standard_normal((k, k, cin, case["chans"][l + 1]))
+                   * np.sqrt(2.0 / (k * k * cin))).astype(np.float32))
+        bs.append((rng.standard_normal(case["chans"][l + 1]) * 0.1).astype(np.float32))
+    return x, aux, ws, bs
+
+
+def run_port(case, x, aux, ws, bs, device, plain=False):
+    chain = pack_chain([torch.from_numpy(a).to(device) for a in ws],
+                       [torch.from_numpy(b).to(device) for b in bs],
+                       case["acts"], case["ks"], weight_split=case.get("split"))
+    fn = conv_chain_plain if plain else conv_chain
+    kw = dict(emit=case.get("emit", ()), pool=case.get("pool", ()),
+              upsample_input=case.get("upsample", False), state_out=case.get("state"))
+    if aux is not None:
+        kw["aux"] = torch.from_numpy(aux).to(device).to(BF16)
+        kw["aux_channels"] = case["aux"][1:]
+    outs = fn(torch.from_numpy(x).to(device).to(BF16), chain, **kw)
+    return [o.float().cpu().numpy() for o in outs]
+
+
+def _planar(jnp, x, wl):
+    """[1, H, W, C] numpy -> [(H*C), WL] bf16 (zero lanes >= W)."""
+    _, h, w, c = x.shape
+    p = np.zeros((h, c, wl), np.float32)
+    p[:, :, :w] = x[0].transpose(0, 2, 1)
+    return jnp.asarray(p.reshape(h * c, wl)).astype(jnp.bfloat16)
+
+
+def _unplanar(p, h, w):
+    p = np.asarray(p, np.float32)
+    return p.reshape(h, p.shape[0] // h, -1)[:, :, :w].transpose(0, 2, 1)[None]
+
+
+def run_tpu(tpu, case, x, aux, ws, bs):
+    """rvdd_tpu's fused_conv_chain (interpret mode) plus the planar glue the
+    port folds into its kernel (lane pool, lane upsample)."""
+    jnp = tpu.jnp
+    h, w = case["h"], case["w"]
+    wl = tpu.conv.lane_width(w)
+    packed, biases = [], []
+    for wt, bt, k in zip(ws, bs, case["ks"]):
+        cout = wt.shape[-1]
+        m = wt.reshape(k * k * wt.shape[2], cout).T  # pack_weight order
+        pad = -cout % 8  # the TPU kernel wants cout % 8 == 0
+        packed.append(jnp.asarray(np.pad(m, ((0, pad), (0, 0)))))
+        biases.append(jnp.asarray(np.pad(bt, (0, pad))))
+    if case.get("upsample"):
+        xp = tpu.fu.lane_upsample2x_planar(_planar(jnp, x, wl // 2), h // 2, w // 2)
+    else:
+        xp = _planar(jnp, x, wl)
+    kw = dict(h_img=h, w_img=w, tile_h=8, interpret=True,
+              upsample_input=case.get("upsample", False))
+    if aux is not None:
+        kw["aux"] = _planar(jnp, aux, wl)
+        kw["aux_channels"] = case["aux"][1:]
+    if case.get("split"):
+        kw["weight_dtype"] = tuple("split" if s else None for s in case["split"])
+    if "state" in case:
+        outs = tpu.conv.fused_conv_chain(
+            xp, tuple(packed), tuple(biases), case["acts"], case["ks"],
+            emit=tuple(l for l, _ in case["state"][1]), combine=case["state"],
+            out_dtype=jnp.float32, **kw)
+        st = np.asarray(outs[0], np.float32)  # [H, total_c, WL]
+        return [st.transpose(0, 2, 1)[None, :, :w]]
+    emit = case.get("emit", (len(ws) - 1,))
+    outs = tpu.conv.fused_conv_chain(
+        xp, tuple(packed), tuple(biases), case["acts"], case["ks"],
+        emit=emit, pool_rows=case.get("pool", ()), **kw)
+    res = []
+    for o, l in zip(outs, emit):
+        cout = ws[l].shape[-1]
+        if l in case.get("pool", ()):
+            res.append(_unplanar(tpu.fu.lanepool2x_planar(o), h // 2, w // 2)[..., :cout])
+        else:
+            res.append(_unplanar(o, h, w)[..., :cout])
+    return res
+
+
+def _norm_err(got, want):
+    return float(np.max(np.abs(got - want))) / (float(np.std(want)) + 1e-6)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_conv_chain_plain_matches_fused_conv_chain(tpu, name):
+    """Max error 2e-2 x std: both sides round every band to bf16 and
+    accumulate bf16 products in fp32, in different orders; a rounding flip
+    in one band (1 bf16 ulp, ~0.4% of the value) propagates to the next
+    layers.  With an upsampled input the bound is 6e-2 x std: rvdd_tpu
+    computes the lane half of the upsample in bf16 arithmetic (each product
+    and sum rounds) before the row half, the port rounds the fp32 upsample
+    once, so layer 0's input differs by 1-2 bf16 ulps (fed the same
+    upsampled input, the two chains agree to ~1e-6).  The mean error is
+    held to 5e-3 x std in every case."""
+    case = CASES[name]
+    x, aux, ws, bs = make_case(case)
+    got = run_port(case, x, aux, ws, bs, "cpu")
+    want = run_tpu(tpu, case, x, aux, ws, bs)
+    assert len(got) == len(want)
+    tol = 6e-2 if case.get("upsample") else 2e-2
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape, (g.shape, wv.shape)
+        assert _norm_err(g, wv) < tol, (name, _norm_err(g, wv))
+        assert np.mean(np.abs(g - wv)) < 5e-3 * np.std(wv)
+
+
+def test_conv_chain_wrapper_runs_plain_on_cpu():
+    case = CASES["aux_window"]
+    x, aux, ws, bs = make_case(case, seed=3)
+    before = conv_chain.launches
+    got = run_port(case, x, aux, ws, bs, "cpu")
+    want = run_port(case, x, aux, ws, bs, "cpu", plain=True)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert conv_chain.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_conv_chain_kernel_matches_plain(cuda, name):
+    """The CUDA kernel against its plain version on the card, at a size
+    with ragged tiles (20 rows, 72 columns: neither divides 8x32).  Max
+    error at most 4 bf16 ulps of the largest output (2^-6 x max|out|), the
+    rule chip_smoke.py applies at 1080p: both sides round every band to
+    bf16 after fp32 sums taken in different orders, so an output can land
+    one ulp away, and a flipped band rounding moves the next layer's sums.
+    The mean error is held to 1e-3 x std."""
+    case = CARD_CASES[name]
+    x, aux, ws, bs = make_case(case, seed=1, h=20, w=72)
+    before = conv_chain.launches
+    got = run_port(case, x, aux, ws, bs, cuda)
+    assert conv_chain.launches == before + len(case["ks"])
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, err)
+        assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), name
+
+
+@pytest.mark.gpu
+def test_conv_chain_kernel_rejects_bad_input(cuda):
+    case = CASES["single"]
+    x, _, ws, bs = make_case(case)
+    chain = pack_chain([torch.from_numpy(ws[0]).to(cuda)], [torch.from_numpy(bs[0]).to(cuda)],
+                       case["acts"], case["ks"])
+    xt = torch.from_numpy(x).to(cuda)
+    with pytest.raises(TypeError):
+        conv_chain(xt, chain)  # fp32, not bf16
+    with pytest.raises(ValueError):
+        conv_chain(xt.to(BF16).transpose(1, 2), chain)  # not contiguous
+
+
+# ------------------------------------------------------------------ warp
+
+
+def _flow(h, w, kind):
+    yy, xx = np.mgrid[0:h, 0:w]
+    if kind == "zero":
+        fl = np.zeros((h, w, 2))
+    elif kind == "constant":
+        fl = np.stack([np.full((h, w), 7.3), np.full((h, w), -2.6)], -1)
+    elif kind == "smooth":
+        fl = np.stack([3.0 + 1.5 * np.sin(xx / 40), -2.0 + np.cos(yy / 10)], -1)
+    elif kind == "border":
+        fl = np.stack([np.full((h, w), -14.0), np.full((h, w), 12.0)], -1)
+    else:  # displacements far beyond the TPU kernel's +-48 clamp
+        fl = np.stack([90.0 * np.sin(xx / 7 + yy / 5), -75.0 * np.cos(yy / 3)], -1)
+    return fl.astype(np.float32)[None]
+
+
+@pytest.mark.parametrize("kind,c", [("zero", 8), ("constant", 8), ("smooth", 8),
+                                    ("border", 8), ("smooth", 16)])
+def test_warp_plain_matches_warp_planar_pallas(tpu, kind, c):
+    """Within the TPU kernel's limits (|flow| <= max_disp=16 here, residuals
+    inside its bands) both compute the same bicubic sum on the same
+    bf16-valued input; tolerance 2e-5 for the order of the 16 fp32 products
+    and sums (values up to ~1.2, tap weights up to ~1.1)."""
+    jnp = tpu.jnp
+    h, w = 24, 100
+    rng = np.random.default_rng(0)
+    x = _bf16(rng.uniform(-1, 1, (1, h, w, c)))
+    fl = _flow(h, w, kind)
+    got = warp_bicubic_plain(torch.from_numpy(x), torch.from_numpy(fl),
+                             out_dtype=torch.float32).numpy()
+    wl = -(-(w + 1) // 128) * 128
+    want = tpu.warp.warp_planar_pallas(
+        _planar(jnp, x, wl), jnp.asarray(fl[0]), h_img=h, w_img=w,
+        max_disp=16, tile_h=8, out_dtype=jnp.float32, interpret=True)
+    np.testing.assert_allclose(got, _unplanar(want, h, w), atol=2e-5)
+
+
+def test_warp_wrapper_runs_plain_on_cpu():
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 9, 13, 5)).astype(np.float32))
+    fl = torch.from_numpy(_flow(9, 13, "smooth"))
+    before = warp_bicubic.launches
+    got = warp_bicubic(x, fl, out_dtype=torch.float32)
+    assert warp_bicubic.launches == before
+    torch.testing.assert_close(got, warp_bicubic_plain(x, fl, torch.float32), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,in_dtype,out_dtype,kind", [
+    (56, torch.float32, BF16, "smooth"),
+    (56, torch.float32, torch.float32, "large"),
+    (3, BF16, torch.float32, "border"),
+    (8, BF16, BF16, "large"),
+])
+def test_warp_kernel_matches_plain(cuda, c, in_dtype, out_dtype, kind):
+    """fp32 output: 1e-5 (fp32 FMA order).  bf16 output: 1e-2, one bf16 ulp
+    for |value| < 2 (the two sides may round to neighbouring bf16 values)."""
+    h, w = 37, 70
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, h, w, c)).astype(np.float32)).to(cuda)
+    x = x.to(in_dtype)
+    fl = torch.from_numpy(np.concatenate([_flow(h, w, kind), -_flow(h, w, kind)])).to(cuda)
+    before = warp_bicubic.launches
+    got = warp_bicubic(x, fl, out_dtype=out_dtype)
+    assert warp_bicubic.launches == before + 1
+    want = warp_bicubic_plain(x, fl, out_dtype=torch.float32)
+    tol = 1e-5 if out_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+def test_warp_kernel_rejects_bad_input(cuda):
+    x = torch.zeros(1, 8, 8, 4, device=cuda)
+    fl = torch.zeros(1, 8, 8, 2, device=cuda)
+    with pytest.raises(TypeError):
+        warp_bicubic(x.half(), fl)
+    with pytest.raises(ValueError):
+        warp_bicubic(x, fl[:, :4])
+    with pytest.raises(ValueError):
+        warp_bicubic(x.transpose(1, 2), fl)
+
+
+# ------------------------------------------------------- fused engine step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 2])
+def test_fused_steps_on_card_match_plain_versions(cuda, batch):
+    """Two fused engine steps (state carried) with the CUDA kernels against
+    the same steps on the CPU, where the wrappers run their plain versions.
+    Fed the same inputs, each chain agrees with its plain version to a mean
+    of ~1e-5 of std (the chain tests above hold that).  Over 21 layers,
+    though, the rare band-rounding flips that fp32 sums taken in another
+    order cause feed the next roundings.  Two bf16 runs of the whole net
+    then differ by about as much as either differs from fp32, so the bound
+    is the fast path's envelope against fp32: normalized max error < 0.2 at
+    step 1 and < 0.3 at step 2."""
+    from rvdd_tpu_torch.models import build_network
+    from rvdd_tpu_torch.recurrent import engine
+
+    h, w = 48, 64
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy(rng.uniform(-1, 1, (batch, 2, h, w, 3)).astype(np.float32))
+    yy, xx = np.mgrid[0:h, 0:w]
+    fl = np.stack([2.5 + np.sin(xx / 9), -1.5 + np.cos(yy / 7)], -1)
+    flows = torch.from_numpy(np.stack([fl, -fl])[:batch, None].astype(np.float32))
+    cfg = engine.EngineConfig(feature_rec=True, net_impl="fused")
+    outs = {}
+    for dev in ("cpu", cuda):
+        net = build_network("convunet-mode=fixedfeatures+feat", 6, 3, seed=2, device=dev)
+        d1, s = engine.inference_step(cfg, net, None, frames.to(dev), flows.to(dev))
+        d2, _ = engine.inference_step(cfg, net, s, frames.to(dev), flows.to(dev))
+        outs[str(dev)] = (d1.cpu().numpy(), d2.cpu().numpy())
+    for got, want, lim in zip(outs["cuda"], outs["cpu"], (0.2, 0.3)):
+        assert np.isfinite(got).all()
+        assert _norm_err(got, want) < lim, _norm_err(got, want)
