@@ -4,21 +4,28 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
-2. Builds every kernel of the main path from rvdd_tpu_torch/csrc with nvcc
+2. Builds every kernel of the main paths from rvdd_tpu_torch/csrc with nvcc
    (one process per source, started together) and prints each build's time
    and ptxas register/shared-memory lines.
-3. Holds each kernel against its plain PyTorch version at the main path's
+3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (1080p), TF32 off on the plain side, and times the kernel, the
-   plain version and one PyTorch library call doing the same work
-   (F.grid_sample for the warp, cuDNN F.conv2d per conv layer) as a
-   yardstick.
-4. Drives the main path through the port's entry points: 1080p
-   convunet+feat streaming inference at full width with seeded kaiming
-   weights, a first frame with state=None and 12 streamed frames with the
-   carried fp32 state; checks every output is finite and that the first
-   two frames agree with the port's plain module path (fp32, TF32 off)
-   within tests/test_fast_step.py's envelope (normalized max error < 0.2 at
-   step 1, < 0.3 at step 2), and that the path launched both kernels.
+   plain version and a PyTorch library yardstick doing the same work
+   (F.grid_sample for the warp, cuDNN F.conv2d per conv layer, and for a
+   ConvNeXt chain its blocks as cuDNN depthwise conv, F.layer_norm, bf16
+   matmuls and F.gelu), beside the bound computed from the inputs.
+4. Drives both main paths through the port's entry points
+   (rvdd_tpu_torch.bench's make_model / step_fn), each at 1080p and full
+   width with seeded kaiming weights, a first frame with state=None and
+   streamed frames with the carried fp32 state:
+   - convunet+feat: the warp and six conv_chain chains;
+   - convnext+feat+future (the ConvNeXt flagship): the state and
+     future-frame warps and seven convnext_chain chains.
+   Each path checks every output is finite, that its first two frames
+   agree with the port's plain module path (fp32, TF32 off) within
+   tests/test_fast_step.py's envelope (normalized max error < 0.2 at step
+   1, < 0.3 at step 2), and that it launched its kernels the expected number
+   of times (launch counts set to 0 just before the path and read just
+   after).
 5. Prints a ``{"kernels": [...]}`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -29,6 +36,7 @@ It needs a card: without one it exits 2 before doing anything.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import sys
 import time
@@ -44,6 +52,13 @@ import torch.nn.functional as F  # noqa: E402
 from rvdd_tpu_torch import _build  # noqa: E402
 from rvdd_tpu_torch.bench import card_info, make_inputs, make_model, step_fn  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.conv_chain import conv_chain, conv_chain_plain  # noqa: E402
+from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
+    HIDDEN,
+    KSIZE,
+    WIDTH,
+    convnext_chain,
+    convnext_chain_plain,
+)
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import (  # noqa: E402
     warp_bicubic,
     warp_bicubic_plain,
@@ -54,6 +69,12 @@ PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 HBM_BPS = 3.35e12   # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 H, W = 1080, 1920   # main-path output resolution (raw 540x960)
 STREAM_FRAMES = 12  # streamed frames after the state=None frame
+#: launches per frame of each main path
+PATHS = {
+    "convunet+feat": {"warp_bicubic": 1, "conv_chain": 21, "convnext_chain": 0},
+    "convnext+feat+future": {"warp_bicubic": 2, "conv_chain": 0, "convnext_chain": 25},
+}
+KERNELS = (warp_bicubic, conv_chain, convnext_chain)
 BF16 = torch.bfloat16
 DEV = torch.device("cuda")
 
@@ -119,6 +140,14 @@ def check_warp(gen) -> dict:
             raise AssertionError(f"warp_bicubic disagrees with its plain version ({name})")
         errs.append(err)
         del got, got32, want
+    # the flagship's future frame: 3-channel bf16 in, bf16 out
+    frame = (torch.rand(1, H, W, 3, device=DEV, generator=gen) * 2 - 1).to(BF16)
+    err = float((warp_bicubic(frame, smooth, out_dtype=BF16).float()
+                 - warp_bicubic_plain(frame, smooth, out_dtype=torch.float32)).abs().max())
+    log(f"warp[future frame, 3-ch bf16] bf16-out max_abs_err {err:.3e} (tol 1e-2)")
+    if not err <= 1e-2:
+        raise AssertionError("warp_bicubic disagrees with its plain version (future frame)")
+    errs.append(err)
     fl = smooth
     ms = time_ms(lambda: warp_bicubic(state, fl, out_dtype=BF16), reps=20)
     plain_ms = time_ms(lambda: warp_bicubic_plain(state, fl, out_dtype=BF16), reps=2)
@@ -240,16 +269,161 @@ def check_chains(packed, gen) -> dict:
     return tot
 
 
+# ------------------------------------------------------- convnext chains
+
+
+def cnx_chain_specs(packed, gen):
+    """The flagship's seven chains with main-path-shaped random bf16 inputs."""
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEV, generator=gen).to(BF16)
+
+    return [
+        ("A", rnd(1, H, W, 9), dict(aux=rnd(1, H, W, 56), aux_channels=(8, 48), emit=(2,),
+                                    pool=(2,))),
+        ("B", rnd(1, H // 2, W // 2, 48), dict(emit=(2,), pool=(2,))),
+        ("C", rnd(1, H // 4, W // 4, 48), dict(emit=(2,), pool=(2,))),
+        ("mid", rnd(1, H // 8, W // 8, 48), dict()),
+        ("dec0", rnd(1, H // 8, W // 8, 48), dict(aux=rnd(1, H // 4, W // 4, 48),
+                                                  upsample_input=True)),
+        ("dec1", rnd(1, H // 4, W // 4, 48), dict(aux=rnd(1, H // 2, W // 2, 48),
+                                                  upsample_input=True)),
+        ("dec2", rnd(1, H // 2, W // 2, 48), dict(aux=rnd(1, H, W, 48), upsample_input=True,
+                                                  state_out=(56, 8))),
+    ]
+
+
+def _full_res(x, kw):
+    hh, ww = x.shape[1:3]
+    return (2 * hh, 2 * ww) if kw.get("upsample_input") else (hh, ww)
+
+
+def with_random_affine(chain, gen):
+    """A copy of a packed chain whose biases, LayerNorm affine and
+    layerscale are seeded random values, drawn as the card tests'
+    block_params draws them.  The seeded kaiming flagship has 0, 1 and 0.1
+    there in every channel, which would hide a kernel that drops or
+    mis-indexes one of them."""
+    def rnd(t, mean=0.0, scale=0.1):
+        if t is None:
+            return None
+        return (mean + scale * torch.randn(t.shape, device=DEV, generator=gen)).contiguous()
+
+    blocks = tuple(dataclasses.replace(
+        b, proj_b=rnd(b.proj_b), dw_b=rnd(b.dw_b), ln_g=rnd(b.ln_g, 1.0), ln_b=rnd(b.ln_b),
+        pw1_b=rnd(b.pw1_b), pw2_b=rnd(b.pw2_b), ls=rnd(b.ls, 0.1, 0.05)) for b in chain.blocks)
+    return dataclasses.replace(chain, blocks=blocks, head_b=rnd(chain.head_b))
+
+
+def cnx_chain_work(chain, x, kw, outs):
+    """(tensor-core FLOP, depthwise FLOP, bytes) the chain must do and move:
+    the 1x1 products (proj over the real input channels, pw1, pw2, head),
+    the 49 depthwise taps, each input read once (the aux window only) and
+    each output written once, weights included.  Both kinds of FLOP are
+    bf16 products with fp32 sums, so the bound counts both at the bf16
+    tensor-core peak (rvdd_tpu's production engine runs the depthwise on
+    its matrix unit too)."""
+    hh, ww = _full_res(x, kw)
+    px = x.shape[0] * hh * ww
+    tensor = dw = 0
+    nbytes = x.numel() * x.element_size() + sum(o.numel() * o.element_size() for o in outs)
+    for i, blk in enumerate(chain.blocks):
+        if blk.proj_w is not None:
+            tensor += 2 * px * (blk.cin0 + blk.aux_c) * WIDTH
+        tensor += 2 * px * 2 * WIDTH * HIDDEN
+        dw += 2 * px * KSIZE * KSIZE * WIDTH
+        if i == 1 and blk.aux_c:
+            nbytes += px * blk.aux_c * 2
+        nbytes += sum(t.numel() * t.element_size() for t in (
+            blk.proj_w, blk.proj_b, blk.dw_w, blk.dw_b, blk.ln_g, blk.ln_b, blk.pw1,
+            blk.pw1_b, blk.pw2, blk.pw2_b, blk.ls) if t is not None)
+    if chain.head_w is not None:
+        tensor += 2 * px * WIDTH * chain.n_head
+        nbytes += chain.head_w.numel() * 2 + chain.head_b.numel() * 4
+    return tensor, dw, nbytes
+
+
+def cnx_library_ms(chain, x, kw) -> float:
+    """The chain's blocks as a sequence of library calls at its shapes:
+    bf16 torch.matmul for proj/pw1/pw2, cuDNN depthwise F.conv2d
+    (groups=48, channels_last), F.layer_norm and F.gelu(tanh); timed and
+    summed.  A yardstick, not used by the port."""
+    hh, ww = _full_res(x, kw)
+    total = 0.0
+    for blk in chain.blocks:
+        cin = blk.cin0 + blk.aux_c
+        inp = torch.randn(1, hh, ww, cin, device=DEV).to(BF16)
+        pw = torch.randn(cin, WIDTH, device=DEV).to(BF16) if blk.proj_w is not None else None
+        taps = torch.randn(WIDTH, 1, KSIZE, KSIZE, device=DEV).to(BF16)
+        w1 = torch.randn(WIDTH, HIDDEN, device=DEV).to(BF16)
+        w2 = torch.randn(HIDDEN, WIDTH, device=DEV).to(BF16)
+        g = torch.ones(WIDTH, device=DEV, dtype=BF16)
+
+        def run():
+            h = inp @ pw if pw is not None else inp
+            d = F.conv2d(h.permute(0, 3, 1, 2), taps, padding=KSIZE // 2, groups=WIDTH)
+            d = F.layer_norm(d.permute(0, 2, 3, 1), (WIDTH,), g, g)
+            return h + F.gelu(d @ w1, approximate="tanh") @ w2
+
+        total += time_ms(run, reps=3)
+        del inp, pw
+    return total
+
+
+def check_cnx_chains(packed, gen) -> dict:
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    terms = [0.0, 0.0, 0.0]
+    for name, x, kw in cnx_chain_specs(packed, gen):
+        chain = with_random_affine(packed[name], gen)
+        got = convnext_chain(x, chain, **kw)
+        want = convnext_chain_plain(x, chain, **kw)
+        for i, (g, wv) in enumerate(zip(got, want)):
+            g, wv = g.float(), wv.float()
+            err = float((g - wv).abs().max())
+            tol = 2.0 ** -6 * float(wv.abs().max())
+            log(f"convnext_chain[{name}] out {i} {tuple(g.shape)}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e} = 4 bf16 ulps of max|out| {float(wv.abs().max()):.3f}), "
+                f"normalized {err / float(wv.std()):.3e}, "
+                f"mean {float((g - wv).abs().mean()) / float(wv.std()):.2e} x std, "
+                f"finite {bool(torch.isfinite(g).all())}")
+            if not (err <= tol and torch.isfinite(g).all()):
+                raise AssertionError(f"convnext_chain[{name}] disagrees with its plain version")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tensor, dw, nbytes = cnx_chain_work(chain, x, kw, got)
+        del got, want
+        ms = time_ms(lambda: convnext_chain(x, chain, **kw), reps=5)
+        plain_ms = time_ms(lambda: convnext_chain_plain(x, chain, **kw), reps=2)
+        lib_ms = cnx_library_ms(chain, x, kw)
+        t_tc, t_dw, t_b = (tensor / PEAK_BF16 * 1e3, dw / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3)
+        bound = max(t_tc + t_dw, t_b)
+        log(f"convnext_chain[{name}] {len(chain.blocks)} launches: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, library sequence {lib_ms:.3f} ms, bound {bound:.4f} ms "
+            f"(1x1 products {tensor / 1e9:.1f} GFLOP -> {t_tc:.4f} ms plus depthwise "
+            f"{dw / 1e9:.1f} GFLOP -> {t_dw:.4f} ms at the bf16 peak; {nbytes / 1e6:.0f} MB "
+            f"-> {t_b:.4f} ms), {(tensor + dw) / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += bound
+        tot["library_ms"] += lib_ms
+        for k, v in enumerate((t_tc, t_dw, t_b)):
+            terms[k] += v
+    tot["bound_by"] = "operations" if terms[0] + terms[1] > terms[2] else "bytes"
+    log(f"convnext_chain per frame: bound terms 1x1 products {terms[0]:.4f} ms + depthwise "
+        f"{terms[1]:.4f} ms, bytes {terms[2]:.4f} ms; kernel {tot['ms']:.3f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms")
+    return tot
+
+
 # -------------------------------------------------------------- main path
 
 
-def main_path():
-    cfg, net, packed = make_model("fused", seed=0, device=DEV)
-    raw, flows = make_inputs(H // 2, W // 2, seed=0, device=DEV)
+def main_path(model: str) -> dict:
+    """Drive one main path; returns its launch counts."""
+    cfg, net, packed = make_model("fused", seed=0, device=DEV, model=model)
+    raw, flows = make_inputs(H // 2, W // 2, seed=0, device=DEV, model=model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    warp_bicubic.launches = 0
-    conv_chain.launches = 0
+    for k in KERNELS:
+        k.launches = 0
     # frame 1 (state=None) and two streamed frames warm the allocator; the
     # rest are timed as bench.py times them: host clock, one synchronize.
     # Only the first two outputs are kept, so the loop allocates as a
@@ -264,33 +438,36 @@ def main_path():
             t0 = time.perf_counter()
         den, state = step_fn(cfg, net, packed, state, raw, flows)
         if tuple(den.shape) != (1, H, W, 3):
-            raise AssertionError(f"frame {i}: output shape {tuple(den.shape)}")
+            raise AssertionError(f"{model} frame {i}: output shape {tuple(den.shape)}")
         finite &= torch.isfinite(den).all()
         if i < 2:
             dens.append(den)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / (n_frames - warm)
+    launches = {k.__name__: k.launches for k in KERNELS}
     if not bool(finite):
-        raise AssertionError("a main-path output is not finite")
-    launches = {"warp_bicubic": warp_bicubic.launches, "conv_chain": conv_chain.launches}
+        raise AssertionError(f"a {model} main-path output is not finite")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"main path: {n_frames} frames, all finite, launches {launches}")
-    log(f"main path: {1e3 / ms:.2f} fps, {ms:.2f} ms/frame over {n_frames - warm} "
+    log(f"main path {model}: {n_frames} frames, all finite, launches {launches}")
+    log(f"main path {model}: {1e3 / ms:.2f} fps, {ms:.2f} ms/frame over {n_frames - warm} "
         f"frames (host clock), peak memory {peak:.2f} GiB, card {card_info()}")
-    if launches["warp_bicubic"] != n_frames or launches["conv_chain"] != 21 * n_frames:
-        raise AssertionError(f"unexpected launch counts {launches} for {n_frames} frames")
+    want = {k: n * n_frames for k, n in PATHS[model].items()}
+    if launches != want:
+        raise AssertionError(f"{model}: launch counts {launches}, expected {want}")
     del state, packed
 
     with plain_mode():
-        cfg_m, net_m, _ = make_model("module", seed=0, device=DEV)
+        cfg_m, net_m, _ = make_model("module", seed=0, device=DEV, model=model)
         ref0, st = step_fn(cfg_m, net_m, None, None, raw, flows)
         ref1, _ = step_fn(cfg_m, net_m, None, st, raw, flows)
-    for i, (got, want, lim) in enumerate(((dens[0], ref0, 0.2), (dens[1], ref1, 0.3))):
-        err = float((got - want).abs().max()) / (float(want.std()) + 1e-6)
-        log(f"main path step {i + 1} vs plain module path: normalized max err {err:.4f} "
-            f"(limit {lim})")
+    for i, (got, want_, lim) in enumerate(((dens[0], ref0, 0.2), (dens[1], ref1, 0.3))):
+        err = float((got - want_).abs().max()) / (float(want_.std()) + 1e-6)
+        log(f"main path {model} step {i + 1} vs plain module path: normalized max err "
+            f"{err:.4f} (limit {lim})")
         if not err < lim:
-            raise AssertionError(f"step {i + 1} outside the envelope")
+            raise AssertionError(f"{model} step {i + 1} outside the envelope")
+    del net_m, st, ref0, ref1, dens
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -314,18 +491,24 @@ def main():
         warp_rec = check_warp(gen)
         _, _, packed = make_model("fused", seed=0, device=DEV)
         conv_rec = check_chains(packed, gen)
+        _, _, packed = make_model("fused", seed=0, device=DEV, model="convnext+feat+future")
+        cnx_rec = check_cnx_chains(packed, gen)
     del packed
     torch.cuda.empty_cache()
 
-    launches = main_path()
+    runs = {model: main_path(model) for model in PATHS}
+    total = {k.__name__: sum(r[k.__name__] for r in runs.values()) for k in KERNELS}
 
     kernels = [
         dict(name="warp_bicubic", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",
              replaces="rvdd_tpu/ops/pallas/warp_rowmajor.py:311",
-             launches=launches["warp_bicubic"], **warp_rec),
+             launches=total["warp_bicubic"], **warp_rec),
         dict(name="conv_chain", route="cuda", source="rvdd_tpu_torch/csrc/conv_chain.cu",
              replaces="rvdd_tpu/ops/pallas/conv_pallas.py:465",
-             launches=launches["conv_chain"], **conv_rec),
+             launches=total["conv_chain"], **conv_rec),
+        dict(name="convnext_chain", route="cuda", source="rvdd_tpu_torch/csrc/convnext_chain.cu",
+             replaces="rvdd_tpu/ops/pallas/convnext_pallas.py:658",
+             launches=total["convnext_chain"], **cnx_rec),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

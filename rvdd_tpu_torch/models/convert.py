@@ -1,10 +1,13 @@
-"""Weights across the two packages: rvdd_tpu's flax ConvUNet params (a
-nested dict of numpy arrays, HWIO kernels) <-> the port's ConvUNet
-``state_dict`` (OIHW).
+"""Weights across the two packages: rvdd_tpu's flax params (a nested dict of
+numpy arrays, HWIO kernels) <-> the port's ``state_dict`` (OIHW), for
+ConvUNet and ConvNeXtUNet.
 
 The port names its parameters after the flax modules, so the mapping is one
 to one: ``{"enc_conv0": {"conv0": {"kernel", "bias"}}}`` <->
-``enc_conv0.conv0.weight`` / ``enc_conv0.conv0.bias``.
+``enc_conv0.conv0.weight`` / ``enc_conv0.conv0.bias``.  Kernels go HWIO ->
+OIHW, the depthwise ``[7, 7, 1, 48]`` to ``[48, 1, 7, 7]`` included.
+ConvNeXt also has 1-D leaves that copy through: ``ln/{weight,bias}`` and
+``layerscale/layerscale``.
 """
 
 from __future__ import annotations
@@ -14,9 +17,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+#: ConvNeXt's 1-D leaves besides biases (LayerNorm weight, LayerScale)
+_CNX_LEAVES = ("weight", "layerscale")
 
-def convunet_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ConvUNet params -> the port's ConvUNet state_dict (fp32, CPU)."""
+
+def _from_flax(params: Mapping, leaves=()) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -28,8 +33,8 @@ def convunet_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             if k == "kernel":
                 sd[".".join(prefix + ("weight",))] = torch.from_numpy(
                     np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
-            elif k == "bias":
-                sd[".".join(prefix + ("bias",))] = torch.from_numpy(a.copy())
+            elif k == "bias" or (k in leaves and a.ndim == 1):
+                sd[".".join(prefix + (k,))] = torch.from_numpy(a.copy())
             else:
                 raise ValueError(f"unexpected flax leaf {'/'.join(prefix + (k,))}")
 
@@ -37,8 +42,7 @@ def convunet_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def convunet_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The inverse of :func:`convunet_from_flax`: nested dict of numpy arrays."""
+def _to_flax(state_dict: Mapping[str, torch.Tensor], leaves=()) -> dict:
     params: dict = {}
     for key, t in state_dict.items():
         *path, kind = key.split(".")
@@ -46,10 +50,30 @@ def convunet_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         node = params
         for p in path:
             node = node.setdefault(p, {})
-        if kind == "weight":
+        if kind == "weight" and a.ndim == 4:
             node["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
-        elif kind == "bias":
-            node["bias"] = a.copy()
+        elif kind == "bias" or (kind in leaves and a.ndim == 1):
+            node[kind] = a.copy()
         else:
             raise ValueError(f"unexpected state_dict key {key}")
     return params
+
+
+def convunet_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ConvUNet params -> the port's ConvUNet state_dict (fp32, CPU)."""
+    return _from_flax(params)
+
+
+def convunet_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`convunet_from_flax`: nested dict of numpy arrays."""
+    return _to_flax(state_dict)
+
+
+def convnext_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ConvNeXtUNet params -> the port's ConvNeXtUNet state_dict."""
+    return _from_flax(params, _CNX_LEAVES)
+
+
+def convnext_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`convnext_from_flax`."""
+    return _to_flax(state_dict, _CNX_LEAVES)

@@ -3,11 +3,13 @@ the CLI architecture string ``name-k1=v1-k2=v2``.
 
 * ``convunet`` / ``convunet-mode=fixedfeatures`` / ``...+feat`` ->
   :class:`ConvUNet`;
-* ``newunet`` (the ConvNeXt family) raises until its slice of the port.
+* ``newunet`` / ``newunet-mode=feat`` -> :class:`ConvNeXtUNet`.
 
 Weights are the reference's default ``--init_type kaiming`` (fan_in,
 normal, zero bias), drawn from a numpy seed so a run is reproducible on any
-device.
+device.  Only 4-D conv weights are redrawn (a depthwise 7x7 has fan_in 49);
+ConvNeXt's LayerNorm weight and bias and its LayerScale keep their defaults
+(1, 0 and 0.1), as rvdd_tpu's ``reinit_convs`` leaves them.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn as nn
 
 from rvdd_tpu_torch.device import resolve_device
+from rvdd_tpu_torch.models.convnext_unet import ConvNeXtUNet
 from rvdd_tpu_torch.models.unet import ConvUNet
 
 
@@ -77,7 +80,10 @@ def build_network(arch: str, input_nc: int, output_nc: int,
     name, kwargs = parse_arch(arch)
     mode = kwargs.pop("mode", None)
     if "newunet" in name:
-        raise NotImplementedError("newunet (ConvNeXt) is not ported yet (see ROADMAP.md)")
+        feat = mode == "feat" or feature_rec
+        net = ConvNeXtUNet(input_nc, output_nc, feature_rec=feat, **kwargs, **extra)
+        kaiming_init_(net, seed)
+        return net.to(dev).eval()
     if "convunet" not in name:
         raise NotImplementedError(f"unknown architecture '{arch}'")
     feat = feature_rec

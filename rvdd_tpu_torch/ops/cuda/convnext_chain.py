@@ -1,0 +1,340 @@
+"""Fused ConvNeXt block chain: wrapper of csrc/convnext_chain.cu.
+
+Replaces rvdd_tpu/ops/pallas/convnext_pallas.py:fused_convnext_chain
+together with its XLA glue: ``pool`` is the whole 2x2 max pool of an
+emitted block (rvdd_tpu pools in XLA, ``maxpool2x2_planar``) and
+``upsample_input`` the whole bilinear 2x align_corners=True upsample of a
+half-res input (rows in the TPU kernel, lanes by an XLA matmul in
+rvdd_tpu/models/fast_convnext.py:lane_resize2x_ac).  A chain runs as one
+launch of the block kernel per block; the kernel reads an aux channel
+window as the second half of block 1's proj input, upsamples in its
+prologue, pools in its epilogue, and writes the combined fp32 recurrence
+state ``[head | zeros | features]`` from the last block.
+
+What bounds it on the H100 is operations: a 1080p frame's seven chains do
+~0.81 TFLOP of 1x1 products and ~0.10 TFLOP of depthwise taps, all bf16
+products with fp32 sums, ~0.91 ms at the 989 TFLOP/s bf16 tensor-core
+peak, ahead of ~0.45 ms of bytes; see the kernel's source note for what
+this first cut does about it.
+
+Numerics are rvdd_tpu's ``fast`` preset in its production depthwise mode
+('mxu2'): bf16 depthwise taps, bf16 1x1 and head weights, fp32 biases,
+LayerNorm and layerscale, fp32 accumulation, the LN and GELU (tanh)
+outputs rounded to bf16 before their products, and bf16 bands between
+blocks.  The plain version repeats those rounding points in fp32 PyTorch
+and is what a CPU tensor runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rvdd_tpu_torch import _build
+from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
+
+WIDTH = 48       # the architecture's block width
+HIDDEN = 4 * WIDTH
+KSIZE = 7
+MAX_CIN = 96     # proj input channels the kernel stages (padded input + aux)
+MAX_HEAD = 8
+BF16 = torch.bfloat16
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [
+    _P, _I, _I, _I, _I,              # in0, c, h, w, upsample
+    _P, _I, _I, _I,                  # aux, c, stride, off
+    _I, _P, _P,                      # cin0_pad, proj_w, proj_b
+    _P, _P, _P, _P,                  # dw_w, dw_b, ln_g, ln_b
+    _P, _P, _P, _P, _P,              # pw1, pw1_b, pw2, pw2_b, ls
+    _P, _P, _I,                      # head_w, head_b, n_head
+    _I, _I, _I,                      # B, H, W
+    _P, _P, _P,                      # out, pooled, head_out
+    _P, _I, _I,                      # state, stride, feat_off
+    _P,                              # stream
+]
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class CnxBlock:
+    """One packed ConvNeXt block.  Its input is ``cin0`` channels (block 0:
+    the chain input; later blocks: 48), and block 1 may join ``aux_c`` aux
+    channels after them, which needs a proj."""
+
+    cin0: int
+    cin0_pad: int
+    aux_c: int
+    proj_w: Optional[torch.Tensor]      # [cin0_pad + aux_c, 48] bf16, zero pad rows
+    proj_b: Optional[torch.Tensor]      # [48] fp32
+    dw_w: torch.Tensor                  # [49, 48] fp32 holding bf16-rounded taps
+    dw_b: torch.Tensor
+    ln_g: torch.Tensor
+    ln_b: torch.Tensor
+    pw1: torch.Tensor                   # [48, 192] bf16
+    pw1_b: torch.Tensor
+    pw2: torch.Tensor                   # [192, 48] bf16
+    pw2_b: torch.Tensor
+    ls: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class CnxChain:
+    blocks: Tuple[CnxBlock, ...]
+    head_w: Optional[torch.Tensor] = None  # [48, n_head] bf16: a 1x1 after the last block
+    head_b: Optional[torch.Tensor] = None  # [n_head] fp32
+
+    @property
+    def n_head(self) -> int:
+        return 0 if self.head_w is None else self.head_w.shape[1]
+
+
+def _mat1x1(w: torch.Tensor) -> torch.Tensor:
+    """[cout, cin, 1, 1] conv weight -> [cin, cout] bf16."""
+    return w.detach().float()[:, :, 0, 0].t().to(BF16).contiguous()
+
+
+def pack_block(sd: Mapping[str, torch.Tensor], cin0: int, aux_c: int = 0) -> CnxBlock:
+    """Pack one ConvNeXtBlock's parameters, named as in the port's module
+    (``proj.weight``, ``dw.weight``, ``ln.weight``, ``pw1.weight``, ...,
+    ``layerscale.layerscale``), for an input of ``cin0`` channels plus
+    ``aux_c`` aux channels."""
+    f32 = {k: v.detach().float().contiguous() for k, v in sd.items()}
+    if "proj.weight" in f32:
+        wb = _mat1x1(f32["proj.weight"])
+        if wb.shape != (cin0 + aux_c, WIDTH):
+            raise ValueError(f"proj weight {tuple(wb.shape)} != ({cin0} + {aux_c}, {WIDTH})")
+        cin0_pad = _ceil16(cin0)
+        if aux_c % 16 or cin0_pad + aux_c > MAX_CIN:
+            raise NotImplementedError(f"proj input {cin0} + aux {aux_c} channels")
+        proj_w = torch.cat([F.pad(wb[:cin0], (0, 0, 0, cin0_pad - cin0)), wb[cin0:]]).contiguous()
+        proj_b = f32["proj.bias"]
+    else:
+        if cin0 != WIDTH or aux_c:
+            raise ValueError(f"a block without proj takes {WIDTH} channels, got {cin0} + {aux_c}")
+        cin0_pad, proj_w, proj_b = cin0, None, None
+    dw = f32["dw.weight"]
+    if tuple(dw.shape) != (WIDTH, 1, KSIZE, KSIZE):
+        raise NotImplementedError(f"depthwise weight {tuple(dw.shape)}")
+    return CnxBlock(
+        cin0=cin0, cin0_pad=cin0_pad, aux_c=aux_c, proj_w=proj_w, proj_b=proj_b,
+        dw_w=dw.reshape(WIDTH, KSIZE * KSIZE).t().to(BF16).float().contiguous(),
+        dw_b=f32["dw.bias"], ln_g=f32["ln.weight"], ln_b=f32["ln.bias"],
+        pw1=_mat1x1(f32["pw1.weight"]), pw1_b=f32["pw1.bias"],
+        pw2=_mat1x1(f32["pw2.weight"]), pw2_b=f32["pw2.bias"],
+        ls=f32["layerscale.layerscale"],
+    )
+
+
+def pack_chain(blocks: Sequence[Mapping[str, torch.Tensor]], cin0: int, *, aux_c: int = 0,
+               head: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> CnxChain:
+    """Pack a chain of blocks (each a block's parameters, see
+    :func:`pack_block`): block 0 takes ``cin0`` channels, block 1 joins
+    ``aux_c`` aux channels, ``head=(weight [n, 48, 1, 1], bias [n])`` is a
+    1x1 conv after the last block."""
+    packed = tuple(pack_block(sd, cin0 if i == 0 else WIDTH, aux_c if i == 1 else 0)
+                   for i, sd in enumerate(blocks))
+    if head is None:
+        return CnxChain(packed)
+    hw, hb = head
+    if hw.shape[0] > MAX_HEAD:
+        raise NotImplementedError(f"head of {hw.shape[0]} outputs (at most {MAX_HEAD})")
+    return CnxChain(packed, _mat1x1(hw), hb.detach().float().contiguous())
+
+
+# ------------------------------------------------------------------- plain
+
+
+def block_plain(blk: CnxBlock, x: torch.Tensor) -> torch.Tensor:
+    """One block in fp32 PyTorch with the kernel's rounding points; x holds
+    bf16 values [B, H, W, cin0 (+aux_c)]; returns the fp32 y."""
+    if blk.proj_w is not None:
+        w = torch.cat([blk.proj_w[:blk.cin0], blk.proj_w[blk.cin0_pad:]]).float()
+        x = (x @ w + blk.proj_b).to(BF16).float()
+    taps = blk.dw_w.t().reshape(WIDTH, 1, KSIZE, KSIZE)
+    d = F.conv2d(x.permute(0, 3, 1, 2), taps, blk.dw_b, padding=KSIZE // 2,
+                 groups=WIDTH).permute(0, 2, 3, 1)
+    u = d.mean(-1, keepdim=True)
+    d = d - u
+    s2 = (d * d).mean(-1, keepdim=True)
+    hn = (d * torch.rsqrt(s2 + 1e-6) * blk.ln_g + blk.ln_b).to(BF16).float()
+    h1 = F.gelu(hn @ blk.pw1.float() + blk.pw1_b, approximate="tanh").to(BF16).float()
+    h2 = h1 @ blk.pw2.float() + blk.pw2_b
+    return x + blk.ls * h2
+
+
+def convnext_chain_plain(x, chain: CnxChain, *, aux=None, aux_channels=None, emit=(),
+                         pool=(), upsample_input=False, state_out=None):
+    """Plain PyTorch version of :func:`convnext_chain`, same rounding points."""
+    nb = len(chain.blocks)
+    emit = _default_emit(emit, pool, nb, state_out)
+    h = x.float()
+    if upsample_input:
+        h = upsample2x_bilinear(h, align_corners=True).to(BF16).float()
+    auxw = None
+    if aux is not None:
+        off, n = aux_channels if aux_channels else (0, aux.shape[-1])
+        auxw = aux[..., off:off + n].float()
+    outs, pooled = {}, {}
+    y = None
+    for i, blk in enumerate(chain.blocks):
+        inp = torch.cat([h, auxw], dim=-1) if (i == 1 and blk.aux_c) else h
+        y = block_plain(blk, inp)
+        band = y.to(BF16)
+        if i in emit:
+            outs[i] = band
+        if i in pool:
+            pooled[i] = maxpool2x2(band)
+        h = band.float()
+    head = h @ chain.head_w.float() + chain.head_b if chain.head_w is not None else None
+    if state_out is not None:
+        n_state, feat_off = state_out
+        state = torch.zeros(*h.shape[:3], n_state, dtype=torch.float32, device=h.device)
+        state[..., :chain.n_head] = head
+        if feat_off is not None:
+            state[..., feat_off:feat_off + WIDTH] = y
+        return (state,)
+    res = [outs[i] for i in emit] + [pooled[i] for i in pool]
+    if head is not None:
+        res.append(head.to(BF16))
+    return tuple(res)
+
+
+# ------------------------------------------------------------------ kernel
+
+
+def _default_emit(emit, pool, nb, state_out):
+    emit = tuple(emit)
+    if not emit and not pool and state_out is None:
+        emit = (nb - 1,)
+    return emit
+
+
+def _check_bf16(name, t, device):
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"convnext_chain: {name} must be on {device}")
+    if t.dtype != BF16:
+        raise TypeError(f"convnext_chain: {name} must be bfloat16, got {t.dtype}")
+    if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16 or t.numel() == 0:
+        raise ValueError(f"convnext_chain: {name} must be a contiguous, 16-byte aligned, "
+                         f"non-empty [B, H, W, C] tensor, got {tuple(t.shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tensor] = None,
+                   aux_channels: Optional[Tuple[int, int]] = None, emit: Sequence[int] = (),
+                   pool: Sequence[int] = (), upsample_input: bool = False,
+                   state_out: Optional[Tuple[int, Optional[int]]] = None):
+    """Run a packed ConvNeXt chain (see :func:`pack_chain`) on NHWC bf16 x.
+
+    x: [B, H, W, Cx], or [B, H/2, W/2, Cx] with ``upsample_input``.
+    aux: [B, H, W, Ca] joined to block 1's input after block 0's output;
+    ``aux_channels=(offset, n)`` reads a channel window of it.
+    Returns, in order: the bf16 [B, H, W, 48] output of each block in
+    ``emit`` (default: the last, unless ``pool`` or ``state_out`` is given),
+    the 2x2 max pool of each block in ``pool``, and the head's bf16
+    [B, H, W, n_head] output if the chain has one.  With
+    ``state_out=(n_channels, feat_off)`` it returns only ``(state,)``, a
+    fresh fp32 [B, H, W, n_channels] tensor: the head in channels
+    [0, n_head), the last block's fp32 output in [feat_off, feat_off + 48)
+    (none if feat_off is None) and zeros between.
+
+    CUDA tensors launch one kernel per block (counted in
+    ``convnext_chain.launches``); CPU tensors run
+    :func:`convnext_chain_plain`.
+    """
+    if x.device.type == "cpu":
+        return convnext_chain_plain(x, chain, aux=aux, aux_channels=aux_channels, emit=emit,
+                                    pool=pool, upsample_input=upsample_input,
+                                    state_out=state_out)
+    dev = x.device
+    _check_bf16("x", x, dev)
+    nb = len(chain.blocks)
+    emit, pool = _default_emit(emit, pool, nb, state_out), tuple(pool)
+    if not set(emit) | set(pool) <= set(range(nb)):
+        raise ValueError(f"convnext_chain: emit {emit} / pool {pool} outside {nb} blocks")
+    b, hx, wx, cx = x.shape
+    hh, ww = (2 * hx, 2 * wx) if upsample_input else (hx, wx)
+    if cx != chain.blocks[0].cin0:
+        raise ValueError(f"convnext_chain: x has {cx} channels, block 0 wants {chain.blocks[0].cin0}")
+    aux_off = aux_stride = 0
+    if nb > 1 and chain.blocks[1].aux_c:
+        if aux is None:
+            raise ValueError("convnext_chain: block 1 reads aux channels but aux is None")
+        _check_bf16("aux", aux, dev)
+        aux_off, n = aux_channels if aux_channels else (0, aux.shape[-1])
+        aux_stride = aux.shape[-1]
+        if tuple(aux.shape[:3]) != (b, hh, ww) or n != chain.blocks[1].aux_c \
+                or aux_off < 0 or aux_off + n > aux_stride:
+            raise ValueError(f"convnext_chain: aux {tuple(aux.shape)} window {aux_channels} "
+                             f"does not fit [{b}, {hh}, {ww}, *] with {chain.blocks[1].aux_c} channels")
+    elif aux is not None:
+        raise ValueError("convnext_chain: aux given but block 1 reads no aux channels")
+    if chain.blocks[0].dw_w.device != dev:
+        raise ValueError("convnext_chain: the packed chain lies on another device")
+    state = None
+    n_state, feat_off = 0, -1
+    if state_out is not None:
+        n_state, fo = state_out
+        feat_off = -1 if fo is None else fo
+        if chain.head_w is None or n_state % 4 or feat_off % 4 or (
+                feat_off >= 0 and feat_off + WIDTH != n_state) or (
+                chain.n_head > (feat_off if feat_off >= 0 else n_state)):
+            raise ValueError(f"convnext_chain: state_out {state_out} does not fit the chain")
+        state = torch.empty(b, hh, ww, n_state, dtype=torch.float32, device=dev)
+
+    lib = _build.load_library("convnext_chain")
+    fn = lib.rvdd_convnext_block
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cur, ch, cw = x, hx, wx
+    outs, pooled = {}, {}
+    head_out = None
+    for i, blk in enumerate(chain.blocks):
+        last = i == nb - 1
+        out = (torch.empty(b, hh, ww, WIDTH, dtype=BF16, device=dev)
+               if (not last or i in emit) else None)
+        pl = (torch.empty(b, hh // 2, ww // 2, WIDTH, dtype=BF16, device=dev)
+              if i in pool else None)
+        head = last and chain.head_w is not None
+        if head and state is None:
+            head_out = torch.empty(b, hh, ww, chain.n_head, dtype=BF16, device=dev)
+        use_aux = i == 1 and blk.aux_c > 0
+        rc = fn(cur.data_ptr(), cur.shape[-1], ch, cw, int(i == 0 and upsample_input),
+                aux.data_ptr() if use_aux else None, blk.aux_c if use_aux else 0,
+                aux_stride, aux_off,
+                blk.cin0_pad, _ptr(blk.proj_w), _ptr(blk.proj_b),
+                blk.dw_w.data_ptr(), blk.dw_b.data_ptr(), blk.ln_g.data_ptr(),
+                blk.ln_b.data_ptr(), blk.pw1.data_ptr(), blk.pw1_b.data_ptr(),
+                blk.pw2.data_ptr(), blk.pw2_b.data_ptr(), blk.ls.data_ptr(),
+                _ptr(chain.head_w) if head else None, _ptr(chain.head_b) if head else None,
+                chain.n_head if head else 0,
+                b, hh, ww, _ptr(out), _ptr(pl), _ptr(head_out) if head else None,
+                _ptr(state) if last else None, n_state, feat_off, stream)
+        convnext_chain.launches += 1
+        _build.check(lib, rc, f"convnext_chain block {i}")
+        if i in emit:
+            outs[i] = out
+        if i in pool:
+            pooled[i] = pl
+        cur, ch, cw = out, hh, ww
+    if state is not None:
+        return (state,)
+    res = [outs[i] for i in emit] + [pooled[i] for i in pool]
+    if head_out is not None:
+        res.append(head_out)
+    return tuple(res)
+
+
+convnext_chain.launches = 0

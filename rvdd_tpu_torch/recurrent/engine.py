@@ -16,7 +16,10 @@ Two step implementations, chosen by ``EngineConfig.net_impl``:
   warp, which on CPU tensors runs its plain version);
 * ``'fused'``: the main path; the 56-channel fp32 state
   ``[den 3 | zero 5 | feat 48]`` is warped by the CUDA warp kernel and fed
-  to the six CUDA conv chains, whose last one writes the next state.
+  to the CUDA chains of the net's family (six ``conv_chain`` chains for
+  ConvUNet, seven ``convnext_chain`` chains for ConvNeXtUNet), whose last
+  one writes the next state.  With ``future_patch_depth=1`` the future frame is warped by the
+  same CUDA warp and joins the net input.
 
 Training (``unrolled_forward``, ``compute_losses``), ``scan_video`` and
 online flow (``compute_window_flows``) wait for later slices.
@@ -29,6 +32,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from rvdd_tpu_torch.models.convnext_unet import ConvNeXtUNet
+from rvdd_tpu_torch.models.fast_convnext import (
+    fast_forward_cnx,
+    pack_fast_cnx,
+    supports_fast_path_cnx,
+)
 from rvdd_tpu_torch.models.fast_unet import fast_forward, pack_fast_params, supports_fast_path
 from rvdd_tpu_torch.ops.bayer import remosaic
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import warp_bicubic
@@ -57,7 +66,7 @@ class EngineConfig:
     #: carried state dtype: 'float32' (the production default) or 'bfloat16'
     #: (module path only)
     state_dtype: str = "float32"
-    #: 'module' (ConvUNet forward) or 'fused' (the CUDA conv chains)
+    #: 'module' (the net's forward) or 'fused' (the CUDA chains)
     net_impl: str = "module"
     #: fused-path preset (models/fast_unet.py:FUSED_PRECISIONS)
     fused_precision: str = "fast"
@@ -120,7 +129,6 @@ def _state_dtype(cfg: EngineConfig):
 def _check_fused(cfg: EngineConfig) -> None:
     bad = {
         "model_patch_depth != 2": cfg.d != 1,
-        "future_patch_depth != 0": cfg.future_patch_depth != 0,
         "no_warp": cfg.no_warp,
         "warp_raw": cfg.warp_raw,
         "no_predemosaic": cfg.no_predemosaic,
@@ -158,11 +166,18 @@ def init_state(cfg: EngineConfig, frames: torch.Tensor, nil_feat=None) -> Recurr
     return RecurrentState(lastden, feat)
 
 
+def _fused_impl(net):
+    """(fast_forward, pack, supports_fast_path) of the net's family."""
+    if isinstance(net, ConvNeXtUNet):
+        return fast_forward_cnx, pack_fast_cnx, supports_fast_path_cnx
+    return fast_forward, pack_fast_params, supports_fast_path
+
+
 def fused_pack(cfg: EngineConfig, net) -> dict:
     """One-time weight packing for the fused path; pass the result to
     step/inference_step."""
-    return pack_fast_params(net, cfg.feature_rec, cfg.network_input_nc,
-                            cfg.fused_precision)
+    _, pack, _ = _fused_impl(net)
+    return pack(net, cfg.feature_rec, cfg.network_input_nc, cfg.fused_precision)
 
 
 def step(cfg: EngineConfig, net, state: RecurrentState, cur: torch.Tensor,
@@ -172,7 +187,7 @@ def step(cfg: EngineConfig, net, state: RecurrentState, cur: torch.Tensor,
     None; flows [B, D+fD, H, W, 2] to the current time.  Returns
     (denoised [B, H, W, C_out] fp32, next state)."""
     if cfg.net_impl == "fused":
-        return _fused_step(cfg, net, state, cur, flows, packed)
+        return _fused_step(cfg, net, state, cur, future, flows, packed)
     if cfg.net_impl != "module":
         raise ValueError(f"unknown net_impl {cfg.net_impl!r}")
     d = cfg.d
@@ -213,23 +228,30 @@ def step(cfg: EngineConfig, net, state: RecurrentState, cur: torch.Tensor,
     return denoised, RecurrentState(lastden, feat)
 
 
-def _fused_step(cfg, net, state, cur, flows, packed):
-    """Main path: warp the fp32 state with the CUDA warp (bf16 out), feed
-    [warped den | cur] and the warped features to the conv chains, whose
-    dec2 chain writes the next state from its fp32 accumulator."""
+def _fused_step(cfg, net, state, cur, future, flows, packed):
+    """Main path: warp the fp32 state with the CUDA warp (bf16 out) and
+    each future frame (rounded to bf16, warped to bf16), feed
+    [warped den | cur | warped future] and the warped features to the
+    chains, whose dec2 chain writes the next state from its fp32 values."""
     _check_fused(cfg)
     if flows is None:
         raise NotImplementedError("net_impl='fused' needs flows")
     b, h, w, _ = cur.shape
-    if not supports_fast_path(net, h, w):
+    forward, _, supports = _fused_impl(net)
+    if not supports(net, h, w):
         raise ValueError(f"net_impl='fused': no fast path for {type(net).__name__} at {h}x{w}")
     if packed is None:
         packed = fused_pack(cfg, net)
     fused = state.lastden
     warped = warp_bicubic(fused, flows[:, 0].float().contiguous(), out_dtype=torch.bfloat16)
-    x = torch.cat([warped[..., :STATE_DEN], cur.to(torch.bfloat16)], dim=-1)
-    nxt = fast_forward(net, packed, x, warped if cfg.feature_rec else None,
-                       aux_channels=(STATE_FEAT_OFF, STATE_FEAT), combine_state=True)
+    parts = [warped[..., :STATE_DEN], cur.to(torch.bfloat16)]
+    for k in range(cfg.future_patch_depth):
+        parts.append(warp_bicubic(future[:, k].to(torch.bfloat16).contiguous(),
+                                  flows[:, cfg.d + k].float().contiguous(),
+                                  out_dtype=torch.bfloat16))
+    x = torch.cat(parts, dim=-1)
+    nxt = forward(net, packed, x, warped if cfg.feature_rec else None,
+                  aux_channels=(STATE_FEAT_OFF, STATE_FEAT), combine_state=True)
     den = nxt[..., :STATE_DEN].contiguous()
     return den, RecurrentState(nxt, None)
 

@@ -1,0 +1,323 @@
+"""The port's ConvNeXt chain kernel (rvdd_tpu_torch/ops/cuda/convnext_chain)
+against rvdd_tpu's Pallas ``fused_convnext_chain`` and against its own plain
+version.
+
+On the CPU the wrapper runs ``convnext_chain_plain``, which is held against
+``fused_convnext_chain`` in interpret mode, in the production depthwise
+configuration (``dw_impl='mxu2', dw_group=8``, tanh GELU, bf16 bands) at
+16x40 with 8-row tiles.  The tests marked ``gpu`` launch the CUDA kernel and
+hold it against the plain version; they skip without a card.  Block
+parameters are drawn with numpy, given to rvdd_tpu as flax params and to the
+port through models/convert.py.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rvdd_tpu_torch.models.convert import convnext_from_flax  # noqa: E402
+from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
+    convnext_chain,
+    convnext_chain_plain,
+    pack_chain,
+)
+from rvdd_tpu_torch.ops.resize import upsample2x_bilinear  # noqa: E402
+
+BF16 = torch.bfloat16
+H, W = 16, 40
+
+# cin: chain input channels; aux = (full width, offset, n) joins block 1;
+# head: 1x1 outputs after the last block (rvdd_tpu pads them to 8)
+CASES = {
+    "block": dict(cin=48, n=1),
+    "proj16": dict(cin=16, n=1),
+    "aux_tail": dict(cin=16, n=3, aux=(56, 8, 48), head=8, emit=(2,)),
+    "upsample_aux": dict(cin=48, n=2, aux=(48, 0, 48), upsample=True, emit=(0, 1)),
+    "combine": dict(cin=48, n=2, aux=(48, 0, 48), upsample=True, head=3, state=(56, 8)),
+}
+# card-only: rvdd_tpu's kernel wants channel counts divisible by 8; the
+# port takes the flagship's 9-channel chain-A input and pools the emit, and
+# runs the eighth-res core as a chain of five blocks
+CARD_CASES = dict(CASES, chain_a=dict(cin=9, n=3, aux=(56, 8, 48), emit=(2,), pool=(2,)),
+                  mid=dict(cin=48, n=5))
+
+
+@pytest.fixture(scope="module")
+def tpu():
+    """rvdd_tpu's kernel and glue (skips where JAX is absent)."""
+    jax = pytest.importorskip("jax")
+    from rvdd_tpu.models import fast_convnext
+    from rvdd_tpu.ops.pallas import convnext_pallas, warp_rowmajor
+
+    return SimpleNamespace(jnp=jax.numpy, cnx=convnext_pallas, fc=fast_convnext,
+                           warp=warp_rowmajor)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: see README)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bf16(a):
+    """numpy fp32 rounded to bf16 values (kept in fp32)."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(BF16).float().numpy()
+
+
+def block_params(rng, cin):
+    """Flax ConvNeXtBlock params (numpy): kaiming-scale kernels, and LN,
+    biases and layerscale (around its init, 0.1) drawn at random."""
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    p = {}
+    if cin != 48:
+        p["proj"] = {"kernel": n(1, 1, cin, 48, scale=np.sqrt(1 / cin)), "bias": n(48, scale=0.1)}
+    p["dw"] = {"kernel": n(7, 7, 1, 48, scale=np.sqrt(2 / 49)), "bias": n(48, scale=0.1)}
+    p["ln"] = {"weight": 1 + n(48, scale=0.1), "bias": n(48, scale=0.1)}
+    p["pw1"] = {"kernel": n(1, 1, 48, 192, scale=np.sqrt(2 / 48)), "bias": n(192, scale=0.1)}
+    p["pw2"] = {"kernel": n(1, 1, 192, 48, scale=np.sqrt(2 / 192)), "bias": n(48, scale=0.1)}
+    p["layerscale"] = {"layerscale": 0.1 + n(48, scale=0.05)}
+    return p
+
+
+def make_case(case, seed=0, h=H, w=W):
+    rng = np.random.default_rng(seed)
+    hx, wx = (h // 2, w // 2) if case.get("upsample") else (h, w)
+    x = _bf16(rng.standard_normal((1, hx, wx, case["cin"])))
+    aux = _bf16(rng.standard_normal((1, h, w, case["aux"][0]))) if "aux" in case else None
+    cins = [case["cin"]] + [96 if (j == 1 and "aux" in case) else 48 for j in range(1, case["n"])]
+    blocks = [block_params(rng, c) for c in cins]
+    head = None
+    if "head" in case:
+        head = (_bf16(rng.standard_normal((case["head"], 48)) * 0.2),
+                (rng.standard_normal(case["head"]) * 0.1).astype(np.float32))
+    return x, aux, blocks, head
+
+
+def run_port(case, x, aux, blocks, head, device, plain=False):
+    sds = [{k: v.to(device) for k, v in convnext_from_flax(p).items()} for p in blocks]
+    hd = None
+    if head is not None:
+        hd = (torch.from_numpy(head[0])[:, :, None, None].to(device),
+              torch.from_numpy(head[1]).to(device))
+    chain = pack_chain(sds, case["cin"], aux_c=case["aux"][2] if "aux" in case else 0, head=hd)
+    kw = dict(emit=case.get("emit", ()), pool=case.get("pool", ()),
+              upsample_input=case.get("upsample", False), state_out=case.get("state"))
+    if aux is not None:
+        kw["aux"] = torch.from_numpy(aux).to(device).to(BF16)
+        kw["aux_channels"] = case["aux"][1:]
+    fn = convnext_chain_plain if plain else convnext_chain
+    outs = fn(torch.from_numpy(x).to(device).to(BF16), chain, **kw)
+    return [o.float().cpu().numpy() for o in outs]
+
+
+def _planar(jnp, x, wl):
+    """[1, H, W, C] numpy -> [(H*C), WL] bf16 (zero lanes >= W)."""
+    _, h, w, c = x.shape
+    p = np.zeros((h, c, wl), np.float32)
+    p[:, :, :w] = x[0].transpose(0, 2, 1)
+    return jnp.asarray(p.reshape(h * c, wl)).astype(jnp.bfloat16)
+
+
+def _unplanar(p, h, w, c=None):
+    p = np.asarray(p, np.float32)
+    p = p.reshape(h, p.shape[0] // h, -1)[:, :, :w].transpose(0, 2, 1)[None]
+    return p[..., :c] if c else p
+
+
+def run_tpu(tpu, case, x, aux, blocks, head, h=H, w=W):
+    """rvdd_tpu's fused_convnext_chain (interpret mode, production dw
+    engine) plus its lane upsample glue."""
+    jnp = tpu.jnp
+    wl = -(-(w + 1) // 128) * 128
+    packed, hps = [], []
+    cins = [case["cin"]] + [96 if (j == 1 and "aux" in case) else 48 for j in range(1, case["n"])]
+    for p, cin in zip(blocks, cins):
+        arrs, hp = tpu.cnx.pack_block(p, cin)
+        packed.append(tuple(arrs))
+        hps.append(hp)
+    if case.get("upsample"):
+        xp = tpu.fc.lane_resize2x_ac(_planar(jnp, x, wl // 2), w // 2)
+    else:
+        xp = _planar(jnp, x, wl)
+    # 8-row tiles; a 3-block chain's 9-row halo needs the whole height
+    tile_h = 8 if 3 * case["n"] < 8 else h
+    kw = dict(h_img=h, w_img=w, tile_h=tile_h, interpret=True,
+              upsample_input=case.get("upsample", False), dw_impl="mxu2", dw_rows=12,
+              dw_group=8)
+    if aux is not None:
+        kw["aux"] = _planar(jnp, aux, wl)
+        kw["aux_channels"] = case["aux"][1:]
+    if head is not None:
+        hw = np.zeros((8, 48), np.float32)
+        hb = np.zeros(8, np.float32)
+        hw[:len(head[1])], hb[:len(head[1])] = head
+        kw["tail"], kw["tail_couts"] = ((jnp.asarray(hw), jnp.asarray(hb)),), (8,)
+    if "state" in case:
+        pad_l = tpu.warp.STATE_PAD_LEFT
+        (st,) = tpu.cnx.fused_convnext_chain(
+            xp, tuple(packed), tuple(hps), emit=(case["n"] - 1,), out_dtype=jnp.float32,
+            combine=(case["state"][0], pad_l, wl + tpu.warp.STATE_LANE_EXTRA), **kw)
+        return [np.asarray(st, np.float32)[:, :, pad_l:pad_l + w].transpose(0, 2, 1)[None]]
+    emit = case.get("emit", (case["n"] - 1,))
+    outs = tpu.cnx.fused_convnext_chain(xp, tuple(packed), tuple(hps), emit=emit, **kw)
+    res = [_unplanar(o, h, w) for o in outs[:len(emit)]]
+    if head is not None:
+        res.append(_unplanar(outs[len(emit)], h, w, c=len(head[1])))
+    return res
+
+
+def _norm_err(got, want):
+    return float(np.max(np.abs(got - want))) / (float(np.std(want)) + 1e-6)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_convnext_chain_plain_matches_fused_convnext_chain(tpu, name):
+    """Max error 2e-2 x std: both sides round the LN output, the GELU output
+    and every band to bf16 after fp32 sums taken in different orders (the
+    TPU's depthwise runs as a dy-contraction dot plus dx rotate-adds), so a
+    rounding can flip by one bf16 ulp (~0.4%) and feed the next products.
+    With an upsampled input the bound is 5e-2 x std: rvdd_tpu computes the
+    lane half of the upsample as a bf16 matmul and rounds it before the row
+    half, the port rounds the fp32 upsample once (see
+    test_upsample_rounding_difference).  The mean error is held to 5e-4 x
+    std, and 5e-3 x std with an upsampled input (measured: 1.5e-2 max and
+    4e-5 mean without, 3.5e-2 and 1.8e-3 with)."""
+    case = CASES[name]
+    x, aux, blocks, head = make_case(case)
+    got = run_port(case, x, aux, blocks, head, "cpu")
+    want = run_tpu(tpu, case, x, aux, blocks, head)
+    assert len(got) == len(want)
+    tol, mean_tol = (5e-2, 5e-3) if case.get("upsample") else (2e-2, 5e-4)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape, (g.shape, wv.shape)
+        assert _norm_err(g, wv) < tol, (name, _norm_err(g, wv))
+        assert np.mean(np.abs(g - wv)) < mean_tol * np.std(wv), name
+    if "state" in case:
+        st = got[0]
+        assert not st[..., case["head"]:8].any()
+
+
+def test_upsample_rounding_difference(tpu):
+    """The one numerics difference from rvdd_tpu in a chain's input: the
+    port builds the 2x align_corners=True upsample in fp32 and rounds it
+    once to bf16.  rvdd_tpu does the lane half as a bf16 matmul, whose
+    resize weights are bf16 too, rounds it to bf16, then interpolates rows
+    in fp32 (its kernel's fp32 row positions, reproduced here).  Measured in
+    bf16 ulps of the largest of each output's four source taps, the two
+    differ by at most 1 ulp, on under half of the elements."""
+    jnp = tpu.jnp
+    rng = np.random.default_rng(5)
+    hl, wlo = 8, 20
+    x = _bf16(rng.standard_normal((1, hl, wlo, 48)))
+    port = upsample2x_bilinear(torch.from_numpy(x), align_corners=True).to(BF16).float().numpy()
+    lanes = _unplanar(tpu.fc.lane_resize2x_ac(_planar(jnp, x, 64), wlo), hl, 2 * wlo)
+    scale = np.float32((hl - 1.0) / (2.0 * hl - 1.0))
+    src = np.clip(np.arange(2 * hl, dtype=np.float32) * scale, 0, hl - 1)
+    j0 = np.floor(src).astype(int)
+    j1 = np.minimum(j0 + 1, hl - 1)
+    t = (src - j0).astype(np.float32)[None, :, None, None]
+    tpu_up = _bf16((1 - t) * lanes[:, j0] + t * lanes[:, j1])
+
+    def taps(n):
+        s = np.arange(2 * n) * (n - 1) / (2 * n - 1)
+        i0 = np.floor(s).astype(int)
+        return i0, np.minimum(i0 + 1, n - 1)
+
+    (r0, r1), (c0, c1) = taps(hl), taps(wlo)
+    ax = np.abs(x[0])
+    big = np.maximum.reduce([ax[r][:, c] for r in (r0, r1) for c in (c0, c1)])[None]
+    n_ulps = np.abs(port - tpu_up) / 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert n_ulps.max() <= 1.0, n_ulps.max()
+    assert 0 < np.mean(n_ulps > 0) < 0.5, np.mean(n_ulps > 0)
+
+
+def test_convnext_chain_wrapper_runs_plain_on_cpu():
+    case = CASES["aux_tail"]
+    x, aux, blocks, head = make_case(case, seed=3)
+    before = convnext_chain.launches
+    got = run_port(case, x, aux, blocks, head, "cpu")
+    want = run_port(case, x, aux, blocks, head, "cpu", plain=True)
+    for g, wv in zip(got, want):
+        np.testing.assert_array_equal(g, wv)
+    assert convnext_chain.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_convnext_chain_kernel_matches_plain(cuda, name):
+    """The CUDA kernel against its plain version on the card, at a size
+    with ragged tiles (20 rows, 72 columns: neither divides the 8x16 tile).
+    Max error at most 4 bf16 ulps of the largest output (2^-6 x max|out|),
+    the rule chip_smoke.py applies at 1080p: both sides round the LN and
+    GELU outputs and every band to bf16 after fp32 sums taken in different
+    orders, so a value can land one ulp away and move the next products.
+    The mean error is held to 1e-3 x std."""
+    case = CARD_CASES[name]
+    x, aux, blocks, head = make_case(case, seed=1, h=20, w=72)
+    before = convnext_chain.launches
+    got = run_port(case, x, aux, blocks, head, cuda)
+    assert convnext_chain.launches == before + case["n"]
+    want = run_port(case, x, aux, blocks, head, cuda, plain=True)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, err)
+        assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), name
+
+
+@pytest.mark.gpu
+def test_convnext_chain_kernel_rejects_bad_input(cuda):
+    case = CASES["aux_tail"]
+    x, aux, blocks, head = make_case(case)
+    sds = [{k: v.to(cuda) for k, v in convnext_from_flax(p).items()} for p in blocks]
+    chain = pack_chain(sds, 16, aux_c=48)
+    xt = torch.from_numpy(x).to(cuda)
+    auxt = torch.from_numpy(aux).to(cuda).to(BF16)
+    with pytest.raises(TypeError):
+        convnext_chain(xt, chain, aux=auxt, aux_channels=(8, 48))  # fp32, not bf16
+    with pytest.raises(ValueError):
+        convnext_chain(xt.to(BF16).transpose(1, 2), chain, aux=auxt, aux_channels=(8, 48))
+    with pytest.raises(ValueError):
+        convnext_chain(xt.to(BF16), chain)  # block 1 needs aux
+    with pytest.raises(ValueError):
+        convnext_chain(xt.to(BF16), chain, aux=auxt, aux_channels=(16, 48))  # window overruns
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 2])
+def test_fused_flagship_steps_on_card_match_plain_versions(cuda, batch):
+    """Two fused flagship steps with the CUDA kernels against the same steps
+    on the CPU, where the wrappers run their plain versions: within the
+    fast path's envelope (0.2 / 0.3), since band-rounding flips over 20
+    blocks move two bf16 runs about as far apart as either is from fp32."""
+    from rvdd_tpu_torch.models import build_network
+    from rvdd_tpu_torch.recurrent import engine
+
+    rng = np.random.default_rng(6)
+    h, w = 72, 80
+    frames = rng.uniform(-1, 1, (batch, 3, h, w, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    fl = np.stack([2.5 + np.sin(xx / 9), -1.5 + np.cos(yy / 7)], -1)
+    flows = np.stack([np.stack([fl, -fl]), np.stack([-fl, fl])])[:batch].astype(np.float32)
+    cfg = engine.EngineConfig(model_patch_depth=2, future_patch_depth=1, feature_rec=True,
+                              net_impl="fused")
+    outs = {}
+    for dev in ("cpu", cuda):
+        net = build_network("newunet-mode=feat", 9, 3, seed=5, device=dev)
+        fr, fl = torch.from_numpy(frames).to(dev), torch.from_numpy(flows).to(dev)
+        d1, s = engine.inference_step(cfg, net, None, fr, fl)
+        d2, _ = engine.inference_step(cfg, net, s, fr, fl)
+        outs[str(dev)] = (d1.cpu().numpy(), d2.cpu().numpy())
+    for got, want, lim in zip(outs["cuda"], outs["cpu"], (0.2, 0.3)):
+        assert np.isfinite(got).all()
+        assert _norm_err(got, want) < lim, _norm_err(got, want)

@@ -136,7 +136,7 @@ def test_kernel_warp_module_path_runs_plain_on_cpu():
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
 
 
-@pytest.mark.parametrize("knob", [dict(future_patch_depth=1), dict(no_warp=True),
+@pytest.mark.parametrize("knob", [dict(prev_noisy_frame=True), dict(no_warp=True),
                                   dict(state_dtype="bfloat16"), dict(model_patch_depth=3)])
 def test_fused_unsupported_configs_raise(knob):
     kw = dict(model_patch_depth=2, feature_rec=True, net_impl="fused")

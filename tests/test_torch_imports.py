@@ -48,12 +48,17 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         build_network("convunet-mode=fixedfeatures+feat", 6, 3)
     with pytest.raises(RuntimeError):
+        build_network("newunet-mode=feat", 9, 3)
+    with pytest.raises(RuntimeError):
         bench.run(frames=1)
     with pytest.raises(RuntimeError):
         bench.run(frames=1, device="cpu")  # the benchmark only measures the card
+    with pytest.raises(RuntimeError):
+        bench.run(frames=1, model="convnext+feat+future")
     assert resolve_device("cpu") == torch.device("cpu")
-    net = build_network("convunet-mode=fixedfeatures+feat", 6, 3, device="cpu")
-    assert next(net.parameters()).device.type == "cpu"
+    for arch, in_nc in (("convunet-mode=fixedfeatures+feat", 6), ("newunet-mode=feat", 9)):
+        net = build_network(arch, in_nc, 3, device="cpu")
+        assert next(net.parameters()).device.type == "cpu"
 
 
 def test_kernel_sources_ship_with_the_package():

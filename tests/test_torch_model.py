@@ -118,7 +118,7 @@ def test_unsupported_knobs_raise():
     with pytest.raises(NotImplementedError):
         build_network("convunet-mode=fixedfeatures-residual=true", 6, 3, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_network("newunet-mode=feat", 6, 3, device="cpu")
+        build_network("newunet-mode=feat-fusion_mode=sum", 6, 3, device="cpu")
     with pytest.raises(NotImplementedError):
         resolve_fused_precision("mixed", arch="convunet", feature_rec=True, future=False)
     with pytest.raises(NotImplementedError):
