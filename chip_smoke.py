@@ -8,25 +8,33 @@
    (one process per source, started together) and prints each build's time
    and ptxas register/shared-memory lines.
 3. Holds each kernel against its plain PyTorch version at the main paths'
-   shapes (1080p), TF32 off on the plain side, and times the kernel, the
-   plain version and a PyTorch library yardstick doing the same work
-   (F.grid_sample for the warp, cuDNN F.conv2d per conv layer, and for a
-   ConvNeXt chain its blocks as cuDNN depthwise conv, F.layer_norm, bf16
-   matmuls and F.gelu), beside the bound computed from the inputs.
-4. Drives both main paths through the port's entry points
-   (rvdd_tpu_torch.bench's make_model / step_fn), each at 1080p and full
-   width with seeded kaiming weights, a first frame with state=None and
-   streamed frames with the carried fp32 state:
-   - convunet+feat: the warp and six conv_chain chains;
-   - convnext+feat+future (the ConvNeXt flagship): the state and
-     future-frame warps and seven convnext_chain chains.
+   shapes (1080p; the TV-L1 solver's warp at its finest level, 540x960),
+   TF32 off on the plain side, and times the kernel, the plain version and
+   a PyTorch library yardstick (F.grid_sample for the warps, cuDNN F.conv2d
+   per conv layer, and for a ConvNeXt chain its blocks as cuDNN depthwise
+   conv, F.layer_norm, bf16 matmuls and F.gelu), beside the bound computed
+   from the inputs.
+4. Runs the TV-L1 solver on a 540x960 pair with a known flow, once per
+   preset, through the kernel route and the plain route: the two agree
+   within tests/test_tvl1.py's limits and both find the known flow.
+5. Drives the main paths through the port's entry points
+   (rvdd_tpu_torch.bench's make_inputs / make_model / step_fn), each at
+   1080p and full width with seeded kaiming weights, a first frame with
+   state=None and streamed frames with the carried fp32 state:
+   - convunet+feat (cached flows): the warp and six conv_chain chains;
+   - convnext+feat+future (the ConvNeXt flagship, cached flows): the state
+     and future-frame warps and seven convnext_chain chains;
+   - online flows (self-contained streaming): convunet+feat with the fast
+     and the default solver preset, and the flagship with the fast preset;
+     each frame first computes its window's flows with the TV-L1 solver,
+     whose warp is warp_catmull_zero (nwarps x nscales launches a flow).
    Each path checks every output is finite, that its first two frames
-   agree with the port's plain module path (fp32, TF32 off) within
-   tests/test_fast_step.py's envelope (normalized max error < 0.2 at step
-   1, < 0.3 at step 2), and that it launched its kernels the expected number
-   of times (launch counts set to 0 just before the path and read just
-   after).
-5. Prints a ``{"kernels": [...]}`` JSON line, the card line and, last,
+   agree with the port's plain module path (fp32, TF32 off) fed the same
+   flows within tests/test_fast_step.py's envelope (normalized max error
+   < 0.2 at step 1, < 0.3 at step 2), and that it launched its kernels the
+   expected number of times (launch counts set to 0 just before the path
+   and read just after).
+6. Prints a ``{"kernels": [...]}`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -50,7 +58,14 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from rvdd_tpu_torch import _build  # noqa: E402
-from rvdd_tpu_torch.bench import card_info, make_inputs, make_model, step_fn  # noqa: E402
+from rvdd_tpu_torch.bench import (  # noqa: E402
+    MODELS,
+    FlowLog,
+    card_info,
+    make_inputs,
+    make_model,
+    step_fn,
+)
 from rvdd_tpu_torch.ops.cuda.conv_chain import conv_chain, conv_chain_plain  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
     HIDDEN,
@@ -62,19 +77,37 @@ from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import (  # noqa: E402
     warp_bicubic,
     warp_bicubic_plain,
+    warp_catmull_zero,
+    warp_catmull_zero_plain,
+)
+from rvdd_tpu_torch.ops.tvl1 import (  # noqa: E402
+    FLOW_PRESETS,
+    _centered_gradient,
+    _num_scales,
+    gaussian_smooth,
+    to_gray,
+    tvl1_flow,
 )
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 HBM_BPS = 3.35e12   # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 H, W = 1080, 1920   # main-path output resolution (raw 540x960)
-STREAM_FRAMES = 12  # streamed frames after the state=None frame
-#: launches per frame of each main path
-PATHS = {
+#: net launches per frame of each model
+NET_LAUNCHES = {
     "convunet+feat": {"warp_bicubic": 1, "conv_chain": 21, "convnext_chain": 0},
     "convnext+feat+future": {"warp_bicubic": 2, "conv_chain": 0, "convnext_chain": 25},
 }
-KERNELS = (warp_bicubic, conv_chain, convnext_chain)
+#: the main paths: model, flow preset (None: cached flows), frames (the
+#: state=None frame and the streamed ones) and the frames before timing
+PATHS = (
+    ("convunet+feat", None, 13, 3),
+    ("convnext+feat+future", None, 13, 3),
+    ("convunet+feat", "fast", 5, 2),
+    ("convunet+feat", "default", 3, 1),
+    ("convnext+feat+future", "fast", 3, 1),
+)
+KERNELS = (warp_bicubic, conv_chain, convnext_chain, warp_catmull_zero)
 BF16 = torch.bfloat16
 DEV = torch.device("cuda")
 
@@ -95,6 +128,25 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, arg_sets, reps: int) -> float:
+    """Mean device time in ms of fn(*args) for a call too short to time from
+    the host: ``reps`` calls captured in one CUDA graph, replayed and timed
+    with CUDA events, so the host's launch cost leaves no gaps.  The calls
+    cycle through ``arg_sets`` and every output is kept, so with enough sets
+    a call reads and writes memory that no call since its set's last use
+    has left in the 50 MB L2: the time is HBM's, as the bytes bound is."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            outs.append(fn(*arg_sets[i % len(arg_sets)]))
+    ms = time_ms(graph.replay, reps=5) / reps
+    del graph, outs
+    return ms
 
 
 @contextlib.contextmanager
@@ -413,60 +465,183 @@ def check_cnx_chains(packed, gen) -> dict:
     return tot
 
 
+# ------------------------------------------------------- solver warp
+
+
+def solver_stack(frame: torch.Tensor) -> torch.Tensor:
+    """[1, h, w, 4] = [i1 | i1x | i1y | 0] as the solver builds it at its
+    finest level: the frame's gray, scaled to [0, 255], presmoothed."""
+    g = to_gray(frame)
+    g = (g - g.min()) * (255.0 / (g.max() - g.min()))
+    g = gaussian_smooth(g, 0.8)
+    gx, gy = _centered_gradient(g)
+    return torch.stack([g, gx, gy, torch.zeros_like(g)], -1)[None].contiguous()
+
+
+def check_catmull_warp() -> dict:
+    """The solver-mode warp on the [1, 540, 960, 4] stack, fp32 out, by the
+    bench's TV-L1-like field and by a field that pushes many taps outside
+    the frame (so the zeroing is exercised)."""
+    h, w = H // 2, W // 2
+    raw, true = make_inputs(h, w, seed=0, device=DEV, with_flow=True)
+    x = solver_stack(raw[0, 0])
+    smooth = true[0, 0, 0].contiguous()[None]
+    yy, xx = torch.meshgrid(torch.arange(h, device=DEV, dtype=torch.float32),
+                            torch.arange(w, device=DEV, dtype=torch.float32), indexing="ij")
+    outside = torch.stack([400 * torch.sin(xx / 37 + yy / 23), -250 * torch.cos(yy / 19)],
+                          -1)[None].contiguous()
+    tol = 1e-5 * float(x.abs().max())
+    errs = []
+    for name, fl in (("tvl1-like", smooth), ("taps outside", outside)):
+        gx = xx + fl[0, ..., 0]
+        gy = yy + fl[0, ..., 1]
+        kept = (gx >= 1) & (gx < w - 2) & (gy >= 1) & (gy < h - 2)
+        got = warp_catmull_zero(x, fl)
+        want = warp_catmull_zero_plain(x, fl)
+        err = float((got - want).abs().max())
+        zeros_ok = bool((got[0][~kept] == 0).all())
+        log(f"warp_catmull_zero[{name}] max|flow| {float(fl.abs().max()):.1f} px, "
+            f"{100 * (1 - float(kept.float().mean())):.1f}% of pixels zeroed: max_abs_err "
+            f"{err:.3e} (tol {tol:.3e} = 1e-5 x max|x| {float(x.abs().max()):.1f}: fp32 FMA "
+            f"order of 16 taps), zeroed pixels exactly 0: {zeros_ok}")
+        if not (err <= tol and zeros_ok):
+            raise AssertionError(f"warp_catmull_zero disagrees with its plain version ({name})")
+        errs.append(err)
+    fl = smooth
+    # The kernel takes about as long as its wrapper's host work, so it and
+    # the yardstick are timed from a CUDA graph.  One call's 20.7 MB fit in
+    # the L2, so the graph cycles through 8 copies of the inputs (100 MB)
+    # and keeps every output: the times are against HBM, like the bound.
+    sets = [(x.clone(), fl.clone()) for _ in range(8)]
+    ms = graph_ms(warp_catmull_zero, sets, reps=96)
+    hot_ms = graph_ms(warp_catmull_zero, [(x, fl)], reps=96)
+    plain_ms = time_ms(lambda: warp_catmull_zero_plain(x, fl), reps=5)
+    # yardstick, NOT the same function: torch's bicubic is a = -0.75, and
+    # zero padding is not the solver's zero-outside rule
+    grid = torch.stack([(xx + fl[0, ..., 0]) * (2.0 / (w - 1)) - 1,
+                        (yy + fl[0, ..., 1]) * (2.0 / (h - 1)) - 1], -1)[None]
+    lib_sets = [(xs.permute(0, 3, 1, 2).contiguous(), grid.clone()) for xs, _ in sets]
+    lib_ms = graph_ms(lambda a, g: F.grid_sample(a, g, mode="bicubic", padding_mode="zeros",
+                                                 align_corners=True), lib_sets, reps=96)
+    nbytes = h * w * (16 + 8 + 16)  # 4 fp32 planes + fp32 flow in, 4 fp32 planes out
+    bound = nbytes / HBM_BPS * 1e3
+    log(f"warp_catmull_zero timing at [1, {h}, {w}, 4]: kernel {ms:.4f} ms (inputs from HBM; "
+        f"{hot_ms:.4f} ms with one input set, L2-resident), plain {plain_ms:.3f} ms, "
+        f"F.grid_sample bicubic/zeros (a yardstick of another function: a = -0.75) "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at the HBM rate)")
+    del sets, lib_sets
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=lib_ms)
+
+
+def check_tvl1() -> None:
+    """One 540x960 flow per preset through the kernel route and the plain
+    route: the two agree within tests/test_tvl1.py's limits (median |d| <
+    0.02 px, mean < 0.05, p95 < 0.12) and both find the known flow (median
+    endpoint error < 0.25 px over the interior, 10 px margin)."""
+    h, w = H // 2, W // 2
+    raw, true = make_inputs(h, w, seed=0, device=DEV, with_flow=True)
+    gray = to_gray(raw[0])
+    cur, prev, truth = gray[1], gray[0], true[0, 0, 0]
+    m = 10
+    tvl1_flow(cur, prev, "fast")  # first use: tables, allocator
+    torch.cuda.synchronize()
+    for preset, p in FLOW_PRESETS.items():
+        flows = {}
+        for route, warp in (("kernel", None), ("plain", warp_catmull_zero_plain)):
+            its = []
+            warp_catmull_zero.launches = 0
+            t0 = time.perf_counter()
+            fl = tvl1_flow(cur, prev, preset, iterations=its, _warp=warp)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = warp_catmull_zero.launches
+            epe = float((fl - truth).norm(dim=-1)[m:-m, m:-m].median())
+            log(f"tvl1[{preset}, {route} route] {ms:.1f} ms a flow (host clock), "
+                f"{sum(its)} iterations over {len(its)} stages {its}, warp_catmull_zero "
+                f"launches {launches}, median endpoint error {epe:.4f} px (limit 0.25)")
+            want = p.nwarps * _num_scales(w, h, p) if route == "kernel" else 0
+            if launches != want or not epe < 0.25 or not torch.isfinite(fl).all():
+                raise AssertionError(f"tvl1 {preset}/{route}: launches {launches} (want {want}), "
+                                     f"endpoint error {epe}")
+            flows[route] = fl
+        d = (flows["kernel"] - flows["plain"]).abs().flatten()
+        med, mean, p95 = float(d.median()), float(d.mean()), float(d.quantile(0.95))
+        log(f"tvl1[{preset}] kernel vs plain route: median |d| {med:.2e} (limit 0.02), mean "
+            f"{mean:.2e} (0.05), p95 {p95:.2e} (0.12), max {float(d.max()):.2e} px")
+        if not (med < 0.02 and mean < 0.05 and p95 < 0.12):
+            raise AssertionError(f"tvl1 {preset}: the kernel and plain routes disagree")
+
+
 # -------------------------------------------------------------- main path
 
 
-def main_path(model: str) -> dict:
+def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
     """Drive one main path; returns its launch counts."""
+    fd = MODELS[model][1]
     cfg, net, packed = make_model("fused", seed=0, device=DEV, model=model)
-    raw, flows = make_inputs(H // 2, W // 2, seed=0, device=DEV, model=model)
+    raw, flows = make_inputs(H // 2, W // 2, seed=0, device=DEV, model=model,
+                             with_flow=flow is not None)
+    flow_log = FlowLog() if flow is not None else None
+    name = model + (f" online flow ({flow})" if flow else "")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
-    # frame 1 (state=None) and two streamed frames warm the allocator; the
-    # rest are timed as bench.py times them: host clock, one synchronize.
-    # Only the first two outputs are kept, so the loop allocates as a
+    # the first frames warm the allocator; the rest are timed as bench.py
+    # times them: host clock, one synchronize.  Only the first two outputs
+    # (and, online, their flows) are kept, so the loop allocates as a
     # stream does; finiteness of every frame is gathered on the device.
-    n_frames = 1 + STREAM_FRAMES
-    warm = 3
-    dens, state = [], None
+    dens, used_flows, state = [], [], None
     finite = torch.ones((), dtype=torch.bool, device=DEV)
     for i in range(n_frames):
         if i == warm:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        den, state = step_fn(cfg, net, packed, state, raw, flows)
+            n_logged = len(flow_log.events) if flow_log else 0
+        den, state = step_fn(cfg, net, packed, state, raw, flows, flow, flow_log)
         if tuple(den.shape) != (1, H, W, 3):
-            raise AssertionError(f"{model} frame {i}: output shape {tuple(den.shape)}")
+            raise AssertionError(f"{name} frame {i}: output shape {tuple(den.shape)}")
         finite &= torch.isfinite(den).all()
+        if flow_log is not None:
+            finite &= torch.isfinite(flow_log.flows).all()
         if i < 2:
             dens.append(den)
+            used_flows.append(flow_log.flows if flow_log else flows)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / (n_frames - warm)
     launches = {k.__name__: k.launches for k in KERNELS}
     if not bool(finite):
-        raise AssertionError(f"a {model} main-path output is not finite")
+        raise AssertionError(f"a {name} main-path output is not finite")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"main path {model}: {n_frames} frames, all finite, launches {launches}")
-    log(f"main path {model}: {1e3 / ms:.2f} fps, {ms:.2f} ms/frame over {n_frames - warm} "
+    log(f"main path {name}: {n_frames} frames, all finite, launches {launches}")
+    log(f"main path {name}: {1e3 / ms:.2f} fps, {ms:.2f} ms/frame over {n_frames - warm} "
         f"frames (host clock), peak memory {peak:.2f} GiB, card {card_info()}")
-    want = {k: n * n_frames for k, n in PATHS[model].items()}
+    want = {k: n * n_frames for k, n in NET_LAUNCHES[model].items()}
+    want["warp_catmull_zero"] = 0
+    if flow is not None:
+        p = FLOW_PRESETS[flow]
+        want["warp_catmull_zero"] = (1 + fd) * p.nwarps * _num_scales(W // 2, H // 2, p) * n_frames
+        flow_ms = flow_log.ms()[n_logged:]
+        its = len(flow_log.iterations) // n_frames
+        log(f"main path {name}: flows {sum(flow_ms) / len(flow_ms):.1f} ms a frame (CUDA "
+            f"events), {1 + fd} flows and {sum(flow_log.iterations) / n_frames:.0f} duality "
+            f"iterations a frame, the last frame's stages {flow_log.iterations[-its:]}")
     if launches != want:
-        raise AssertionError(f"{model}: launch counts {launches}, expected {want}")
+        raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
     del state, packed
 
     with plain_mode():
         cfg_m, net_m, _ = make_model("module", seed=0, device=DEV, model=model)
-        ref0, st = step_fn(cfg_m, net_m, None, None, raw, flows)
-        ref1, _ = step_fn(cfg_m, net_m, None, st, raw, flows)
+        ref0, st = step_fn(cfg_m, net_m, None, None, raw, used_flows[0])
+        ref1, _ = step_fn(cfg_m, net_m, None, st, raw, used_flows[1])
     for i, (got, want_, lim) in enumerate(((dens[0], ref0, 0.2), (dens[1], ref1, 0.3))):
         err = float((got - want_).abs().max()) / (float(want_.std()) + 1e-6)
-        log(f"main path {model} step {i + 1} vs plain module path: normalized max err "
-            f"{err:.4f} (limit {lim})")
+        log(f"main path {name} step {i + 1} vs plain module path (same flows): normalized "
+            f"max err {err:.4f} (limit {lim})")
         if not err < lim:
-            raise AssertionError(f"{model} step {i + 1} outside the envelope")
-    del net_m, st, ref0, ref1, dens
+            raise AssertionError(f"{name} step {i + 1} outside the envelope")
+    del net_m, st, ref0, ref1, dens, used_flows
     torch.cuda.empty_cache()
     return launches
 
@@ -493,11 +668,13 @@ def main():
         conv_rec = check_chains(packed, gen)
         _, _, packed = make_model("fused", seed=0, device=DEV, model="convnext+feat+future")
         cnx_rec = check_cnx_chains(packed, gen)
+        catmull_rec = check_catmull_warp()
+        check_tvl1()
     del packed
     torch.cuda.empty_cache()
 
-    runs = {model: main_path(model) for model in PATHS}
-    total = {k.__name__: sum(r[k.__name__] for r in runs.values()) for k in KERNELS}
+    runs = [main_path(*path) for path in PATHS]
+    total = {k.__name__: sum(r[k.__name__] for r in runs) for k in KERNELS}
 
     kernels = [
         dict(name="warp_bicubic", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",
@@ -509,6 +686,9 @@ def main():
         dict(name="convnext_chain", route="cuda", source="rvdd_tpu_torch/csrc/convnext_chain.cu",
              replaces="rvdd_tpu/ops/pallas/convnext_pallas.py:658",
              launches=total["convnext_chain"], **cnx_rec),
+        dict(name="warp_catmull_zero", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",
+             replaces="rvdd_tpu/ops/pallas/warp_pallas.py:166",
+             launches=total["warp_catmull_zero"], **catmull_rec),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,7 +10,7 @@ of rvdd_tpu/ops/warp.py).
 vertical v; ``warp(x, flow)`` samples x at ``(col + u, row + v)``.
 
 The bicubic ``warp`` is also the plain version of the CUDA warp kernel
-(ops/cuda/warp_bicubic.py).
+(ops/cuda/warp_bicubic.py), in both its modes.
 """
 
 from __future__ import annotations
@@ -41,11 +41,13 @@ def _gather2d(xf: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor, w: int):
     return xf[bidx, idx].reshape(b, iy.shape[1], iy.shape[2], xf.shape[-1])
 
 
-def warp(x: torch.Tensor, flow: torch.Tensor, interp: str = "bicubic"):
+def warp(x: torch.Tensor, flow: torch.Tensor, interp: str = "bicubic", a: float = -0.75):
     """Warp ``x`` [B, H, W, C] by ``flow`` [B, H, W, 2].
 
     Returns ``(warped, mask)``; ``mask`` [B, H, W, 1] is 1.0 where the
-    source position fell inside the image.  Computes in float32.
+    source position fell inside the image.  Computes in float32.  ``a`` is
+    the bicubic coefficient: -0.75 (torch's) for the model, -0.5
+    (Catmull-Rom) for the TV-L1 solver's warp.
     """
     b, h, wd, c = x.shape
     x = x.float()
@@ -60,8 +62,8 @@ def warp(x: torch.Tensor, flow: torch.Tensor, interp: str = "bicubic"):
     if interp == "bicubic":
         fx = torch.floor(gx)
         fy = torch.floor(gy)
-        wx = cubic_kernel(gx - fx)
-        wy = cubic_kernel(gy - fy)
+        wx = cubic_kernel(gx - fx, a)
+        wy = cubic_kernel(gy - fy, a)
         # every tap of a position beyond [-3, size+1] clamps to the same
         # edge pixel, so clamping the base index there changes nothing and
         # keeps the integer conversion in range

@@ -21,14 +21,22 @@ Two step implementations, chosen by ``EngineConfig.net_impl``:
   one writes the next state.  With ``future_patch_depth=1`` the future frame is warped by the
   same CUDA warp and joins the net input.
 
-Training (``unrolled_forward``, ``compute_losses``), ``scan_video`` and
-online flow (``compute_window_flows``) wait for later slices.
+Online flow: ``compute_window_flows`` computes a window's flows on the
+device with the TV-L1 solver (ops/tvl1.py; on CUDA tensors its warp is
+always the CUDA kernel ``warp_catmull_zero``, on either path), so a video can be
+denoised without a precomputed flow cache.  The solver is plain PyTorch
+around that kernel, a host loop of small launches with one read of the
+convergence measure an iteration, so its launches, not the card's
+arithmetic, bound it (PERF.md).
+
+Training (``unrolled_forward``, ``compute_losses``) and ``scan_video`` wait
+for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -42,6 +50,7 @@ from rvdd_tpu_torch.models.fast_unet import fast_forward, pack_fast_params, supp
 from rvdd_tpu_torch.ops.bayer import remosaic
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import warp_bicubic
 from rvdd_tpu_torch.ops.demosaic import hamilton_adams
+from rvdd_tpu_torch.ops.tvl1 import TVL1Params, to_gray, tvl1_flow
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x, warp
 
 #: channels of the fused recurrence state: [den 3 | zero 5 | feat 48]
@@ -270,3 +279,30 @@ def inference_step(cfg: EngineConfig, net, state: Optional[RecurrentState],
     future = frames[:, d + 1:] if cfg.future_patch_depth else None
     with torch.no_grad():
         return step(cfg, net, state, cur, future, flows, packed)
+
+
+def compute_window_flows(cfg: EngineConfig, raw_window: torch.Tensor,
+                         flow_params: Union[None, str, TVL1Params] = None,
+                         iterations: Optional[list] = None) -> torch.Tensor:
+    """On-device TV-L1 flows for one inference window (no disk cache).
+
+    raw_window: [B, D+1+fD, h, w, 4] packed raw (any affine range: the
+    solver normalizes jointly).  Returns [B, D+fD, h, w, 2] flows to the
+    current frame, previous frames first, then future frames, matching the
+    offline cache's convention (reference: data/base_dataset.py:134-249).
+    flow_params: a TVL1Params or a preset name of ops/tvl1.py:FLOW_PRESETS
+    (None: default).  The solver's warp is always ``warp_catmull_zero``
+    (the CUDA kernel on CUDA tensors, its plain version on CPU tensors),
+    whatever ``cfg.warp_impl`` picks for the state warp.  The iterations of
+    every warp stage of every flow are appended to ``iterations`` if it is
+    a list.
+    """
+    d, fd = cfg.d, cfg.future_patch_depth
+    gray = to_gray(raw_window)  # [B, T, h, w]
+    others = list(range(d)) + [d + 1 + k for k in range(fd)]
+    outs = []
+    for bi in range(raw_window.shape[0]):
+        cur = gray[bi, d]
+        outs.append(torch.stack([
+            tvl1_flow(cur, gray[bi, k], flow_params, iterations=iterations) for k in others]))
+    return torch.stack(outs)

@@ -61,6 +61,22 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         assert next(net.parameters()).device.type == "cpu"
 
 
+def test_online_flow_entry_points_need_a_card(monkeypatch):
+    """bench's online-flow mode measures the card only; the solver itself
+    runs wherever its tensors are (its CPU run is the plain version)."""
+    from rvdd_tpu_torch import bench
+    from rvdd_tpu_torch.ops import tvl1
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flow in ("default", "fast"):
+        with pytest.raises(RuntimeError):
+            bench.run(frames=1, flow=flow)
+    with pytest.raises(RuntimeError):
+        bench.profile(frames=1, model="convnext+feat+future", flow="fast")
+    x = torch.zeros(20, 24)
+    assert tvl1.tvl1_flow(x, x, "fast").device.type == "cpu"
+
+
 def test_kernel_sources_ship_with_the_package():
     from rvdd_tpu_torch import _build
 
