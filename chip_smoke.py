@@ -6,7 +6,7 @@
    versions.
 2. Builds every kernel of the main paths from rvdd_tpu_torch/csrc with nvcc
    (one process per source, started together) and prints each build's time
-   and ptxas register/shared-memory lines.
+   and ptxas register, shared-memory and spill lines.
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (1080p; the TV-L1 solver's warp at its finest level, 540x960),
    TF32 off on the plain side, and times the kernel, the plain version and
@@ -308,7 +308,7 @@ def check_chains(packed, gen) -> dict:
         log(f"conv_chain[{name}] {len(chain.layers)} launches: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, cuDNN per layer {lib_ms:.3f} ms, bound {bound:.4f} ms "
             f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB), "
-            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the bound")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
@@ -317,7 +317,9 @@ def check_chains(packed, gen) -> dict:
         bytes_all += nbytes
     tot["bound_by"] = "operations" if flops_all / PEAK_BF16 > bytes_all / HBM_BPS else "bytes"
     log(f"conv_chain per frame: {flops_all / 1e12:.3f} TFLOP, kernel {tot['ms']:.3f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms")
+        f"bound {tot['bound_ms']:.4f} ms, {flops_all / (tot['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound; cuDNN per layer "
+        f"{tot['library_ms']:.3f} ms")
     return tot
 
 
@@ -451,7 +453,8 @@ def check_cnx_chains(packed, gen) -> dict:
             f"plain {plain_ms:.3f} ms, library sequence {lib_ms:.3f} ms, bound {bound:.4f} ms "
             f"(1x1 products {tensor / 1e9:.1f} GFLOP -> {t_tc:.4f} ms plus depthwise "
             f"{dw / 1e9:.1f} GFLOP -> {t_dw:.4f} ms at the bf16 peak; {nbytes / 1e6:.0f} MB "
-            f"-> {t_b:.4f} ms), {(tensor + dw) / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            f"-> {t_b:.4f} ms), {(tensor + dw) / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+            f"{100 * bound / ms:.1f}% of the bound")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
@@ -461,7 +464,9 @@ def check_cnx_chains(packed, gen) -> dict:
     tot["bound_by"] = "operations" if terms[0] + terms[1] > terms[2] else "bytes"
     log(f"convnext_chain per frame: bound terms 1x1 products {terms[0]:.4f} ms + depthwise "
         f"{terms[1]:.4f} ms, bytes {terms[2]:.4f} ms; kernel {tot['ms']:.3f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms")
+        f"bound {tot['bound_ms']:.4f} ms, "
+        f"{(terms[0] + terms[1]) / tot['ms'] * PEAK_BF16 / 1e12:.1f} TFLOP/s, "
+        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound")
     return tot
 
 
@@ -657,7 +662,7 @@ def main():
     for name, rec in info.items():
         log(f"  {name}.cu: nvcc {rec['seconds']:.1f} s")
         for line in rec["ptxas"]:
-            if "Used" in line:
+            if "Used" in line or "spill" in line:
                 log(f"    {line.replace('ptxas info    : ', '')}")
 
     gen = torch.Generator(device=DEV)

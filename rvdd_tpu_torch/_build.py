@@ -6,9 +6,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
-A library is built on first use in a process (or when its source is newer
-than the built file); ``build()`` starts one nvcc per source at once, so a
-cold start costs the slowest source, not the sum.  Nothing prebuilt is kept
+A library is built on first use in a process (or when its source, or any
+header ``csrc/*.cuh``, is newer than the built file); ``build()`` starts
+one nvcc per source at once, so a cold start costs the slowest source, not
+the sum.  Nothing prebuilt is kept
 in the repository.  Every C entry point returns ``cudaGetLastError()`` as an
 int, and :func:`check` raises when it is not 0.
 """
@@ -53,8 +54,13 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    so, src = lib_path(name), CSRC_DIR / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    """A library is stale when it is missing or older than its source or
+    any header in ``csrc/`` (every source may include every header)."""
+    so = lib_path(name)
+    if not so.exists():
+        return True
+    deps = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return any(so.stat().st_mtime < d.stat().st_mtime for d in deps)
 
 
 def build(names=SOURCES) -> dict:
@@ -79,7 +85,7 @@ def build(names=SOURCES) -> dict:
             continue
         os.replace(tmp, lib_path(name))
         ptxas = [ln.strip() for ln in out.splitlines()
-                 if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln)]
+                 if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln)) or "spill" in ln]
         BUILD_INFO[name] = {"seconds": secs, "ptxas": ptxas}
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))

@@ -1,6 +1,6 @@
 // One conv layer of a fused U-Net conv chain, for sm_90a: an implicit-GEMM
 // 3x3 (or 1x1) convolution in NHWC with bf16 operands and fp32 accumulation
-// on the tensor cores (WMMA 16x16x16), bias and relu in the epilogue.
+// on the tensor cores (wgmma), bias and relu in the epilogue.
 //
 // Replaces rvdd_tpu/ops/pallas/conv_pallas.py:fused_conv_chain (body
 // _chain_kernel, weight packing pack_weight and the hi/lo split), which the
@@ -12,8 +12,9 @@
 //   * upsample_input: the prologue builds the 2x bilinear
 //     (align_corners=False, edge-replicated) upsample of the half-res
 //     input while it stages the tile, in fp32, rounded once to bf16;
-//   * pool emit: the epilogue writes the whole 2x2 max pool (block tiles
-//     start at even coordinates, so each window lies in one block);
+//   * pool emit: the epilogue writes the whole 2x2 max pool (tiles start
+//     at even coordinates and hold whole row pairs, so each window lies in
+//     one tile);
 //   * combined state emit: the epilogue writes the fp32 accumulator (after
 //     bias and act) into a channel window of the fp32 recurrence state and
 //     zero-fills the pad channels that follow it;
@@ -25,42 +26,91 @@
 //
 // What bounds it on the H100: operations.  The six chains of a 1080p frame
 // need about 1.07 TFLOP (with dec2's split layers): about 1.0 ms at the
-// 989 TFLOP/s bf16 dense peak, against about 0.3 ms for their bytes.  This
-// first cut keeps each layer's input tile (8x32 output pixels plus a
-// one-pixel halo, all input channels) in shared memory and issues legacy
-// warp-level MMAs with B fragments read through L1; it does not reach the
-// wgmma peak.  Keeping a whole chain's intermediates in shared memory
-// (2D tiles with halos) and wgmma/TMA pipelines are the next steps.
+// 989 TFLOP/s bf16 dense peak, against about 0.3 ms for their bytes.  The
+// layer is a GEMM of M = pixels, N = cout_pad (48, 16 for the head), K =
+// ks^2 * (cin0_pad + aux_c) (144 to 864).  The design:
+//   * a persistent CTA of two or three warpgroups keeps the layer's whole
+//     packed weight matrix ([K/8][N][8] bf16, the wgmma B layout; both
+//     halves of a split layer, at most 83 KB) in shared memory, loaded once;
+//   * each warpgroup walks its own tiles of TRW (4, or 2 where shared memory
+//     is short) rows x 64 output columns in its own shared-memory region,
+//     so the warpgroups drift apart and one's staging and epilogue overlap
+//     another's products (a CTA-wide barrier per tile left the tensor cores
+//     idle through every epilogue);
+//   * a tile's input (its rows plus a one-pixel halo, all channels) is
+//     staged with cp.async as [channel group of 8][row][column][8
+//     channels], so 8 consecutive pixels of one channel group are one
+//     128-byte core matrix and tap (dy, dx) of a 64-pixel output row is the
+//     same descriptor moved by (dy * (64 + 2) + dx) * 16 bytes: no im2col
+//     copy (the upsample layer and a 6-channel input build their tile with
+//     loads and arithmetic instead);
+//   * the warpgroup holds one m64nN accumulator per tile row and issues
+//     ks^2 * cin/16 wgmma m64nNk16 per row (twice that for a split layer),
+//     the first with scale-d 0, before one wait;
+//   * the epilogue adds bias and relu in registers, writes the fp32 state
+//     from registers, and stages the bf16 band in the warpgroup's region for
+//     16-byte stores and the 2x2 pool (4-byte stores straight from the
+//     accumulator layout doubled the layer's time on the H100); then the
+//     region takes the next tile's input.
+// The wgmma N = 48 reads 3.5 KB of shared memory per 98 KFLOP, which
+// shared memory feeds at about 85% of the tensor-core rate; the rest of the
+// gap to the peak is staging and the epilogue (chip_smoke.py prints each
+// chain's TFLOP/s and share of the bound).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "wgmma.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TH = 8;             // output rows per block, one warp per row
-constexpr int TW = 32;            // output columns per block: 2 MMA row fragments
-constexpr int NTHREADS = TH * 32;
+constexpr int TW = 64;                 // output columns per tile: one m64 product
+constexpr int SMEM_MAX = 232448;       // per block on the H100
 
 struct LayerArgs {
   const bf16* in0;                // [B, h0, w0, in0_stride], channels at in0_off
   int in0_c, in0_stride, in0_off, in0_h, in0_w, upsample;
   const bf16* aux;                // [B, H, W, aux_stride], channels at aux_off
   int aux_c, aux_stride, aux_off;
-  const bf16* w_hi;               // [ks*ks*(cin0_pad+aux_c), cout_pad]
-  const bf16* w_lo;               // same shape, or null
+  const bf16* w;                  // [K/8][cout_pad][8] hi, then lo when split
   const float* bias;              // [cout]
   int ks, cin0_pad, cout, cout_pad, relu;
-  int H, W;                       // output (full) resolution
+  int B, H, W;                    // output (full) resolution
   bf16* out;                      // [B, H, W, cout] or null
   bf16* pooled;                   // [B, H/2, W/2, cout] or null
   float* state;                   // [B, H, W, state_stride] or null
   int state_stride, state_off, state_zero;
 };
+
+// a launch configuration: tile rows per warpgroup, warpgroups per CTA
+struct Config {
+  int trw, nwg;
+};
+
+struct Smem {
+  int rows_in, cols_in, plane;    // staged tile geometry; plane = bytes per channel group
+  int w, buf, buf_bytes, total;   // weights; warpgroup g's region at buf + g * buf_bytes:
+                                  // its input tile, then its bf16 band [trw][64][n]
+};
+
+__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
+
+__host__ __device__ inline Smem smem_layout(int ks, int cin_tot, int n, bool split, Config c) {
+  Smem s;
+  const int halo = ks / 2;
+  s.rows_in = c.trw + 2 * halo;
+  s.cols_in = TW + 2 * halo;
+  s.plane = s.rows_in * s.cols_in * 16;
+  s.w = 0;
+  s.buf = align128(ks * ks * cin_tot * n * 2 * (split ? 2 : 1));
+  const int tile = (cin_tot / 8) * s.plane, band = c.trw * TW * n * 2;
+  s.buf_bytes = align128(tile > band ? tile : band);
+  s.total = s.buf + c.nwg * s.buf_bytes;
+  return s;
+}
 
 union Pack8 {
   uint4 u;
@@ -112,148 +162,295 @@ __device__ __forceinline__ uint4 load_up8(const LayerArgs& a, int b, int gy,
   return r.u;
 }
 
-__device__ __forceinline__ float act(const LayerArgs& a, float acc, int c) {
-  const float y = acc + __ldg(a.bias + c);
-  return a.relu ? fmaxf(y, 0.f) : y;
+struct TileIdx {
+  int b, y0, x0;
+};
+
+__device__ __forceinline__ TileIdx tile_idx(const LayerArgs& a, int t, int tr) {
+  const int tiles_x = (a.W + TW - 1) / TW, tiles_y = (a.H + tr - 1) / tr;
+  TileIdx ti;
+  ti.b = t / (tiles_x * tiles_y);
+  ti.y0 = (t / tiles_x) % tiles_y * tr;
+  ti.x0 = t % tiles_x * TW;
+  return ti;
 }
 
-template <int NF>  // cout_pad / 16 output-channel fragments
-__global__ void __launch_bounds__(NTHREADS) conv_layer_kernel(const LayerArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// stage tile t's input [cg][rows_in][cols_in][8] into buf.  Items go to
+// threads by octets of pixels: lane -> (channel group lane / 8, pixel lane
+// % 8), so each quarter-warp writes one 128-byte core matrix (no bank
+// conflicts) and a warp reads 4 channel groups of 8 neighbouring pixels.
+// cp.async for 16-byte aligned channel groups, loads and arithmetic for the
+// upsample and for unaligned inputs, zeros outside the image (the conv's
+// zero padding) and in pad channels
+__device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
+                           unsigned char* buf, int t128) {
+  const TileIdx ti = tile_idx(a, t, tr);
   const int halo = a.ks >> 1;
-  const int tw_in = TW + 2 * halo;
-  const int th_in = TH + 2 * halo;
-  const int cin_tot = a.cin0_pad + a.aux_c;  // a multiple of 16
-  const int chunks = cin_tot >> 3;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
-
-  // ---- prologue: stage the input tile [th_in][tw_in][cin_tot] in bf16,
-  // zeros outside the image (the conv's zero padding) and in pad channels
-  bf16* tile = reinterpret_cast<bf16*>(smem);
+  const int cg_n = (a.cin0_pad + a.aux_c) >> 3;
+  const int npix = L.rows_in * L.cols_in;
+  const int per = 8 * cg_n;  // items per octet of pixels
+  const uint64_t magic = ((1ull << 32) + per - 1) / per;  // k / per == (k * magic) >> 32 here
+  const int n = (npix + 7) / 8 * per;
   const bool in0_vec = (a.in0_c % 8 == 0) && (a.in0_stride % 8 == 0) && (a.in0_off % 8 == 0);
   const bool aux_vec = (a.aux_c % 8 == 0) && (a.aux_stride % 8 == 0) && (a.aux_off % 8 == 0);
-  for (int it = threadIdx.x; it < th_in * tw_in * chunks; it += NTHREADS) {
-    const int ch = it % chunks;
-    const int pix = it / chunks;
-    const int gy = y0 + pix / tw_in - halo;
-    const int gx = x0 + pix % tw_in - halo;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
-      const int c0 = ch * 8;
-      const size_t pixel = ((size_t)b * a.H + gy) * a.W + gx;
-      if (c0 < a.cin0_pad) {
-        if (c0 < a.in0_c) {
-          v = a.upsample ? load_up8(a, b, gy, gx, c0, in0_vec)
-                         : load_px8(a.in0, pixel, a.in0_stride, a.in0_off, c0, a.in0_c, in0_vec);
-        }
-      } else {
-        v = load_px8(a.aux, pixel, a.aux_stride, a.aux_off, c0 - a.cin0_pad, a.aux_c, aux_vec);
-      }
+  for (int k = t128; k < n; k += 128) {
+    const int oct = (int)(((uint64_t)k * magic) >> 32), rem = k - oct * per;
+    const int cg = rem >> 3, pix = oct * 8 + (rem & 7);
+    if (pix >= npix) continue;
+    const int r = halo ? pix / (TW + 2) : pix / TW;
+    const int gy = ti.y0 + r - halo;
+    const int gx = ti.x0 + pix - r * L.cols_in - halo;
+    uint4* d = reinterpret_cast<uint4*>(buf + cg * L.plane + pix * 16);
+    const int c0 = cg * 8;
+    if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W || (c0 < a.cin0_pad && c0 >= a.in0_c)) {
+      *d = make_uint4(0u, 0u, 0u, 0u);
+      continue;
     }
-    *reinterpret_cast<uint4*>(tile + (size_t)pix * cin_tot + ch * 8) = v;
+    const size_t pixel = ((size_t)ti.b * a.H + gy) * a.W + gx;
+    if (c0 < a.cin0_pad) {
+      if (a.upsample) {
+        *d = load_up8(a, ti.b, gy, gx, c0, in0_vec);
+      } else if (in0_vec) {
+        wg::cp_async16(d, a.in0 + pixel * a.in0_stride + a.in0_off + c0);
+      } else {
+        *d = load_px8(a.in0, pixel, a.in0_stride, a.in0_off, c0, a.in0_c, false);
+      }
+    } else if (aux_vec) {
+      wg::cp_async16(d, a.aux + pixel * a.aux_stride + a.aux_off + (c0 - a.cin0_pad));
+    } else {
+      *d = load_px8(a.aux, pixel, a.aux_stride, a.aux_off, c0 - a.cin0_pad, a.aux_c, false);
+    }
   }
+}
+
+template <int N>
+__device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 16) wg::wgmma_ss_n16(d, da, db, acc);
+  else if constexpr (N == 32) wg::wgmma_ss_n32(d, da, db, acc);
+  else wg::wgmma_ss_n48(d, da, db, acc);
+}
+
+// N = cout_pad; TRW = tile rows of a warpgroup (one m64 accumulator each);
+// SPLIT: a second product with the lo weights (a template flag: a branch
+// between the wgmma makes ptxas serialize them).  Each warpgroup walks its
+// own tiles in its own shared-memory region, so one warpgroup's staging and
+// epilogue overlap another's products.
+template <int N, int TRW, bool SPLIT>
+__global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int NACC = N / 2, C8 = N / 8;
+  const int nwg = blockDim.x >> 7;
+  const int cin_tot = a.cin0_pad + a.aux_c;  // a multiple of 16
+  const int kch = cin_tot >> 4;
+  const int K = a.ks * a.ks * cin_tot;
+  const Smem L = smem_layout(a.ks, cin_tot, N, SPLIT, Config{TRW, nwg});
+  const int tid = threadIdx.x, g = tid >> 7, t128 = tid & 127;
+  const int warp_in = t128 >> 5, lane = tid & 31;
+  const int tiles_x = (a.W + TW - 1) / TW, tiles_y = (a.H + TRW - 1) / TRW;
+  const int ntiles = tiles_x * tiles_y * a.B;
+  const int t0 = blockIdx.x * nwg + g, stride = gridDim.x * nwg;
+  unsigned char* buf = smem + L.buf + g * L.buf_bytes;
+  bf16* band = reinterpret_cast<bf16*>(buf);  // [TRW][TW][N] once the products are done
+
+  // ---- the layer's packed weights, once per CTA, and the first tile
+  const int wbytes = K * N * 2 * (SPLIT ? 2 : 1);
+  for (int i = tid * 16; i < wbytes; i += blockDim.x * 16)
+    wg::cp_async16(smem + L.w + i, reinterpret_cast<const unsigned char*>(a.w) + i);
+  if (t0 < ntiles) stage_tile(a, L, t0, TRW, buf, t128);
+  wg::cp_async_commit();
+  wg::cp_async_wait<0>();
+  wg::fence_async_smem();
   __syncthreads();
 
-  // ---- main loop: warp w computes output row w of the tile, two 16-pixel
-  // row fragments x NF 16-channel fragments; K runs over taps x channels
-  const int warp = threadIdx.x >> 5;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NF];
+  // this thread's bias values: channels 8 j + 2 (lane % 4) + {0, 1}
+  float bias[C8][2];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int j = 0; j < C8; ++j)
 #pragma unroll
-    for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[m][n], 0.f);
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * (lane & 3) + e;
+      bias[j][e] = c < a.cout ? __ldg(a.bias + c) : 0.f;
+    }
+  const uint32_t w_hi = wg::smem_addr(smem + L.w);
+  const uint32_t w_lo = w_hi + K * N * 2;
+  const uint32_t a_base = wg::smem_addr(buf);
+  const bool st_vec = (a.state_stride % 2 == 0) && (a.state_off % 2 == 0);
+  PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long c0 = 0, c1 = 0; int nt = 0;)
+  for (int t = t0; t < ntiles; t += stride) {
+    PHASE_CLOCK(c0 = clock64();)
+    wg::cp_async_wait<0>();
+    wg::fence_async_smem();
+    wg::bar_warpgroup(g);
+    PHASE_CLOCK(c1 = clock64(); ph[0] += c1 - c0;)  // phase 0: waiting for the tile
 
-  const int kchunks = cin_tot >> 4;
-  const int ldb = a.cout_pad;
-  for (int dy = 0; dy < a.ks; ++dy) {
-    for (int dx = 0; dx < a.ks; ++dx) {
-      const bf16* arow = tile + ((size_t)(warp + dy) * tw_in + dx) * cin_tot;
-      const size_t wtap = (size_t)(dy * a.ks + dx) * cin_tot * ldb;
-      for (int kc = 0; kc < kchunks; ++kc) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+    // ---- the products: TRW rows of 64 pixels over all taps and 16-channel
+    // steps; the first product starts each sum
+    float acc[TRW][NACC];
+    wg::fence();
+#pragma unroll 1
+    for (int dy = 0; dy < a.ks; ++dy) {
+#pragma unroll 1
+      for (int dx = 0; dx < a.ks; ++dx) {
+        const uint32_t a_tap = a_base + (dy * L.cols_in + dx) * 16;
+        const int ks0 = (dy * a.ks + dx) * kch;
+#pragma unroll 1
+        for (int kc = 0; kc < kch; ++kc) {
+          const int accumulate = (ks0 + kc) > 0;
+          const uint32_t wo = (ks0 + kc) * N * 32;
+          const uint64_t db = wg::desc(w_hi + wo, N * 16, 128);
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
-          wmma::load_matrix_sync(fa[m], arow + (size_t)m * 16 * cin_tot + kc * 16, cin_tot);
-        const size_t woff = wtap + (size_t)kc * 16 * ldb;
+          for (int r = 0; r < TRW; ++r)
+            mma<N>(acc[r], wg::desc(a_tap + 2 * kc * L.plane + r * L.cols_in * 16, L.plane, 128),
+                   db, accumulate);
+          if constexpr (SPLIT) {
+            const uint64_t dl = wg::desc(w_lo + wo, N * 16, 128);
 #pragma unroll
-        for (int n = 0; n < NF; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, a.w_hi + woff + n * 16, ldb);
-#pragma unroll
-          for (int m = 0; m < 2; ++m) wmma::mma_sync(acc[m][n], fa[m], fb, acc[m][n]);
-          if (a.w_lo != nullptr) {
-            wmma::load_matrix_sync(fb, a.w_lo + woff + n * 16, ldb);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) wmma::mma_sync(acc[m][n], fa[m], fb, acc[m][n]);
+            for (int r = 0; r < TRW; ++r)
+              mma<N>(acc[r], wg::desc(a_tap + 2 * kc * L.plane + r * L.cols_in * 16, L.plane, 128),
+                     dl, 1);
           }
         }
       }
     }
-  }
-  __syncthreads();  // every warp is done with the tile; reuse it as staging
-
-  // ---- epilogue: accumulators -> fp32 staging [TH*TW][cout_pad]
-  float* stage = reinterpret_cast<float*>(smem);
+    wg::commit();
+    wg::wait<0>();
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < NF; ++n)
-      wmma::store_matrix_sync(stage + ((size_t)warp * TW + m * 16) * ldb + n * 16,
-                              acc[m][n], ldb, wmma::mem_row_major);
-  __syncthreads();
+    for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
+    PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)  // phase 1: the products
+    wg::bar_warpgroup(g);  // the input tile is consumed: the region takes the band
 
-  if (a.out != nullptr || a.state != nullptr) {
-    for (int it = threadIdx.x; it < TH * TW * a.cout; it += NTHREADS) {
-      const int c = it % a.cout;
-      const int pix = it / a.cout;
-      const int gy = y0 + pix / TW, gx = x0 + pix % TW;
-      if (gy >= a.H || gx >= a.W) continue;
-      const float y = act(a, stage[(size_t)pix * ldb + c], c);
-      const size_t p = ((size_t)b * a.H + gy) * a.W + gx;
-      if (a.out != nullptr) a.out[p * a.cout + c] = __float2bfloat16_rn(y);
-      if (a.state != nullptr) a.state[p * a.state_stride + a.state_off + c] = y;
+    // ---- epilogue from registers: bias, act, fp32 state, bf16 band staged
+    const TileIdx ti = tile_idx(a, t, TRW);
+#pragma unroll
+    for (int r = 0; r < TRW; ++r) {
+      const int gy = ti.y0 + r;
+#pragma unroll
+      for (int j = 0; j < C8; ++j) {
+        const int c = 8 * j + 2 * (lane & 3);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * warp_in + (lane >> 2) + 8 * h;
+          float v0 = acc[r][4 * j + 2 * h] + bias[j][0];
+          float v1 = acc[r][4 * j + 2 * h + 1] + bias[j][1];
+          if (a.relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          *reinterpret_cast<uint32_t*>(band + (r * TW + m) * N + c) = wg::pack_bf16x2(v0, v1);
+          const int gx = ti.x0 + m;
+          if (a.state != nullptr && gy < a.H && gx < a.W && c < a.cout) {
+            float* st = a.state + (((size_t)ti.b * a.H + gy) * a.W + gx) * a.state_stride +
+                        a.state_off + c;
+            if (c + 1 < a.cout && st_vec) {
+              *reinterpret_cast<float2*>(st) = make_float2(v0, v1);
+            } else {
+              st[0] = v0;
+              if (c + 1 < a.cout) st[1] = v1;
+            }
+            if (c == 0)
+              for (int z = 0; z < a.state_zero; ++z) st[a.cout + z] = 0.f;
+          }
+        }
+      }
     }
-  }
-  if (a.state != nullptr && a.state_zero > 0) {
-    for (int it = threadIdx.x; it < TH * TW * a.state_zero; it += NTHREADS) {
-      const int c = it % a.state_zero;
-      const int pix = it / a.state_zero;
-      const int gy = y0 + pix / TW, gx = x0 + pix % TW;
-      if (gy >= a.H || gx >= a.W) continue;
-      const size_t p = ((size_t)b * a.H + gy) * a.W + gx;
-      a.state[p * a.state_stride + a.state_off + a.cout + c] = 0.f;
+    wg::bar_warpgroup(g);
+
+    // ---- band and pool from the staged band: 16-byte stores where the
+    // layer's channels fill N
+    if (a.out != nullptr) {
+      if (a.cout == N) {
+        for (int it = t128; it < TRW * TW * C8; it += 128) {
+          const int pix = it / C8, q = it - pix * C8;
+          const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
+          if (gy >= a.H || gx >= a.W) continue;
+          *reinterpret_cast<uint4*>(a.out + (((size_t)ti.b * a.H + gy) * a.W + gx) * N + q * 8) =
+              *reinterpret_cast<const uint4*>(band + pix * N + q * 8);
+        }
+      } else {
+        for (int it = t128; it < TRW * TW * a.cout; it += 128) {
+          const int pix = it / a.cout, c = it - pix * a.cout;
+          const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
+          if (gy >= a.H || gx >= a.W) continue;
+          a.out[(((size_t)ti.b * a.H + gy) * a.W + gx) * a.cout + c] = band[pix * N + c];
+        }
+      }
     }
-  }
-  if (a.pooled != nullptr) {
-    const int h2 = a.H >> 1, w2 = a.W >> 1;
-    for (int it = threadIdx.x; it < (TH / 2) * (TW / 2) * a.cout; it += NTHREADS) {
-      const int c = it % a.cout;
-      const int q = it / a.cout;
-      const int py = q / (TW / 2), px = q % (TW / 2);
-      const int gy2 = (y0 >> 1) + py, gx2 = (x0 >> 1) + px;
-      if (gy2 >= h2 || gx2 >= w2) continue;
-      const int p00 = (2 * py) * TW + 2 * px;
-      float mx = act(a, stage[(size_t)p00 * ldb + c], c);
-      mx = fmaxf(mx, act(a, stage[(size_t)(p00 + 1) * ldb + c], c));
-      mx = fmaxf(mx, act(a, stage[(size_t)(p00 + TW) * ldb + c], c));
-      mx = fmaxf(mx, act(a, stage[(size_t)(p00 + TW + 1) * ldb + c], c));
-      const size_t p = ((size_t)b * h2 + gy2) * w2 + gx2;
-      a.pooled[p * a.cout + c] = __float2bfloat16_rn(mx);
+    if (a.pooled != nullptr) {
+      const int h2 = a.H >> 1, w2 = a.W >> 1;
+      const int c8 = a.cout == N ? C8 : a.cout;  // 8-channel groups, or single channels
+      for (int it = t128; it < (TRW / 2) * (TW / 2) * c8; it += 128) {
+        const int q = it % c8, pq = it / c8;
+        const int py = pq / (TW / 2), px = pq % (TW / 2);
+        const int gy2 = (ti.y0 >> 1) + py, gx2 = (ti.x0 >> 1) + px;
+        if (gy2 >= h2 || gx2 >= w2) continue;
+        const size_t o = (((size_t)ti.b * h2 + gy2) * w2 + gx2) * a.cout;
+        if (a.cout == N) {
+          const bf16* s0 = band + ((2 * py) * TW + 2 * px) * N + q * 8;
+          float m[8], v[8];
+          unpack8(*reinterpret_cast<const uint4*>(s0), m);
+          const int others[3] = {N, TW * N, TW * N + N};
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            unpack8(*reinterpret_cast<const uint4*>(s0 + others[k]), v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) m[e] = fmaxf(m[e], v[e]);
+          }
+          *reinterpret_cast<uint4*>(a.pooled + o + q * 8) =
+              make_uint4(wg::pack_bf16x2(m[0], m[1]), wg::pack_bf16x2(m[2], m[3]),
+                         wg::pack_bf16x2(m[4], m[5]), wg::pack_bf16x2(m[6], m[7]));
+        } else {
+          const bf16* s0 = band + ((2 * py) * TW + 2 * px) * N + q;
+          const float mx = fmaxf(fmaxf(__bfloat162float(s0[0]), __bfloat162float(s0[N])),
+                                 fmaxf(__bfloat162float(s0[TW * N]), __bfloat162float(s0[TW * N + N])));
+          a.pooled[o + q] = __float2bfloat16_rn(mx);
+        }
+      }
     }
+    wg::bar_warpgroup(g);  // the band is out: stage the next tile
+    if (t + stride < ntiles) stage_tile(a, L, t + stride, TRW, buf, t128);
+    wg::cp_async_commit();
+    PHASE_CLOCK(ph[2] += clock64() - c0; ++nt;)  // phase 2: epilogue and staging
   }
+  PHASE_CLOCK(wg::phase_clocks_add(ph, nt);)
+  wg::cp_async_wait<0>();
 }
 
-template <int NF>
-cudaError_t launch(const LayerArgs& a, dim3 grid, size_t smem, cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv_layer_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  conv_layer_kernel<NF><<<grid, NTHREADS, smem, s>>>(a);
+// the configurations in order of preference: the first whose shared memory
+// fits is launched
+constexpr Config CONFIGS[] = {{4, 3}, {2, 3}, {2, 2}, {2, 1}};
+
+template <int N, int TRW, bool SPLIT>
+cudaError_t launch(const LayerArgs& a, Config c, int smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(conv_layer_kernel<N, TRW, SPLIT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_layer_kernel<N, TRW, SPLIT>,
+                                                      128 * c.nwg, smem);
+  if (e != cudaSuccess) return e;
+  const long long ntiles = (long long)((a.W + TW - 1) / TW) * ((a.H + TRW - 1) / TRW) * a.B;
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long ctas = (ntiles + c.nwg - 1) / c.nwg;
+  const int grid = (int)(ctas < slots ? ctas : slots);
+  conv_layer_kernel<N, TRW, SPLIT><<<grid, 128 * c.nwg, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <int N, bool SPLIT>
+cudaError_t launch_n(const LayerArgs& a, cudaStream_t s) {
+  for (const Config& c : CONFIGS) {
+    const int smem = smem_layout(a.ks, a.cin0_pad + a.aux_c, N, SPLIT, c).total;
+    if (smem > SMEM_MAX) continue;
+    return c.trw == 4 ? launch<N, 4, SPLIT>(a, c, smem, s) : launch<N, 2, SPLIT>(a, c, smem, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int N>
+cudaError_t launch_split(const LayerArgs& a, bool split, cudaStream_t s) {
+  return split ? launch_n<N, true>(a, s) : launch_n<N, false>(a, s);
 }
 
 }  // namespace
@@ -266,12 +463,14 @@ const char* rvdd_cuda_error_string(int e) {
 
 // One conv layer; see LayerArgs for the tensors.  The caller guarantees
 // cin0_pad % 16 == 0, aux_c % 16 == 0, cout_pad in {16, 32, 48},
-// cout <= cout_pad, H == 2*in0_h and W == 2*in0_w when upsample, and
-// 16-byte aligned tensors.  Returns a cudaError_t as int.
+// cout <= cout_pad, H == 2*in0_h and W == 2*in0_w when upsample, even H
+// and W when pooled, 16-byte aligned tensors, and w packed by the wrapper's
+// pack_kmajor ([K/8][cout_pad][8], the lo half after the hi half when
+// split).  Returns a cudaError_t as int.
 int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
                     int in0_h, int in0_w, int upsample,
                     const void* aux, int aux_c, int aux_stride, int aux_off,
-                    const void* w_hi, const void* w_lo, const void* bias,
+                    const void* w, int split, const void* bias,
                     int ks, int cin0_pad, int cout, int cout_pad, int relu,
                     int B, int H, int W,
                     void* out, void* pooled,
@@ -281,29 +480,37 @@ int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
   a.in0 = (const bf16*)in0; a.in0_c = in0_c; a.in0_stride = in0_stride;
   a.in0_off = in0_off; a.in0_h = in0_h; a.in0_w = in0_w; a.upsample = upsample;
   a.aux = (const bf16*)aux; a.aux_c = aux_c; a.aux_stride = aux_stride; a.aux_off = aux_off;
-  a.w_hi = (const bf16*)w_hi; a.w_lo = (const bf16*)w_lo; a.bias = (const float*)bias;
+  a.w = (const bf16*)w; a.bias = (const float*)bias;
   a.ks = ks; a.cin0_pad = cin0_pad; a.cout = cout; a.cout_pad = cout_pad; a.relu = relu;
-  a.H = H; a.W = W;
+  a.B = B; a.H = H; a.W = W;
   a.out = (bf16*)out; a.pooled = (bf16*)pooled;
   a.state = (float*)state; a.state_stride = state_stride; a.state_off = state_off;
   a.state_zero = state_zero;
 
-  const int halo = ks / 2;
-  const size_t tile_bytes =
-      (size_t)(TH + 2 * halo) * (TW + 2 * halo) * (cin0_pad + aux_c) * sizeof(bf16);
-  const size_t stage_bytes = (size_t)TH * TW * cout_pad * sizeof(float);
-  const size_t smem = tile_bytes > stage_bytes ? tile_bytes : stage_bytes;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  switch (cout_pad / 16) {
-    case 1: e = launch<1>(a, grid, smem, s); break;
-    case 2: e = launch<2>(a, grid, smem, s); break;
-    case 3: e = launch<3>(a, grid, smem, s); break;
-    default: e = cudaErrorInvalidValue;
+  if ((cin0_pad + aux_c) % 16 || cin0_pad + aux_c <= 0 || (ks != 1 && ks != 3)) {
+    e = cudaErrorInvalidValue;
+  } else {
+    switch (cout_pad) {
+      case 16: e = launch_split<16>(a, split != 0, s); break;
+      case 32: e = launch_split<32>(a, split != 0, s); break;
+      case 48: e = launch_split<48>(a, split != 0, s); break;
+      default: e = cudaErrorInvalidValue;
+    }
   }
   if (e != cudaSuccess) cudaGetLastError();  // clear it; report it once
   return (int)e;
 }
 
 }  // extern "C"
+
+#ifdef RVDD_PHASE_CLOCKS
+// copies the phase clocks to host[0..3] and zeroes them; returns a cudaError_t
+extern "C" int rvdd_phase_clocks(void* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, wg::g_phase_clocks, sizeof(wg::g_phase_clocks));
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wg::g_phase_clocks, zero, sizeof(zero));
+  return (int)e;
+}
+#endif

@@ -24,52 +24,89 @@
 // keep fp32 taps); proj, pw1, pw2 and the head have bf16 weights and fp32
 // accumulation; biases, LayerNorm and layerscale are fp32; the LN output and
 // the GELU output are rounded to bf16 before their products; every band is
-// stored as bf16.
+// stored as bf16; the GELU's tanh is the exact tanhf.
 //
 // What bounds it on the H100: operations.  Per 1080p frame the seven chains
 // need about 0.81 TFLOP of 1x1 products and 0.10 TFLOP of depthwise taps,
 // all bf16 products with fp32 sums (0.91 ms at the 989 TFLOP/s bf16
 // tensor-core peak; rvdd_tpu's production engine runs the depthwise on its
 // matrix unit too), and about 1.5 GB of chain inputs and outputs (0.45 ms
-// at 3.35 TB/s).  The 1x1 products are 90% of the bound.  This first cut:
-//   * a persistent CTA of 8 warps loads the block's weights into shared
-//     memory once, then walks 8x16-pixel output tiles;
-//   * per tile it stages the input plus its 3-pixel halo (14x22 pixels, all
-//     channels, bf16) in shared memory and, for a proj block, runs the proj
-//     over the whole halo tile on the tensor cores;
-//   * warp w owns output row w (16 pixels, one WMMA row fragment): the
-//     depthwise taps run on CUDA cores in fp32 (2 lanes a pixel, 24
-//     channels each), LN reduces with a lane shuffle;
-//   * pw1 and pw2 run on the tensor cores (WMMA 16x16x16 bf16 -> fp32),
-//     16 hidden channels at a time: the 192-channel hidden never leaves the
-//     SM (each warp holds a 16x16 slice of it at a time);
-// It uses legacy warp-level MMAs, not wgmma, and one CTA per SM.
+// at 3.35 TB/s).  This kernel runs the depthwise, the LayerNorm and the
+// GELU on the CUDA cores in fp32, which sets a floor of its own: 50 G
+// depthwise FMAs (1.6 ms at 132 SMs x 128 lanes x 1.8 GHz) and 3.7 G exact
+// tanhf GELUs (about 20 instructions each, some 2-3 ms), so 3-5 ms a frame.
+// The design:
+//   * a persistent CTA of three warpgroups (384 threads, one per SM) keeps
+//     the block's weights in shared memory: pw1 [48][192], pw2 [192][48]
+//     and the proj in the wgmma B layout ([K/8][N][8] bf16, packed on the
+//     host), the depthwise taps and the vectors in fp32;
+//   * it walks 12x32-pixel output tiles and stages each one's 18x38 input
+//     halo (1.8x the outputs) as [channel group][pixel][8]; for a block
+//     without proj or upsample the next tile's halo is copied with
+//     cp.async while the warpgroups run the current tile's 1x1 products;
+//   * an upsample block copies the half-res pixels its halo reads (at most
+//     12x22) with cp.async and interpolates the halo from shared memory;
+//   * a proj block copies its raw input in two halves of the halo (into the
+//     LN and residual regions, free at that point) and projects each with
+//     wgmma m64n48k16, writing the bf16 tile;
+//   * the depthwise: a warp owns one channel group of 8 and 6 output rows,
+//     lane = column, and slides down the 12 input rows of each tap column,
+//     so each staged pixel is read 2 times an output instead of 7; the
+//     LayerNorm reduces over the six channel groups through shared memory;
+//     its bf16 output is written as the wgmma A operand, and the input's
+//     center pixels are kept for the residual;
+//   * a warpgroup owns 64 output pixels (two rows of the tile) at a time:
+//     pw1 is wgmma m64n96k16 in two halves of 96 hidden channels (A: the LN
+//     output in shared memory), bias, GELU and the bf16 rounding happen in
+//     registers, and the result is the A operand of pw2's wgmma m64n48k16
+//     straight from registers (the FlashAttention-3 P.V pattern): the
+//     hidden never touches shared memory;
+//   * the epilogue computes y = x + ls * (h2 + b2) in registers, writes the
+//     fp32 state and the head from there, and stages the bf16 band for
+//     16-byte stores and the pool.
+// What holds it back (chip_smoke.py and clock64 phase timings on the H100):
+// a plain full-resolution block spends about a third of its time in the
+// depthwise and LayerNorm and most of the rest in the GELU's exact tanhf
+// (removing the GELU cut a block by a third); the products themselves are
+// a small share.  A proj block's raw input copy (cp.async of 16 bytes at a
+// time, about 7 bytes a cycle per SM) adds about 40% to a block, an
+// upsample block's source copy about 20%.  168 registers a thread (384
+// threads, one CTA an SM) leave no room to keep two accumulators in flight:
+// issuing the next pw1 before waiting for pw2 spilled and ptxas serialized
+// the wgmma.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "wgmma.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr int F = 48;                 // block width
 constexpr int HID = 4 * F;            // hidden width
+constexpr int CG = F / 8;             // channel groups of 8
 constexpr int KS = 7, R = 3, TAPS = KS * KS;
-constexpr int TH = 8, TW = 16;        // output tile: warp w -> row w, one M fragment
-constexpr int NWARPS = TH;
-constexpr int NTHREADS = 32 * NWARPS;
+constexpr int TH = 12, TW = 32;       // output tile
 constexpr int HT = TH + 2 * R, WT = TW + 2 * R;
-constexpr int NPIX = HT * WT;                      // 308 halo-tile pixels
-constexpr int NPIX_PAD = (NPIX + 15) / 16 * 16;    // 320: whole M fragments
+constexpr int NPIX = HT * WT;         // 684 halo-tile pixels
+constexpr int NWG = 3;
+constexpr int NTHREADS = 128 * NWG;
+constexpr int NSEG = TH * TW / 64;    // 64-pixel segments: tile rows 2s, 2s+1
+constexpr int SEG_PER_WG = NSEG / NWG;
+constexpr int PRUN = 6;               // output rows per depthwise warp
 constexpr int MAX_CIN = 96;
 constexpr int MAX_HEAD = 8;
-constexpr int CPL = F / 2;            // channels per lane (two lanes a pixel)
 // fp32 vectors in shared memory
 constexpr int V_DW_B = 0, V_LN_G = 48, V_LN_B = 96, V_PW1_B = 144, V_PW2_B = 336,
               V_LS = 384, V_PROJ_B = 432, V_HEAD_B = 480, V_TOTAL = 488;
+constexpr int SEG_BYTES = CG * 64 * 16;  // one segment of the A operand
+constexpr int RAW_PX = 2 * NWG * 64;  // proj input pixels staged at once: half the halo
+constexpr int SRC_R = 12, SRC_C = 22;    // half-res rows and columns an upsampled halo reads
+static_assert(NSEG % NWG == 0 && TH % PRUN == 0 && CG * (TH / PRUN) * 32 == NTHREADS,
+              "tile, warps and segments must match");
 
 struct BlockArgs {
   const bf16* in0;             // [B, in0_h, in0_w, in0_c]
@@ -77,15 +114,15 @@ struct BlockArgs {
   const bf16* aux;             // [B, H, W, aux_stride], channels at aux_off
   int aux_c, aux_stride, aux_off;
   int cin0_pad;                // proj input: in0 channels padded to 16, then aux
-  const bf16* proj_w;          // [cin0_pad + aux_c, F] or null
+  const bf16* proj_w;          // [cin/8][F][8] (packed) or null
   const float* proj_b;
   const float* dw_w;           // [TAPS, F]
   const float* dw_b;
   const float* ln_g;
   const float* ln_b;
-  const bf16* pw1;             // [F, HID]
+  const bf16* pw1;             // [F/8][HID][8] (packed)
   const float* pw1_b;
-  const bf16* pw2;             // [HID, F]
+  const bf16* pw2;             // [HID/8][F][8] (packed)
   const float* pw2_b;
   const float* ls;
   const bf16* head_w;          // [F, n_head] or null
@@ -100,29 +137,36 @@ struct BlockArgs {
 };
 
 struct Smem {
-  int pw1, pw2, dw, vec, head, tile, hn, scr, hid, proj, raw, total;
+  int pw1, pw2, proj, dw, vec, head, tile, ln, res, sum1, sum2, total;
 };
 
 __host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
 
-// byte offsets of the shared-memory regions; cin = proj input channels (0: no proj)
-__host__ __device__ inline Smem smem_layout(int cin) {
+// byte offsets of the shared-memory regions.  ln holds the LN output (the
+// pw1 A operand, [segment][cg][64][8]), and then each segment's bf16 band
+// ([64][F]).  Before the depthwise, a proj block stages half its input at a
+// time in ln and res (adjacent, [cin/8][RAW_PX][8]) and an upsample block
+// its half-res source in ln.
+__host__ __device__ inline Smem smem_layout() {
   Smem s;
   int o = 0;
   s.pw1 = o;  o = align128(o + F * HID * 2);
   s.pw2 = o;  o = align128(o + HID * F * 2);
+  s.proj = o; o = align128(o + MAX_CIN * F * 2);
   s.dw = o;   o = align128(o + TAPS * F * 4);
   s.vec = o;  o = align128(o + V_TOTAL * 4);
   s.head = o; o = align128(o + MAX_HEAD * F * 4);
-  s.tile = o; o = align128(o + NPIX_PAD * F * 2);        // block input (after proj)
-  s.hn = o;   o = align128(o + TH * TW * F * 2);         // LN out, then the bf16 band
-  s.scr = o;  o = align128(o + NWARPS * 16 * F * 4);     // per-warp fp32 staging
-  s.hid = o;  o = align128(o + NWARPS * 16 * 16 * 2);    // per-warp hidden slice
-  s.proj = o; o = align128(o + cin * F * 2);
-  s.raw = o;  o = align128(o + NPIX_PAD * cin * 2);      // proj input
+  s.tile = o; o = align128(o + CG * NPIX * 16);
+  s.ln = o;   o = align128(o + NSEG * SEG_BYTES);
+  s.res = o;  o = align128(o + NSEG * SEG_BYTES);
+  s.sum1 = o; o = align128(o + CG * TH * TW * 4);
+  s.sum2 = o; o = align128(o + CG * TH * TW * 4);
   s.total = o;
   return s;
 }
+static_assert(MAX_CIN / 8 * RAW_PX * 16 <= 2 * NSEG * SEG_BYTES && 2 * RAW_PX >= NPIX,
+              "half the proj input fits the ln and res regions");
+static_assert(SRC_R * SRC_C * F * 2 <= NSEG * SEG_BYTES, "the upsample source fits the ln region");
 
 union Pack8 {
   uint4 u;
@@ -130,17 +174,15 @@ union Pack8 {
 };
 
 __device__ __forceinline__ void unpack8(uint4 u, float* v) {
-  Pack8 r;
-  r.u = u;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(__ushort_as_bfloat16(r.s[k]));
+  v[0] = __uint_as_float(u.x << 16); v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16); v[3] = __uint_as_float(u.y & 0xffff0000u);
+  v[4] = __uint_as_float(u.z << 16); v[5] = __uint_as_float(u.z & 0xffff0000u);
+  v[6] = __uint_as_float(u.w << 16); v[7] = __uint_as_float(u.w & 0xffff0000u);
 }
 
 __device__ __forceinline__ uint4 pack8(const float* v) {
-  Pack8 r;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) r.s[k] = __bfloat16_as_ushort(__float2bfloat16_rn(v[k]));
-  return r.u;
+  return make_uint4(wg::pack_bf16x2(v[0], v[1]), wg::pack_bf16x2(v[2], v[3]),
+                    wg::pack_bf16x2(v[4], v[5]), wg::pack_bf16x2(v[6], v[7]));
 }
 
 // 8 channels [c0, c0+8) of one pixel; channels >= c read as zero
@@ -192,41 +234,150 @@ __device__ __forceinline__ uint4 load_up8(const BlockArgs& a, int b, int gy, int
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {
-  // torch's F.gelu(approximate='tanh')
-  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float x_cube = x * x * x;
-  const float inner = kBeta * (x + 0.044715f * x_cube);
-  return 0.5f * x * (1.f + tanhf(inner));
+  // torch's F.gelu(approximate='tanh'), 0.5 x (1 + tanh(b (x + k x^3))),
+  // in five operations around the exact tanhf
+  const float kBeta = 0.7978845608028654f;  // b = sqrt(2 / pi)
+  const float hx = 0.5f * x;
+  const float inner = x * fmaf(kBeta * 0.044715f, x * x, kBeta);
+  return fmaf(hx, tanhf(inner), hx);
 }
 
-__device__ __forceinline__ void copy16(void* dst, const void* src, int bytes, int tid) {
-  for (int i = tid * 16; i < bytes; i += NTHREADS * 16)
-    *reinterpret_cast<uint4*>((char*)dst + i) = *reinterpret_cast<const uint4*>((const char*)src + i);
+// 8 proj-input channels [c0, c0+8) of image pixel (gy, gx), zeros outside
+// the image: in0 (padded to cin0_pad), then the aux window
+__device__ __forceinline__ uint4 load_in8(const BlockArgs& a, int b, int gy, int gx, int c0,
+                                          bool in0_vec, bool aux_vec) {
+  if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W) return make_uint4(0u, 0u, 0u, 0u);
+  const size_t pixel = ((size_t)b * a.H + gy) * a.W + gx;
+  if (c0 < a.cin0_pad) {
+    if (c0 >= a.in0_c) return make_uint4(0u, 0u, 0u, 0u);
+    return a.upsample ? load_up8(a, b, gy, gx, c0, in0_vec)
+                      : load_px8(a.in0, pixel, a.in0_c, 0, c0, a.in0_c, in0_vec);
+  }
+  return load_px8(a.aux, pixel, a.aux_stride, a.aux_off, c0 - a.cin0_pad, a.aux_c, aux_vec);
+}
+
+// the halo tile [CG][NPIX][8] of a block without proj or upsample: cp.async
+// inside the image, zeros outside (the depthwise conv's zero padding)
+// (items by octets of pixels: each quarter-warp writes one 128-byte row of
+// a channel-group plane, without bank conflicts)
+__device__ void stage_plain(const BlockArgs& a, int b, int y0, int x0, unsigned char* tile) {
+  for (int it = threadIdx.x; it < (NPIX + 7) / 8 * 8 * CG; it += NTHREADS) {
+    const int oct = it / (8 * CG), rem = it - oct * 8 * CG;
+    const int cg = rem >> 3, pix = oct * 8 + (rem & 7);
+    if (pix >= NPIX) continue;
+    const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
+    uint4* dst = reinterpret_cast<uint4*>(tile + ((size_t)cg * NPIX + pix) * 16);
+    if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W)
+      wg::cp_async16(dst, a.in0 + (((size_t)b * a.H + gy) * a.W + gx) * F + cg * 8);
+    else
+      *dst = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// the halo tile of an upsample block: the half-res pixels it reads are
+// copied with cp.async into src ([row][column][F], at most SRC_R x SRC_C),
+// then every halo pixel is interpolated from there
+__device__ void stage_up(const BlockArgs& a, int b, int y0, int x0, unsigned char* tile,
+                         unsigned char* src) {
+  int jlo, jhi, ilo, ihi, unused;
+  float t;
+  ac_taps(max(y0 - R, 0), a.in0_h, jlo, unused, t);
+  ac_taps(min(y0 + TH + R - 1, a.H - 1), a.in0_h, unused, jhi, t);
+  ac_taps(max(x0 - R, 0), a.in0_w, ilo, unused, t);
+  ac_taps(min(x0 + TW + R - 1, a.W - 1), a.in0_w, unused, ihi, t);
+  const int sc = ihi - ilo + 1, n = (jhi - jlo + 1) * sc * CG;
+  for (int it = threadIdx.x; it < n; it += NTHREADS) {
+    const int px = it / CG, cg = it - px * CG, r = px / sc;
+    wg::cp_async16(src + it * 16, a.in0 + (((size_t)b * a.in0_h + jlo + r) * a.in0_w + ilo +
+                                           (px - r * sc)) * F + cg * 8);
+  }
+  wg::cp_async_commit();
+  wg::cp_async_wait<0>();
+  __syncthreads();
+  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+  for (int pix = threadIdx.x; pix < NPIX; pix += NTHREADS) {
+    const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
+    uint4* dst = reinterpret_cast<uint4*>(tile) + pix;
+    if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W) {
+#pragma unroll
+      for (int cg = 0; cg < CG; ++cg) dst[cg * NPIX] = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    int j0, j1, i0, i1;
+    float ty, tx;
+    ac_taps(gy, a.in0_h, j0, j1, ty);
+    ac_taps(gx, a.in0_w, i0, i1, tx);
+    const uint4* p00 = s4 + ((j0 - jlo) * sc + i0 - ilo) * CG;
+    const uint4* p01 = s4 + ((j0 - jlo) * sc + i1 - ilo) * CG;
+    const uint4* p10 = s4 + ((j1 - jlo) * sc + i0 - ilo) * CG;
+    const uint4* p11 = s4 + ((j1 - jlo) * sc + i1 - ilo) * CG;
+#pragma unroll
+    for (int cg = 0; cg < CG; ++cg) {
+      float v00[8], v01[8], v10[8], v11[8], v[8];
+      unpack8(p00[cg], v00);
+      unpack8(p01[cg], v01);
+      unpack8(p10[cg], v10);
+      unpack8(p11[cg], v11);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = lerp_rn(lerp_rn(v00[k], v10[k], ty), lerp_rn(v01[k], v11[k], ty), tx);
+      dst[cg * NPIX] = pack8(v);
+    }
+  }
+}
+
+// halo pixels [p0, p0 + RAW_PX) of a proj block's input, [cin/8][RAW_PX][8]
+// (by octets of pixels, as stage_plain): cp.async for 16-byte aligned
+// channel groups, loads and arithmetic otherwise, zeros outside the image
+// and past the halo
+__device__ void stage_raw(const BlockArgs& a, int b, int y0, int x0, int cin, int p0,
+                          unsigned char* raw, bool in0_vec, bool aux_vec) {
+  const int cgn = cin / 8;
+  for (int it = threadIdx.x; it < RAW_PX * cgn; it += NTHREADS) {
+    const int oct = it / (8 * cgn), rem = it - oct * 8 * cgn;
+    const int cg = rem >> 3, i = oct * 8 + (rem & 7), pix = p0 + i;
+    uint4* dst = reinterpret_cast<uint4*>(raw + (cg * RAW_PX + i) * 16);
+    const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
+    const int c0 = cg * 8;
+    if (pix >= NPIX || gy < 0 || gy >= a.H || gx < 0 || gx >= a.W ||
+        (c0 < a.cin0_pad && c0 >= a.in0_c)) {
+      *dst = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const size_t pixel = ((size_t)b * a.H + gy) * a.W + gx;
+    if (c0 < a.cin0_pad && in0_vec && !a.upsample)
+      wg::cp_async16(dst, a.in0 + pixel * a.in0_c + c0);
+    else if (c0 >= a.cin0_pad && aux_vec)
+      wg::cp_async16(dst, a.aux + pixel * a.aux_stride + a.aux_off + c0 - a.cin0_pad);
+    else
+      *dst = load_in8(a, b, gy, gx, c0, in0_vec, aux_vec);
+  }
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1) convnext_block_kernel(const BlockArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const bool proj = a.proj_w != nullptr;
   const int cin = proj ? a.cin0_pad + a.aux_c : 0;
-  const Smem L = smem_layout(cin);
-  bf16* s_pw1 = reinterpret_cast<bf16*>(smem + L.pw1);
-  bf16* s_pw2 = reinterpret_cast<bf16*>(smem + L.pw2);
-  float* s_dw = reinterpret_cast<float*>(smem + L.dw);
+  const Smem L = smem_layout();
+  const float* s_dw = reinterpret_cast<const float*>(smem + L.dw);
   float* s_vec = reinterpret_cast<float*>(smem + L.vec);
   float* s_head = reinterpret_cast<float*>(smem + L.head);  // [n_head][F]
-  bf16* s_tile = reinterpret_cast<bf16*>(smem + L.tile);
-  bf16* s_hn = reinterpret_cast<bf16*>(smem + L.hn);
-  float* s_scr = reinterpret_cast<float*>(smem + L.scr);
-  bf16* s_hid = reinterpret_cast<bf16*>(smem + L.hid);
-  bf16* s_proj = reinterpret_cast<bf16*>(smem + L.proj);
-  bf16* s_raw = reinterpret_cast<bf16*>(smem + L.raw);
+  bf16* s_tile = reinterpret_cast<bf16*>(smem + L.tile);     // [CG][NPIX][8]
+  float* s_sum1 = reinterpret_cast<float*>(smem + L.sum1);   // [CG][TH*TW]
+  float* s_sum2 = reinterpret_cast<float*>(smem + L.sum2);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = tid >> 7, warp_in = warp & 3;
 
   // ---- the block's weights, once per CTA
-  copy16(s_pw1, a.pw1, F * HID * 2, tid);
-  copy16(s_pw2, a.pw2, HID * F * 2, tid);
-  copy16(s_dw, a.dw_w, TAPS * F * 4, tid);
-  if (proj) copy16(s_proj, a.proj_w, cin * F * 2, tid);
+  for (int i = tid * 16; i < F * HID * 2; i += NTHREADS * 16) {
+    wg::cp_async16(smem + L.pw1 + i, reinterpret_cast<const unsigned char*>(a.pw1) + i);
+    wg::cp_async16(smem + L.pw2 + i, reinterpret_cast<const unsigned char*>(a.pw2) + i);
+  }
+  for (int i = tid * 16; i < TAPS * F * 4; i += NTHREADS * 16)
+    wg::cp_async16(smem + L.dw + i, reinterpret_cast<const unsigned char*>(a.dw_w) + i);
+  for (int i = tid * 16; i < cin * F * 2; i += NTHREADS * 16)
+    wg::cp_async16(smem + L.proj + i, reinterpret_cast<const unsigned char*>(a.proj_w) + i);
+  wg::cp_async_commit();
   for (int i = tid; i < F; i += NTHREADS) {
     s_vec[V_DW_B + i] = a.dw_b[i];
     s_vec[V_LN_G + i] = a.ln_g[i];
@@ -241,267 +392,324 @@ __global__ void __launch_bounds__(NTHREADS, 1) convnext_block_kernel(const Block
     s_head[i] = __bfloat162float(a.head_w[c * a.n_head + j]);
   }
   for (int i = tid; i < a.n_head; i += NTHREADS) s_vec[V_HEAD_B + i] = a.head_b[i];
+  wg::cp_async_wait<0>();
+  wg::fence_async_smem();
   __syncthreads();
 
   const bool in0_vec = a.in0_c % 8 == 0;
   const bool aux_vec = (a.aux_c % 8 == 0) && (a.aux_stride % 8 == 0) && (a.aux_off % 8 == 0);
+  const bool prefetch = !proj && !a.upsample;
   const int tiles_x = (a.W + TW - 1) / TW, tiles_y = (a.H + TH - 1) / TH;
   const int ntiles = tiles_x * tiles_y * a.B;
+  const uint32_t ln_base = wg::smem_addr(smem + L.ln);
+  const uint32_t pw1_base = wg::smem_addr(smem + L.pw1);
+  const uint32_t pw2_base = wg::smem_addr(smem + L.pw2);
 
+  PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long c0 = 0, c1 = 0; int nt = 0;)
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    PHASE_CLOCK(c0 = clock64();)
     const int b = t / (tiles_x * tiles_y);
     const int y0 = (t / tiles_x) % tiles_y * TH;
     const int x0 = t % tiles_x * TW;
 
-    // ---- stage the halo tile [NPIX_PAD][C] in bf16: the input (or, for a
-    // proj block, the proj input), zeros outside the image and in pad
-    // channels
-    {
-      const int cdst = proj ? cin : F;
-      const int c0pad = proj ? a.cin0_pad : F;
-      bf16* dst = proj ? s_raw : s_tile;
-      const int chunks = cdst >> 3;
-      for (int it = tid; it < NPIX_PAD * chunks; it += NTHREADS) {
-        const int ch = it % chunks, pix = it / chunks;
-        const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (pix < NPIX && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
-          const int c0 = ch * 8;
-          const size_t pixel = ((size_t)b * a.H + gy) * a.W + gx;
-          if (c0 < c0pad) {
-            if (c0 < a.in0_c)
-              v = a.upsample ? load_up8(a, b, gy, gx, c0, in0_vec)
-                             : load_px8(a.in0, pixel, a.in0_c, 0, c0, a.in0_c, in0_vec);
-          } else {
-            v = load_px8(a.aux, pixel, a.aux_stride, a.aux_off, c0 - c0pad, a.aux_c, aux_vec);
+    // ---- 1. the halo tile in bf16: staged (or prefetched), interpolated,
+    // or projected
+    if (a.upsample && !proj) {
+      stage_up(a, b, y0, x0, smem + L.tile, smem + L.ln);
+      __syncthreads();
+    } else if (!proj) {
+      if (!prefetch || t == (int)blockIdx.x) stage_plain(a, b, y0, x0, smem + L.tile);
+      wg::cp_async_commit();
+      wg::cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      // the input in two copies of half the halo each (into the ln and res
+      // regions); warpgroup g projects chunks g and g + NWG of each half
+      // (wgmma m64n48k16, back to back) and writes them to the tile
+      unsigned char* raw = smem + L.ln;
+      const uint32_t raw_base = wg::smem_addr(raw), proj_base = wg::smem_addr(smem + L.proj);
+      for (int part = 0; part < 2; ++part) {
+        stage_raw(a, b, y0, x0, cin, part * RAW_PX, raw, in0_vec, aux_vec);
+        wg::cp_async_commit();
+        wg::cp_async_wait<0>();
+        wg::fence_async_smem();
+        __syncthreads();
+        float acc[2][F / 2];
+        wg::fence();
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          for (int kc = 0; kc < cin / 16; ++kc)
+            wg::wgmma_ss_n48(acc[c],
+                             wg::desc(raw_base + (2 * kc * RAW_PX + (g + c * NWG) * 64) * 16,
+                                      RAW_PX * 16, 128),
+                             wg::desc(proj_base + kc * 1536, 768, 128), kc > 0);
+        wg::commit();
+        wg::wait<0>();
+#pragma unroll
+        for (int c = 0; c < 2; ++c) wg::fence_regs(acc[c]);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int pix = part * RAW_PX + (g + c * NWG) * 64 + 16 * warp_in + (lane >> 2) + 8 * h;
+            if (pix >= NPIX) continue;
+            const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
+            const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+#pragma unroll
+            for (int j = 0; j < CG; ++j) {
+              const int ch = 8 * j + 2 * (lane & 3);
+              const float v0 = in ? acc[c][4 * j + 2 * h] + s_vec[V_PROJ_B + ch] : 0.f;
+              const float v1 = in ? acc[c][4 * j + 2 * h + 1] + s_vec[V_PROJ_B + ch + 1] : 0.f;
+              *reinterpret_cast<uint32_t*>(s_tile + ((size_t)j * NPIX + pix) * 8 +
+                                           2 * (lane & 3)) = wg::pack_bf16x2(v0, v1);
+            }
           }
         }
-        *reinterpret_cast<uint4*>(dst + (size_t)pix * cdst + ch * 8) = v;
+        __syncthreads();  // the raw region is free (and, after the second half, the tile is whole)
       }
     }
-    __syncthreads();
 
-    // ---- proj over the whole halo tile: [NPIX_PAD, cin] @ [cin, F] + b,
-    // zero outside the image (the depthwise conv's zero padding), bf16
-    if (proj) {
-      float* scr = s_scr + warp * 16 * F;
-      for (int mf = warp; mf < NPIX_PAD / 16; mf += NWARPS) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[3];
+    PHASE_CLOCK(c1 = clock64(); ph[0] += c1 - c0;)  // phase 0: the halo tile
+    // ---- 2. depthwise 7x7 (fp32) and LayerNorm: warp -> channel group cg
+    // and output rows [run*6, run*6 + 6), lane -> column
+    {
+      const int cg = warp % CG, run = warp / CG, x = lane;
+      float acc[PRUN][8];
 #pragma unroll
-        for (int n = 0; n < 3; ++n) wmma::fill_fragment(acc[n], 0.f);
-        for (int kc = 0; kc < cin / 16; ++kc) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, s_raw + (size_t)mf * 16 * cin + kc * 16, cin);
+      for (int o = 0; o < PRUN; ++o)
 #pragma unroll
-          for (int n = 0; n < 3; ++n) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, s_proj + kc * 16 * F + n * 16, F);
-            wmma::mma_sync(acc[n], fa, fb, acc[n]);
+        for (int e = 0; e < 8; ++e) acc[o][e] = 0.f;
+      const bf16* col = s_tile + ((size_t)cg * NPIX + run * PRUN * WT + x) * 8;
+#pragma unroll
+      for (int dx = 0; dx < KS; ++dx) {
+        float w[KS][8];
+#pragma unroll
+        for (int dy = 0; dy < KS; ++dy) {
+          const float4 w0 = *reinterpret_cast<const float4*>(s_dw + (dy * KS + dx) * F + cg * 8);
+          const float4 w1 = *reinterpret_cast<const float4*>(s_dw + (dy * KS + dx) * F + cg * 8 + 4);
+          w[dy][0] = w0.x; w[dy][1] = w0.y; w[dy][2] = w0.z; w[dy][3] = w0.w;
+          w[dy][4] = w1.x; w[dy][5] = w1.y; w[dy][6] = w1.z; w[dy][7] = w1.w;
+        }
+#pragma unroll
+        for (int ir = 0; ir < PRUN + KS - 1; ++ir) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(col + (ir * WT + dx) * 8);
+          if (dx == R && ir >= R && ir < R + PRUN) {  // the center pixel: the residual x
+            const int row = run * PRUN + ir - R;
+            *reinterpret_cast<uint4*>(smem + L.res + (row >> 1) * SEG_BYTES + cg * 1024 +
+                                      ((row & 1) * 32 + x) * 16) = raw;
+          }
+          float v[8];
+          unpack8(raw, v);
+#pragma unroll
+          for (int o = 0; o < PRUN; ++o) {
+            const int dy = ir - o;
+            if (dy >= 0 && dy < KS) {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) acc[o][e] = fmaf(v[e], w[dy][e], acc[o][e]);
+            }
           }
         }
+      }
+      // LN over the 48 channels of each pixel: partial sums per channel group
 #pragma unroll
-        for (int n = 0; n < 3; ++n)
-          wmma::store_matrix_sync(scr + n * 16, acc[n], F, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 16 * F; e += 32) {
-          const int pix = mf * 16 + e / F, c = e % F;
-          const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
-          const bool in = pix < NPIX && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-          s_tile[(size_t)pix * F + c] = __float2bfloat16_rn(in ? scr[e] + s_vec[V_PROJ_B + c] : 0.f);
+      for (int o = 0; o < PRUN; ++o) {
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          acc[o][e] += s_vec[V_DW_B + cg * 8 + e];
+          s += acc[o][e];
         }
-        __syncwarp();
+        s_sum1[cg * TH * TW + (run * PRUN + o) * TW + x] = s;
       }
       __syncthreads();
+#pragma unroll
+      for (int o = 0; o < PRUN; ++o) {
+        const int px = (run * PRUN + o) * TW + x;
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < CG; ++k) s += s_sum1[k * TH * TW + px];
+        const float u = s / F;
+        float q = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          acc[o][e] -= u;
+          q += acc[o][e] * acc[o][e];
+        }
+        s_sum2[cg * TH * TW + px] = q;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < PRUN; ++o) {
+        const int row = run * PRUN + o, px = row * TW + x;
+        float q = 0.f;
+#pragma unroll
+        for (int k = 0; k < CG; ++k) q += s_sum2[k * TH * TW + px];
+        const float rstd = rsqrtf(q / F + 1e-6f);
+        float hn[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          hn[e] = __fadd_rn(__fmul_rn(__fmul_rn(acc[o][e], rstd), s_vec[V_LN_G + cg * 8 + e]),
+                            s_vec[V_LN_B + cg * 8 + e]);
+        *reinterpret_cast<uint4*>(smem + L.ln + (row >> 1) * SEG_BYTES + cg * 1024 +
+                                  ((row & 1) * 32 + x) * 16) = pack8(hn);
+      }
     }
+    wg::fence_async_smem();
+    __syncthreads();
 
-    // ---- depthwise 7x7 (fp32) and LayerNorm: lane -> pixel lane/2 of the
-    // warp's row, channels [c0, c0 + 24)
-    const int p = lane >> 1, c0 = (lane & 1) * CPL;
-    {
-      float acc[CPL];
+    PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)  // phase 1: depthwise and LN
+    // the tile buffer is free: copy the next tile's halo while the 1x1
+    // products run
+    const int tn = t + gridDim.x;
+    if (prefetch && tn < ntiles)
+      stage_plain(a, tn / (tiles_x * tiles_y), (tn / tiles_x) % tiles_y * TH, tn % tiles_x * TW,
+                  smem + L.tile);
+
+    // ---- 3. pw1 -> GELU -> pw2 per 64-pixel segment and half of the
+    // hidden, then the epilogue.  (Overlapping them, with a second pw1
+    // accumulator or A fragment in flight, needs more than the 168 registers
+    // a thread has here: ptxas then spills and serializes the wgmma.)
+    float acc1[HID / 4], acc2[F / 2];
+    uint32_t afr[6][4];
+    auto issue_pw1 = [&](int s, int half) {  // acc1 = LN[s] @ pw1[:, half]
+      wg::fence();
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[c] = 0.f;
-      for (int dy = 0; dy < KS; ++dy) {
-        const bf16* row = s_tile + ((size_t)(warp + dy) * WT + p) * F + c0;
+      for (int kc = 0; kc < F / 16; ++kc)
+        wg::wgmma_ss_n96(acc1, wg::desc(ln_base + s * SEG_BYTES + kc * 2048, 1024, 128),
+                         wg::desc(pw1_base + kc * 6144 + half * 1536, 3072, 128), kc > 0);
+      wg::commit();
+    };
+    auto gelu_pw2 = [&](int half) {  // acc2 (+)= GELU(acc1 + b1) @ pw2[half]
+      // bias, GELU, bf16: column pairs of the accumulator become the A
+      // fragments of pw2's k16 steps
 #pragma unroll
-        for (int dx = 0; dx < KS; ++dx) {
-          const float* w = s_dw + (dy * KS + dx) * F + c0;
+      for (int j = 0; j < 12; ++j) {
+        const int c = half * 96 + 8 * j + 2 * (lane & 3);
+        const float b0 = s_vec[V_PW1_B + c], b1 = s_vec[V_PW1_B + c + 1];
 #pragma unroll
-          for (int q = 0; q < CPL / 8; ++q) {
-            float v[8];
-            unpack8(*reinterpret_cast<const uint4*>(row + dx * F + q * 8), v);
-            const float4 w0 = *reinterpret_cast<const float4*>(w + q * 8);
-            const float4 w1 = *reinterpret_cast<const float4*>(w + q * 8 + 4);
-            acc[q * 8 + 0] = fmaf(v[0], w0.x, acc[q * 8 + 0]);
-            acc[q * 8 + 1] = fmaf(v[1], w0.y, acc[q * 8 + 1]);
-            acc[q * 8 + 2] = fmaf(v[2], w0.z, acc[q * 8 + 2]);
-            acc[q * 8 + 3] = fmaf(v[3], w0.w, acc[q * 8 + 3]);
-            acc[q * 8 + 4] = fmaf(v[4], w1.x, acc[q * 8 + 4]);
-            acc[q * 8 + 5] = fmaf(v[5], w1.y, acc[q * 8 + 5]);
-            acc[q * 8 + 6] = fmaf(v[6], w1.z, acc[q * 8 + 6]);
-            acc[q * 8 + 7] = fmaf(v[7], w1.w, acc[q * 8 + 7]);
+        for (int h = 0; h < 2; ++h)
+          afr[j >> 1][(j & 1) * 2 + h] = wg::pack_bf16x2(gelu_tanh(acc1[4 * j + 2 * h] + b0),
+                                                         gelu_tanh(acc1[4 * j + 2 * h + 1] + b1));
+      }
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 6; ++kk)
+        wg::wgmma_rs_n48(acc2, afr[kk], wg::desc(pw2_base + (half * 6 + kk) * 1536, 768, 128),
+                         half + kk > 0);
+      wg::commit();
+    };
+    auto wait_all = [&]() {
+      wg::wait<0>();
+      wg::fence_regs(acc1);
+      wg::fence_regs(acc2);
+#pragma unroll
+      for (int kk = 0; kk < 6; ++kk) wg::fence_regs(afr[kk]);
+    };
+#pragma unroll 1
+    for (int si = 0; si < SEG_PER_WG; ++si) {
+      const int s = g * SEG_PER_WG + si;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        issue_pw1(s, half);
+        wait_all();
+        gelu_pw2(half);
+        wait_all();
+      }
+
+      // epilogue: y = x + ls * (h2 + b2) in registers; the bf16 band goes
+      // to the segment's region as [64][F], fp32 y and the head to the state
+      bf16* band = reinterpret_cast<bf16*>(smem + L.ln + s * SEG_BYTES);
+      const bf16* res = reinterpret_cast<const bf16*>(smem + L.res + s * SEG_BYTES);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * warp_in + (lane >> 2) + 8 * h;
+        const int gy = y0 + 2 * s + (m >> 5), gx = x0 + (m & 31);
+        const bool valid = gy < a.H && gx < a.W;
+        const size_t px = ((size_t)b * a.H + gy) * a.W + gx;
+        float part[MAX_HEAD];
+#pragma unroll
+        for (int k = 0; k < MAX_HEAD; ++k) part[k] = 0.f;
+#pragma unroll
+        for (int j = 0; j < CG; ++j) {
+          const int c = 8 * j + 2 * (lane & 3);
+          const __nv_bfloat162 xv =
+              *reinterpret_cast<const __nv_bfloat162*>(res + (j * 64 + m) * 8 + 2 * (lane & 3));
+          const float y0v = __fadd_rn(__low2float(xv), __fmul_rn(s_vec[V_LS + c],
+                                      acc2[4 * j + 2 * h] + s_vec[V_PW2_B + c]));
+          const float y1v = __fadd_rn(__high2float(xv), __fmul_rn(s_vec[V_LS + c + 1],
+                                      acc2[4 * j + 2 * h + 1] + s_vec[V_PW2_B + c + 1]));
+          const uint32_t yb = wg::pack_bf16x2(y0v, y1v);
+          *reinterpret_cast<uint32_t*>(band + m * F + c) = yb;
+          const float yb0 = __uint_as_float(yb << 16), yb1 = __uint_as_float(yb & 0xffff0000u);
+#pragma unroll
+          for (int k = 0; k < MAX_HEAD; ++k)
+            if (k < a.n_head)
+              part[k] = fmaf(yb1, s_head[k * F + c + 1], fmaf(yb0, s_head[k * F + c], part[k]));
+          if (valid && a.state != nullptr && a.feat_off >= 0)
+            *reinterpret_cast<float2*>(a.state + px * a.state_stride + a.feat_off + c) =
+                make_float2(y0v, y1v);
+        }
+#pragma unroll
+        for (int k = 0; k < MAX_HEAD; ++k) {
+          if (k < a.n_head) {  // uniform
+            part[k] += __shfl_xor_sync(0xffffffffu, part[k], 1);
+            part[k] += __shfl_xor_sync(0xffffffffu, part[k], 2);
+          }
+        }
+        if (valid && (lane & 3) == 0) {
+          if (a.state != nullptr) {
+            float* st = a.state + px * a.state_stride;
+#pragma unroll
+            for (int k = 0; k < MAX_HEAD; ++k)
+              if (k < a.n_head) st[k] = part[k] + s_vec[V_HEAD_B + k];
+            const int zend = a.feat_off >= 0 ? a.feat_off : a.state_stride;
+            for (int ch = a.n_head; ch < zend; ++ch) st[ch] = 0.f;
+          } else if (a.head_out != nullptr) {
+#pragma unroll
+            for (int k = 0; k < MAX_HEAD; ++k)
+              if (k < a.n_head)
+                a.head_out[px * a.n_head + k] = __float2bfloat16_rn(part[k] + s_vec[V_HEAD_B + k]);
           }
         }
       }
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        acc[c] += s_vec[V_DW_B + c0 + c];
-        s += acc[c];
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      const float u = s / F;
-      float q2 = 0.f;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        acc[c] -= u;
-        q2 += acc[c] * acc[c];
-      }
-      q2 += __shfl_xor_sync(0xffffffffu, q2, 1);
-      const float rstd = rsqrtf(q2 / F + 1e-6f);
-#pragma unroll
-      for (int c = 0; c < CPL; ++c)
-        acc[c] = __fadd_rn(__fmul_rn(__fmul_rn(acc[c], rstd), s_vec[V_LN_G + c0 + c]),
-                           s_vec[V_LN_B + c0 + c]);
-      bf16* hrow = s_hn + (size_t)(warp * TW + p) * F + c0;
-#pragma unroll
-      for (int q = 0; q < CPL / 8; ++q)
-        *reinterpret_cast<uint4*>(hrow + q * 8) = pack8(acc + q * 8);
-    }
-    __syncwarp();
+      wg::bar_warpgroup(g);
 
-    // ---- pw1 -> GELU -> pw2 on the tensor cores, 16 hidden channels at a
-    // time; the warp's h2 [16 px, F] lands in its fp32 staging
-    float* scr = s_scr + warp * 16 * F;
-    {
-      bf16* hid = s_hid + warp * 256;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        wmma::load_matrix_sync(fa[k], s_hn + (size_t)warp * TW * F + k * 16, F);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc2[3];
-#pragma unroll
-      for (int o = 0; o < 3; ++o) wmma::fill_fragment(acc2[o], 0.f);
-      for (int n = 0; n < HID / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc1;
-        wmma::fill_fragment(acc1, 0.f);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, s_pw1 + k * 16 * HID + n * 16, HID);
-          wmma::mma_sync(acc1, fa[k], fb, acc1);
-        }
-        wmma::store_matrix_sync(scr, acc1, 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int e = lane; e < 256; e += 32)
-          hid[e] = __float2bfloat16_rn(gelu_tanh(scr[e] + s_vec[V_PW1_B + n * 16 + (e & 15)]));
-        __syncwarp();
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fh;
-        wmma::load_matrix_sync(fh, hid, 16);
-#pragma unroll
-        for (int o = 0; o < 3; ++o) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, s_pw2 + n * 16 * F + o * 16, F);
-          wmma::mma_sync(acc2[o], fh, fb, acc2[o]);
-        }
-        __syncwarp();
-      }
-#pragma unroll
-      for (int o = 0; o < 3; ++o)
-        wmma::store_matrix_sync(scr + o * 16, acc2[o], F, wmma::mem_row_major);
-      __syncwarp();
-    }
-
-    // ---- epilogue per pixel: y = x + ls * (h2 + b2); the bf16 band goes to
-    // the warp's own rows of s_hn, fp32 y and the head to the state
-    {
-      const int gy = y0 + warp, gx = x0 + p;
-      const bool valid = gy < a.H && gx < a.W;
-      const bf16* xc = s_tile + ((size_t)(warp + R) * WT + p + R) * F + c0;
-      const float* h2 = scr + p * F + c0;
-      float y[CPL], yb[CPL];
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const float hv = h2[c] + s_vec[V_PW2_B + c0 + c];
-        y[c] = __fadd_rn(__bfloat162float(xc[c]), __fmul_rn(s_vec[V_LS + c0 + c], hv));
-        yb[c] = __bfloat162float(__float2bfloat16_rn(y[c]));
-      }
-      bf16* brow = s_hn + (size_t)(warp * TW + p) * F + c0;
-#pragma unroll
-      for (int q = 0; q < CPL / 8; ++q)
-        *reinterpret_cast<uint4*>(brow + q * 8) = pack8(yb + q * 8);
-
-      float part[MAX_HEAD];
-#pragma unroll
-      for (int j = 0; j < MAX_HEAD; ++j) {
-        part[j] = 0.f;
-        if (j < a.n_head) {
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) part[j] = fmaf(yb[c], s_head[j * F + c0 + c], part[j]);
-        }
-        part[j] += __shfl_xor_sync(0xffffffffu, part[j], 1);
-      }
-      const size_t px = ((size_t)b * a.H + gy) * a.W + gx;
-      if (valid && a.state != nullptr) {
-        float* st = a.state + px * a.state_stride;
-        if (a.feat_off >= 0) {
-#pragma unroll
-          for (int q = 0; q < CPL / 4; ++q)
-            *reinterpret_cast<float4*>(st + a.feat_off + c0 + q * 4) =
-                make_float4(y[q * 4], y[q * 4 + 1], y[q * 4 + 2], y[q * 4 + 3]);
-        }
-        if ((lane & 1) == 0) {
-#pragma unroll
-          for (int j = 0; j < MAX_HEAD; ++j)
-            if (j < a.n_head) st[j] = part[j] + s_vec[V_HEAD_B + j];
-          const int zend = a.feat_off >= 0 ? a.feat_off : a.state_stride;
-          for (int ch = a.n_head; ch < zend; ++ch) st[ch] = 0.f;
+      // band and pool of the segment, 16-byte vectors
+      const int t128 = tid & 127;
+      if (a.out != nullptr) {
+        for (int it = t128; it < 64 * CG; it += 128) {
+          const int m = it / CG, q = it % CG;
+          const int gy = y0 + 2 * s + (m >> 5), gx = x0 + (m & 31);
+          if (gy >= a.H || gx >= a.W) continue;
+          *reinterpret_cast<uint4*>(a.out + (((size_t)b * a.H + gy) * a.W + gx) * F + q * 8) =
+              *reinterpret_cast<const uint4*>(band + m * F + q * 8);
         }
       }
-      if (valid && a.head_out != nullptr && (lane & 1) == 0) {
+      if (a.pooled != nullptr) {
+        const int h2 = a.H >> 1, w2 = a.W >> 1;
+        for (int it = t128; it < 16 * CG; it += 128) {
+          const int pxl = it / CG, q = it % CG;
+          const int gy2 = (y0 >> 1) + s, gx2 = (x0 >> 1) + pxl;
+          if (gy2 >= h2 || gx2 >= w2) continue;
+          float mx[8], v[8];
+          unpack8(*reinterpret_cast<const uint4*>(band + (2 * pxl) * F + q * 8), mx);
+          const int others[3] = {2 * pxl + 1, 32 + 2 * pxl, 33 + 2 * pxl};
 #pragma unroll
-        for (int j = 0; j < MAX_HEAD; ++j)
-          if (j < a.n_head)
-            a.head_out[px * a.n_head + j] = __float2bfloat16_rn(part[j] + s_vec[V_HEAD_B + j]);
-      }
-    }
-    __syncthreads();
-
-    // ---- band and pool from the bf16 tile in s_hn, 16-byte vectors
-    if (a.out != nullptr) {
-      for (int it = tid; it < TH * TW * (F / 8); it += NTHREADS) {
-        const int pix = it / (F / 8), ch = it % (F / 8);
-        const int gy = y0 + pix / TW, gx = x0 + pix % TW;
-        if (gy >= a.H || gx >= a.W) continue;
-        const size_t px = ((size_t)b * a.H + gy) * a.W + gx;
-        *reinterpret_cast<uint4*>(a.out + px * F + ch * 8) =
-            *reinterpret_cast<const uint4*>(s_hn + (size_t)pix * F + ch * 8);
-      }
-    }
-    if (a.pooled != nullptr) {
-      const int h2 = a.H >> 1, w2 = a.W >> 1;
-      for (int it = tid; it < (TH / 2) * (TW / 2) * (F / 8); it += NTHREADS) {
-        const int q = it / (F / 8), ch = it % (F / 8);
-        const int py = q / (TW / 2), pxl = q % (TW / 2);
-        const int gy2 = (y0 >> 1) + py, gx2 = (x0 >> 1) + pxl;
-        if (gy2 >= h2 || gx2 >= w2) continue;
-        const int p00 = (2 * py) * TW + 2 * pxl;
-        float m[8], v[8];
-        unpack8(*reinterpret_cast<const uint4*>(s_hn + (size_t)p00 * F + ch * 8), m);
-        const int others[3] = {p00 + 1, p00 + TW, p00 + TW + 1};
+          for (int k = 0; k < 3; ++k) {
+            unpack8(*reinterpret_cast<const uint4*>(band + others[k] * F + q * 8), v);
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          unpack8(*reinterpret_cast<const uint4*>(s_hn + (size_t)others[k] * F + ch * 8), v);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) m[e] = fmaxf(m[e], v[e]);
+            for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], v[e]);
+          }
+          *reinterpret_cast<uint4*>(a.pooled + (((size_t)b * h2 + gy2) * w2 + gx2) * F + q * 8) =
+              pack8(mx);
         }
-        const size_t pp = ((size_t)b * h2 + gy2) * w2 + gx2;
-        *reinterpret_cast<uint4*>(a.pooled + pp * F + ch * 8) = pack8(m);
       }
     }
     __syncthreads();  // the next tile overwrites the shared tiles
+    PHASE_CLOCK(ph[2] += clock64() - c0; ++nt;)  // phase 2: 1x1 products, GELU, epilogue
   }
+  PHASE_CLOCK(wg::phase_clocks_add(ph, nt);)
+  wg::cp_async_wait<0>();
 }
 
 }  // namespace
@@ -516,8 +724,10 @@ const char* rvdd_cuda_error_string(int e) {
 // bf16 tensors that are contiguous and 16-byte aligned, in0_c == 48 and no
 // aux without proj, cin0_pad and aux_c multiples of 16 with
 // cin0_pad + aux_c <= 96, n_head <= 8, H == 2*in0_h and W == 2*in0_w when
-// upsample, and a state with feat_off + 48 == state_stride (or feat_off < 0),
-// state_stride and feat_off multiples of 4.  Returns a cudaError_t as int.
+// upsample, even H and W when pooled, a state with feat_off + 48 ==
+// state_stride (or feat_off < 0), state_stride and feat_off multiples of
+// 4, and pw1, pw2 and proj_w packed by the wrapper's pack_kmajor.  Returns
+// a cudaError_t as int.
 int rvdd_convnext_block(const void* in0, int in0_c, int in0_h, int in0_w, int upsample,
                         const void* aux, int aux_c, int aux_stride, int aux_off,
                         int cin0_pad, const void* proj_w, const void* proj_b,
@@ -547,24 +757,31 @@ int rvdd_convnext_block(const void* in0, int in0_c, int in0_h, int in0_w, int up
   const int cin = proj_w != nullptr ? cin0_pad + aux_c : 0;
   if (cin > MAX_CIN || a.n_head > MAX_HEAD || cin % 16 || (proj_w == nullptr && (in0_c != F || aux_c)))
     return (int)cudaErrorInvalidValue;
-  const int smem = smem_layout(cin).total;
+  const int smem = smem_layout().total;
   cudaError_t e = cudaFuncSetAttribute(convnext_block_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, convnext_block_kernel, NTHREADS, smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
   }
   const long long ntiles = (long long)((W + TW - 1) / TW) * ((H + TH - 1) / TH) * B;
-  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const int grid = (int)(ntiles < slots ? ntiles : slots);
+  const int grid = (int)(ntiles < sms ? ntiles : sms);
   convnext_block_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(a);
   e = cudaGetLastError();
   return (int)e;
 }
 
 }  // extern "C"
+
+#ifdef RVDD_PHASE_CLOCKS
+// copies the phase clocks to host[0..3] and zeroes them; returns a cudaError_t
+extern "C" int rvdd_phase_clocks(void* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, wg::g_phase_clocks, sizeof(wg::g_phase_clocks));
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wg::g_phase_clocks, zero, sizeof(zero));
+  return (int)e;
+}
+#endif

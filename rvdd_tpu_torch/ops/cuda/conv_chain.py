@@ -12,7 +12,8 @@ combined fp32 recurrence state straight from its accumulator.
 
 What bounds it on the H100 is operations (~1.07 TFLOP a 1080p frame,
 ~1.0 ms at the bf16 tensor-core peak); see the kernel's source note for
-what this first cut does about it.
+what its design (wgmma with the packed weights resident in shared memory)
+does about it.
 
 Numerics are rvdd_tpu's ``fast`` preset: bf16 activations and weights,
 fp32 accumulation and bias, bf16 bands between layers, and for the layers
@@ -38,7 +39,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [
     _P, _I, _I, _I, _I, _I, _I,      # in0, c, stride, off, h, w, upsample
     _P, _I, _I, _I,                  # aux, c, stride, off
-    _P, _P, _P,                      # w_hi, w_lo, bias
+    _P, _I, _P,                      # w_pack, split, bias
     _I, _I, _I, _I, _I,              # ks, cin0_pad, cout, cout_pad, relu
     _I, _I, _I,                      # B, H, W
     _P, _P,                          # out, pooled
@@ -50,6 +51,21 @@ MAX_COUT = 48  # the kernel holds at most three 16-channel output fragments
 
 def _ceil16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def pack_kmajor(m: torch.Tensor) -> torch.Tensor:
+    """[K, N] -> [K/8, N, 8]: the wgmma B operand in shared memory, K-major
+    and unswizzled (csrc/wgmma.cuh), so 8 consecutive N rows of 8 K values
+    form one 128-byte core matrix."""
+    k, n = m.shape
+    if k % 8:
+        raise ValueError(f"pack_kmajor: K {k} is not a multiple of 8")
+    return m.reshape(k // 8, 8, n).permute(0, 2, 1).contiguous()
+
+
+def unpack_kmajor(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_kmajor`: [K/8, N, 8] -> [K, N]."""
+    return p.permute(0, 2, 1).reshape(-1, p.shape[1])
 
 
 def split_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,6 +94,7 @@ class ChainLayer:
     w_hi: torch.Tensor     # [ks*ks*(cin0_pad+aux_c), cout_pad] bf16
     w_lo: Optional[torch.Tensor]
     bias: torch.Tensor     # [cout] fp32
+    w_pack: torch.Tensor   # the kernel's copy: pack_kmajor(w_hi), then pack_kmajor(w_lo) if split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,15 +144,29 @@ def pack_chain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
             m = F.pad(m, (0, cout_pad - cout))
             return m.reshape(k * k * (cin0_pad + aux_c), cout_pad).contiguous()
 
+        w_hi, w_lo = kmat(hi), kmat(lo) if lo is not None else None
+        halves = [pack_kmajor(w_hi)] + ([pack_kmajor(w_lo)] if w_lo is not None else [])
         layers.append(ChainLayer(
             ks=k, cin0=cin0, cin0_pad=cin0_pad, aux_c=aux_c, cout=cout,
             cout_pad=cout_pad, relu=acts[l] == "relu", split=bool(split[l]),
-            w_plain=w_used.permute(3, 2, 0, 1).contiguous(),
-            w_hi=kmat(hi), w_lo=kmat(lo) if lo is not None else None,
-            bias=bs[l].float().contiguous(),
+            w_plain=w_used.permute(3, 2, 0, 1).contiguous(), w_hi=w_hi, w_lo=w_lo,
+            bias=bs[l].float().contiguous(), w_pack=torch.cat(halves).contiguous(),
         ))
         prev = cout
     return Chain(tuple(layers))
+
+
+def layer_weight_from_pack(layer: ChainLayer) -> torch.Tensor:
+    """The OIHW fp32 weights the kernel multiplies by, rebuilt from
+    ``layer.w_pack`` alone (hi + lo for a split layer, pad rows and
+    columns dropped): equals ``layer.w_plain``."""
+    halves = unpack_kmajor(layer.w_pack.float()).reshape(
+        2 if layer.split else 1, -1, layer.cout_pad)
+    m = halves.sum(0) if layer.split else halves[0]
+    k = layer.ks
+    m = m.reshape(k, k, layer.cin0_pad + layer.aux_c, layer.cout_pad)
+    m = torch.cat([m[:, :, :layer.cin0], m[:, :, layer.cin0_pad:]], dim=2)[..., :layer.cout]
+    return m.permute(3, 2, 0, 1).contiguous()
 
 
 def _state_plan(state_out, chain: Chain):
@@ -257,7 +288,7 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
     elif aux is not None:
         raise ValueError("conv_chain: aux given but layer 1 reads no aux channels")
     for layer in chain.layers:
-        if layer.w_hi.device != dev:
+        if layer.w_pack.device != dev:
             raise ValueError("conv_chain: the packed chain lies on another device")
 
     state, plan, n_state = None, {}, 0
@@ -284,7 +315,7 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
                 int(l == 0 and upsample_input),
                 aux.data_ptr() if use_aux else None, layer.aux_c if use_aux else 0,
                 aux_stride, aux_off,
-                layer.w_hi.data_ptr(), _ptr(layer.w_lo), layer.bias.data_ptr(),
+                layer.w_pack.data_ptr(), int(layer.split), layer.bias.data_ptr(),
                 layer.ks, layer.cin0_pad, layer.cout, layer.cout_pad, int(layer.relu),
                 b, hh, ww, _ptr(out), _ptr(pooled),
                 state.data_ptr() if l in plan else None, n_state, st_off, st_zero,

@@ -15,7 +15,8 @@ What bounds it on the H100 is operations: a 1080p frame's seven chains do
 ~0.81 TFLOP of 1x1 products and ~0.10 TFLOP of depthwise taps, all bf16
 products with fp32 sums, ~0.91 ms at the 989 TFLOP/s bf16 tensor-core
 peak, ahead of ~0.45 ms of bytes; see the kernel's source note for what
-this first cut does about it.
+its design (wgmma with resident weights, the hidden kept in registers)
+does about it and for the floor that its CUDA-core depthwise and GELU set.
 
 Numerics are rvdd_tpu's ``fast`` preset in its production depthwise mode
 ('mxu2'): bf16 depthwise taps, bf16 1x1 and head weights, fp32 biases,
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from rvdd_tpu_torch import _build
+from rvdd_tpu_torch.ops.cuda.conv_chain import pack_kmajor, unpack_kmajor
 from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
 
 WIDTH = 48       # the architecture's block width
@@ -83,6 +85,10 @@ class CnxBlock:
     pw2: torch.Tensor                   # [192, 48] bf16
     pw2_b: torch.Tensor
     ls: torch.Tensor
+    # the kernel's copies, K-major for wgmma (pack_kmajor): [K/8, N, 8] bf16
+    proj_pack: Optional[torch.Tensor]   # [(cin0_pad + aux_c)/8, 48, 8]
+    pw1_pack: torch.Tensor              # [6, 192, 8]
+    pw2_pack: torch.Tensor              # [24, 48, 8]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,14 +129,27 @@ def pack_block(sd: Mapping[str, torch.Tensor], cin0: int, aux_c: int = 0) -> Cnx
     dw = f32["dw.weight"]
     if tuple(dw.shape) != (WIDTH, 1, KSIZE, KSIZE):
         raise NotImplementedError(f"depthwise weight {tuple(dw.shape)}")
+    pw1, pw2 = _mat1x1(f32["pw1.weight"]), _mat1x1(f32["pw2.weight"])
     return CnxBlock(
         cin0=cin0, cin0_pad=cin0_pad, aux_c=aux_c, proj_w=proj_w, proj_b=proj_b,
         dw_w=dw.reshape(WIDTH, KSIZE * KSIZE).t().to(BF16).float().contiguous(),
         dw_b=f32["dw.bias"], ln_g=f32["ln.weight"], ln_b=f32["ln.bias"],
-        pw1=_mat1x1(f32["pw1.weight"]), pw1_b=f32["pw1.bias"],
-        pw2=_mat1x1(f32["pw2.weight"]), pw2_b=f32["pw2.bias"],
+        pw1=pw1, pw1_b=f32["pw1.bias"], pw2=pw2, pw2_b=f32["pw2.bias"],
         ls=f32["layerscale.layerscale"],
+        proj_pack=pack_kmajor(proj_w) if proj_w is not None else None,
+        pw1_pack=pack_kmajor(pw1), pw2_pack=pack_kmajor(pw2),
     )
+
+
+def block_mats_from_pack(blk: CnxBlock) -> dict:
+    """The fp32 matrices the plain version multiplies by, rebuilt from the
+    kernel's packed copies alone: ``proj`` [cin0 + aux_c, 48] (pad rows
+    dropped), ``pw1`` [48, 192] and ``pw2`` [192, 48]."""
+    mats = {"pw1": unpack_kmajor(blk.pw1_pack).float(), "pw2": unpack_kmajor(blk.pw2_pack).float()}
+    if blk.proj_pack is not None:
+        m = unpack_kmajor(blk.proj_pack).float()
+        mats["proj"] = torch.cat([m[:blk.cin0], m[blk.cin0_pad:]])
+    return mats
 
 
 def pack_chain(blocks: Sequence[Mapping[str, torch.Tensor]], cin0: int, *, aux_c: int = 0,
@@ -314,10 +333,10 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
         rc = fn(cur.data_ptr(), cur.shape[-1], ch, cw, int(i == 0 and upsample_input),
                 aux.data_ptr() if use_aux else None, blk.aux_c if use_aux else 0,
                 aux_stride, aux_off,
-                blk.cin0_pad, _ptr(blk.proj_w), _ptr(blk.proj_b),
+                blk.cin0_pad, _ptr(blk.proj_pack), _ptr(blk.proj_b),
                 blk.dw_w.data_ptr(), blk.dw_b.data_ptr(), blk.ln_g.data_ptr(),
-                blk.ln_b.data_ptr(), blk.pw1.data_ptr(), blk.pw1_b.data_ptr(),
-                blk.pw2.data_ptr(), blk.pw2_b.data_ptr(), blk.ls.data_ptr(),
+                blk.ln_b.data_ptr(), blk.pw1_pack.data_ptr(), blk.pw1_b.data_ptr(),
+                blk.pw2_pack.data_ptr(), blk.pw2_b.data_ptr(), blk.ls.data_ptr(),
                 _ptr(chain.head_w) if head else None, _ptr(chain.head_b) if head else None,
                 chain.n_head if head else 0,
                 b, hh, ww, _ptr(out), _ptr(pl), _ptr(head_out) if head else None,

@@ -1,0 +1,154 @@
+"""Where a kernel's time goes: per-phase cycle counts of the two chain kernels.
+
+    python -m rvdd_tpu_torch.probe [--reps 10]
+
+Needs a CUDA card.  Builds conv_chain.cu and convnext_chain.cu a second
+time with ``-DRVDD_PHASE_CLOCKS`` (into ``_build/lib<name>_phases.so``), in
+which thread 0 of each CTA adds the ``clock64`` cycles of each phase of its
+tiles to a device counter, and runs single launches at 1080p:
+
+- ``conv_chain``: a 3x3 48->48 layer (K = 432), and a chain of that layer
+  and a 3x3 96->48 layer reading an aux tensor (K = 864); phases: waiting
+  for the tile, the products, the epilogue with the next tile's staging;
+- ``convnext_chain``: a plain block, a proj block (96 input channels) and
+  an upsample block; phases: the halo tile (staging, projection or
+  interpolation), the depthwise and LayerNorm, the 1x1 products with the
+  GELU and the epilogue.
+
+For each it prints the time (CUDA events, the build without clocks) and the
+mean cycles per tile and phase, as thread 0 of each CTA sees them (in
+conv_chain, the first warpgroup's tiles; the phases of a chain's layers are
+pooled).  Random weights from a seed; the outputs are not checked here
+(chip_smoke.py and the card tests do that).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+
+import torch
+
+from rvdd_tpu_torch import _build
+from rvdd_tpu_torch.ops.cuda import conv_chain as cc
+from rvdd_tpu_torch.ops.cuda import convnext_chain as cx
+
+H, W = 1080, 1920
+
+
+def build_phases(name: str) -> ctypes.CDLL:
+    """lib<name>_phases.so: the source built with the phase clocks."""
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    out = _build.BUILD_DIR / f"lib{name}_phases.so"
+    tmp = _build.BUILD_DIR / f"lib{name}_phases.so.{os.getpid()}.tmp"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-DRVDD_PHASE_CLOCKS", "-o", str(tmp),
+           str(_build.CSRC_DIR / f"{name}.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc {name} with phase clocks failed:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+def time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phases(lib: ctypes.CDLL, fn) -> list:
+    """Mean cycles per tile of each phase over one run of fn."""
+    buf = (ctypes.c_ulonglong * 4)()
+    lib.rvdd_phase_clocks.argtypes = [ctypes.c_void_p]
+    _build.check(lib, lib.rvdd_phase_clocks(ctypes.addressof(buf)), "phase clocks")
+    fn()
+    torch.cuda.synchronize()
+    _build.check(lib, lib.rvdd_phase_clocks(ctypes.addressof(buf)), "phase clocks")
+    tiles = max(int(buf[3]), 1)
+    return [buf[i] / tiles for i in range(3)] + [int(buf[3])]
+
+
+def conv_cases(dev, gen):
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    x = rnd(1, H, W, 48).to(torch.bfloat16)
+    aux = rnd(1, H, W, 48).to(torch.bfloat16)
+    zero = torch.zeros(48, device=dev)
+    k432 = cc.pack_chain([rnd(3, 3, 48, 48, scale=0.07)], [zero], ["relu"], [3])
+    k864 = cc.pack_chain([rnd(3, 3, 48, 48, scale=0.07), rnd(3, 3, 96, 48, scale=0.05)],
+                         [zero, zero], ["relu", "relu"], [3, 3])
+    return [
+        ("3x3 48->48 (K=432)", lambda: cc.conv_chain(x, k432), 2 * H * W * 432 * 48),
+        ("3x3 48->48 then 3x3 96->48 with aux (K=432, 864)",
+         lambda: cc.conv_chain(x, k864, aux=aux), 2 * H * W * 1296 * 48),
+    ]
+
+
+def cnx_cases(dev, gen):
+    def sd(cin):
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, device=dev, generator=gen) * scale
+
+        d = {"dw.weight": rnd(48, 1, 7, 7, scale=0.2), "dw.bias": rnd(48, scale=0.1),
+             "ln.weight": 1 + rnd(48, scale=0.1), "ln.bias": rnd(48, scale=0.1),
+             "pw1.weight": rnd(192, 48, 1, 1, scale=0.2), "pw1.bias": rnd(192, scale=0.1),
+             "pw2.weight": rnd(48, 192, 1, 1, scale=0.1), "pw2.bias": rnd(48, scale=0.1),
+             "layerscale.layerscale": 0.1 + rnd(48, scale=0.05)}
+        if cin != 48:
+            d["proj.weight"] = rnd(48, cin, 1, 1, scale=0.1)
+            d["proj.bias"] = rnd(48, scale=0.1)
+        return d
+
+    x = torch.randn(1, H, W, 48, device=dev, generator=gen).to(torch.bfloat16)
+    x96 = torch.randn(1, H, W, 96, device=dev, generator=gen).to(torch.bfloat16)
+    xh = torch.randn(1, H // 2, W // 2, 48, device=dev, generator=gen).to(torch.bfloat16)
+    plain, proj = cx.pack_chain([sd(48)], 48), cx.pack_chain([sd(96)], 96)
+    return [
+        ("plain block", lambda: cx.convnext_chain(x, plain)),
+        ("proj block (96 -> 48)", lambda: cx.convnext_chain(x96, proj)),
+        ("upsample block", lambda: cx.convnext_chain(xh, plain, upsample_input=True)),
+    ]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("probe: needs a CUDA card")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
+    _build.build(("conv_chain", "convnext_chain"))
+    groups = [
+        ("conv_chain", conv_cases(dev, gen),
+         ("wait for tile", "products", "epilogue + staging")),
+        ("convnext_chain", [(n, f, None) for n, f in cnx_cases(dev, gen)],
+         ("halo tile", "depthwise + LN", "1x1 + GELU + epilogue")),
+    ]
+    for name, cases, labels in groups:
+        base = _build._LIBS.get(name) or _build.load_library(name)
+        clocked = build_phases(name)
+        for label, fn, flops in cases:
+            _build._LIBS[name] = base
+            ms = time_ms(fn, args.reps)
+            _build._LIBS[name] = clocked
+            ph = phases(clocked, fn)
+            rate = f", {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s" if flops else ""
+            print(f"{name} {label}: {ms:.3f} ms{rate}; cycles per tile ({ph[3]} tiles seen): "
+                  + ", ".join(f"{lab} {v:.0f}" for lab, v in zip(labels, ph[:3])), flush=True)
+        _build._LIBS[name] = base
+
+
+if __name__ == "__main__":
+    main()

@@ -20,8 +20,10 @@ torch = pytest.importorskip("torch")
 
 from rvdd_tpu_torch.models.convert import convnext_from_flax  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
+    block_mats_from_pack,
     convnext_chain,
     convnext_chain_plain,
+    pack_block,
     pack_chain,
 )
 from rvdd_tpu_torch.ops.resize import upsample2x_bilinear  # noqa: E402
@@ -42,7 +44,7 @@ CASES = {
 # port takes the flagship's 9-channel chain-A input and pools the emit, and
 # runs the eighth-res core as a chain of five blocks
 CARD_CASES = dict(CASES, chain_a=dict(cin=9, n=3, aux=(56, 8, 48), emit=(2,), pool=(2,)),
-                  mid=dict(cin=48, n=5))
+                  mid=dict(cin=48, n=5), proj96=dict(cin=96, n=1, pool=(0,)))
 
 
 @pytest.fixture(scope="module")
@@ -87,11 +89,11 @@ def block_params(rng, cin):
     return p
 
 
-def make_case(case, seed=0, h=H, w=W):
+def make_case(case, seed=0, h=H, w=W, batch=1):
     rng = np.random.default_rng(seed)
     hx, wx = (h // 2, w // 2) if case.get("upsample") else (h, w)
-    x = _bf16(rng.standard_normal((1, hx, wx, case["cin"])))
-    aux = _bf16(rng.standard_normal((1, h, w, case["aux"][0]))) if "aux" in case else None
+    x = _bf16(rng.standard_normal((batch, hx, wx, case["cin"])))
+    aux = _bf16(rng.standard_normal((batch, h, w, case["aux"][0]))) if "aux" in case else None
     cins = [case["cin"]] + [96 if (j == 1 and "aux" in case) else 48 for j in range(1, case["n"])]
     blocks = [block_params(rng, c) for c in cins]
     head = None
@@ -273,6 +275,57 @@ def test_convnext_chain_kernel_matches_plain(cuda, name):
         err = float(np.max(np.abs(g - wv)))
         assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, err)
         assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), name
+
+
+# (chain input channels, aux channels) of a block: no proj, the flagship's
+# 9-channel input (proj 16 after padding), a 16-channel input, block 1 of a
+# chain with aux (proj 96), and a 96-channel input
+PACK_BLOCKS = {"no_proj": (48, 0), "proj9": (9, 0), "proj16": (16, 0), "proj48_aux48": (48, 48),
+               "proj96": (96, 0)}
+
+
+@pytest.mark.parametrize("name", list(PACK_BLOCKS))
+def test_packed_block_gives_back_the_plain_matrices(name):
+    """The kernel's K-major copies of proj [cin, 48], pw1 [48, 192] and pw2
+    [192, 48] unpack to exactly the matrices block_plain multiplies by
+    (proj: without the pad rows between the input and the aux channels)."""
+    cin0, aux_c = PACK_BLOCKS[name]
+    rng = np.random.default_rng(12)
+    sd = convnext_from_flax(block_params(rng, cin0 + aux_c))
+    blk = pack_block(sd, cin0, aux_c)
+    mats = block_mats_from_pack(blk)
+    assert tuple(blk.pw1_pack.shape) == (6, 192, 8) and tuple(blk.pw2_pack.shape) == (24, 48, 8)
+    assert torch.equal(mats["pw1"], blk.pw1.float())
+    assert torch.equal(mats["pw2"], blk.pw2.float())
+    if cin0 + aux_c == 48:
+        assert blk.proj_pack is None and "proj" not in mats
+    else:
+        assert tuple(blk.proj_pack.shape) == ((blk.cin0_pad + aux_c) // 8, 48, 8)
+        want = torch.cat([blk.proj_w[:blk.cin0], blk.proj_w[blk.cin0_pad:]]).float()
+        assert torch.equal(mats["proj"], want)
+        assert mats["proj"].shape == (cin0 + aux_c, 48)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [72, 200])
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_convnext_chain_kernel_ragged_batch2(cuda, name, w):
+    """Every card case (proj blocks with 16 and 96 input channels among
+    them) at widths that are not multiples of the 32-column tile, 22 or 26
+    rows (not multiples of the 12-row tile), batch 2; the bound of
+    test_convnext_chain_kernel_matches_plain."""
+    case = CARD_CASES[name]
+    h = 22 if w == 72 else 26
+    x, aux, blocks, head = make_case(case, seed=4, h=h, w=w, batch=2)
+    got = run_port(case, x, aux, blocks, head, cuda)
+    want = run_port(case, x, aux, blocks, head, cuda, plain=True)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == 2
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, w, err)
+        assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), (name, w)
 
 
 @pytest.mark.gpu

@@ -19,7 +19,10 @@ torch = pytest.importorskip("torch")
 from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
     conv_chain,
     conv_chain_plain,
+    layer_weight_from_pack,
     pack_chain,
+    pack_kmajor,
+    unpack_kmajor,
 )
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import (  # noqa: E402
     warp_bicubic,
@@ -80,15 +83,15 @@ CARD_CASES = dict(CASES, six_channel_input=dict(
     h=16, w=40, chans=(6, 16, 16), acts=("none", "relu"), ks=(3, 3), aux=(56, 8, 16)))
 
 
-def make_case(case, seed=0, h=None, w=None):
+def make_case(case, seed=0, h=None, w=None, batch=1):
     """numpy inputs and HWIO weights (kaiming scale) for one chain case."""
     rng = np.random.default_rng(seed)
     h, w = h or case["h"], w or case["w"]
     hx, wx = (h // 2, w // 2) if case.get("upsample") else (h, w)
-    x = _bf16(rng.standard_normal((1, hx, wx, case["chans"][0])))
+    x = _bf16(rng.standard_normal((batch, hx, wx, case["chans"][0])))
     aux = None
     if "aux" in case:
-        aux = _bf16(rng.standard_normal((1, h, w, case["aux"][0])))
+        aux = _bf16(rng.standard_normal((batch, h, w, case["aux"][0])))
     ws, bs = [], []
     for l in range(len(case["ks"])):
         cin = case["chans"][l] + (case["aux"][2] if (l == 1 and "aux" in case) else 0)
@@ -230,6 +233,93 @@ def test_conv_chain_kernel_matches_plain(cuda, name):
         err = float(np.max(np.abs(g - wv)))
         assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, err)
         assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), name
+
+
+# the main path's layer shapes: (ks, layer-0 input, aux, cout, split);
+# K = ks^2 * (cin0_pad + aux) is 144, 432, 864 or 48
+PACK_SHAPES = {
+    "K144_six_channel_input": (3, 6, 0, 48, False),
+    "K432": (3, 48, 0, 48, False),
+    "K432_split": (3, 48, 0, 48, True),
+    "K864_aux": (3, 48, 48, 48, False),
+    "K48_head_N16": (1, 48, 0, 3, False),
+    "K48_head_N16_split": (1, 48, 0, 3, True),
+    "K144_N16": (3, 16, 0, 16, False),
+}
+
+
+@pytest.mark.parametrize("name", list(PACK_SHAPES))
+def test_packed_weights_give_back_the_plain_matrix(name):
+    """The kernel's copy of a layer's weights (``w_pack``, [K/8, N, 8]
+    K-major, the lo half after the hi half) unpacks to exactly the OIHW
+    matrix the plain version convolves with, and each 8 x 8 core matrix
+    holds rows [8 kg, 8 kg + 8) of w_hi for 8 output channels."""
+    ks, cin, aux_c, cout, split = PACK_SHAPES[name]
+    rng = np.random.default_rng(11)
+    w0 = torch.from_numpy(rng.standard_normal((ks, ks, cin, 48)).astype(np.float32))
+    ws, bs, acts, kss, sp = [w0], [torch.zeros(48)], ["relu"], [ks], [False]
+    if aux_c:  # the layer under test reads layer 0's output and the aux channels
+        ws.append(torch.from_numpy(rng.standard_normal((ks, ks, 48 + aux_c, cout)).astype(np.float32)))
+        bs.append(torch.zeros(cout))
+        acts.append("relu")
+        kss.append(ks)
+        sp.append(split)
+    else:
+        ws[0] = torch.from_numpy(rng.standard_normal((ks, ks, cin, cout)).astype(np.float32))
+        bs[0], sp[0] = torch.zeros(cout), split
+    layer = pack_chain(ws, bs, acts, kss, weight_split=sp).layers[-1]
+    k = ks * ks * (layer.cin0_pad + layer.aux_c)
+    assert layer.w_pack.dtype == BF16
+    assert tuple(layer.w_pack.shape) == ((2 if split else 1) * k // 8, layer.cout_pad, 8)
+    assert torch.equal(layer_weight_from_pack(layer), layer.w_plain)
+    hi = unpack_kmajor(layer.w_pack[:k // 8])
+    assert torch.equal(hi, layer.w_hi)
+    assert torch.equal(layer.w_pack[1, 2], layer.w_hi[8:16, 2])
+    if split:
+        assert torch.equal(unpack_kmajor(layer.w_pack[k // 8:]), layer.w_lo)
+
+
+def test_pack_kmajor_round_trip():
+    m = torch.arange(48 * 16, dtype=torch.float32).reshape(48, 16)
+    p = pack_kmajor(m)
+    assert tuple(p.shape) == (6, 16, 8)
+    assert torch.equal(p[2, 5], m[16:24, 5])
+    assert torch.equal(unpack_kmajor(p), m)
+    with pytest.raises(ValueError):
+        pack_kmajor(m[:12])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cout", [48, 3])
+def test_conv_chain_kernel_1x1_is_a_plain_gemm(cuda, cout):
+    """A lone 1x1 layer is a plain GEMM [pixels, 48] @ [48, cout]: the
+    check that the wgmma descriptors (LBO, SBO) read the K-major operands
+    as packed.  N = 48, and N = 16 for the 3-channel head."""
+    case = dict(h=20, w=72, chans=(48, cout), acts=("none",), ks=(1,))
+    x, aux, ws, bs = make_case(case, seed=7)
+    got = run_port(case, x, aux, ws, bs, cuda)[0]
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True)[0]
+    assert np.max(np.abs(got - want)) <= 2.0 ** -7 * np.max(np.abs(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [72, 200])
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_conv_chain_kernel_ragged_batch2(cuda, name, w):
+    """Every card case at widths that are not multiples of the 64-column
+    tile, 22 or 26 rows (not multiples of the 2- or 4-row tile), batch 2;
+    the bound of test_conv_chain_kernel_matches_plain."""
+    case = CARD_CASES[name]
+    h = 22 if w == 72 else 26
+    x, aux, ws, bs = make_case(case, seed=2, h=h, w=w, batch=2)
+    got = run_port(case, x, aux, ws, bs, cuda)
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == 2
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, w, err)
+        assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), (name, w)
 
 
 @pytest.mark.gpu
