@@ -1,6 +1,6 @@
 """Smoke run of rvdd_tpu_torch on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--warp-source DIR]
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
@@ -13,7 +13,13 @@
    a PyTorch library yardstick (F.grid_sample for the warps, cuDNN F.conv2d
    per conv layer, and for a ConvNeXt chain its blocks as cuDNN depthwise
    conv, F.layer_norm, bf16 matmuls and F.gelu), beside the bound computed
-   from the inputs.
+   from the inputs, and the share of the bound.  The warp is timed at its
+   three shapes (the 56-ch state, the 3-ch bf16 future frame, the solver's
+   stack) and prints, per flow, the share of output tiles that staged their
+   source window in shared memory, gathered directly or were all zeroed
+   (the kernel's counter, held equal to ``tile_paths``).  With
+   ``--warp-source DIR`` it also times the warp kernel of another checkout
+   (e.g. the parent commit's tree) against this one, in turns.
 4. Runs the TV-L1 solver on a 540x960 pair with a known flow, once per
    preset, through the kernel route and the plain route: the two agree
    within tests/test_tvl1.py's limits and both find the known flow.
@@ -43,11 +49,15 @@ It needs a card: without one it exits 2 before doing anything.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -75,6 +85,7 @@ from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
     convnext_chain_plain,
 )
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import (  # noqa: E402
+    tile_paths,
     warp_bicubic,
     warp_bicubic_plain,
     warp_catmull_zero,
@@ -167,9 +178,34 @@ def plain_mode():
 # ------------------------------------------------------------------ warp
 
 
+def tile_shares(name: str, kernel, x, fl, zero_outside: bool = False, **kw) -> list:
+    """One launch with the kernel's tile counter: the tiles that staged
+    their window, gathered directly and were all zeroed; they must equal
+    tile_paths' plain count.  Prints the shares; returns the counts."""
+    counts = torch.zeros(3, dtype=torch.int32, device=DEV)
+    kernel(x, fl, tile_counts=counts, **kw)
+    got = counts.cpu().tolist()
+    want = tile_paths(fl, x.shape[-1], x.dtype, zero_outside=zero_outside).tolist()
+    n = sum(got)
+    log(f"{name} tile paths of {n} tiles: window {100 * got[0] / n:.2f}%, direct "
+        f"{100 * got[1] / n:.2f}%, all zeroed {100 * got[2] / n:.2f}% (plain rule: {want})")
+    if got != want:
+        raise AssertionError(f"{name}: the kernel's tile paths {got} differ from the rule's {want}")
+    return got
+
+
+def grid_of(fl, h, w):
+    """F.grid_sample's normalized grid (align_corners=True) of flow [1, h, w, 2]."""
+    yy, xx = torch.meshgrid(torch.arange(h, device=DEV, dtype=torch.float32),
+                            torch.arange(w, device=DEV, dtype=torch.float32), indexing="ij")
+    return torch.stack([(xx + fl[0, ..., 0]) * (2.0 / (w - 1)) - 1,
+                        (yy + fl[0, ..., 1]) * (2.0 / (h - 1)) - 1], -1)[None]
+
+
 def check_warp(gen) -> dict:
     """The 56-ch fp32 state at 1080p, warped to bf16 as on the main path,
-    by the bench's smooth flow and by a flow far beyond +-48 px."""
+    by the bench's smooth flow and by a flow far beyond +-48 px; and the
+    flagship's future frame (3-ch bf16 to bf16) by the smooth flow."""
     c = 56
     state = torch.rand(1, H, W, c, device=DEV, generator=gen) * 2 - 1
     _, raw_flow = make_inputs(H // 2, W // 2, seed=0, device=DEV)
@@ -192,6 +228,7 @@ def check_warp(gen) -> dict:
             raise AssertionError(f"warp_bicubic disagrees with its plain version ({name})")
         errs.append(err)
         del got, got32, want
+        tile_shares(f"warp[{name}]", warp_bicubic, state, fl, out_dtype=BF16)
     # the flagship's future frame: 3-channel bf16 in, bf16 out
     frame = (torch.rand(1, H, W, 3, device=DEV, generator=gen) * 2 - 1).to(BF16)
     err = float((warp_bicubic(frame, smooth, out_dtype=BF16).float()
@@ -200,23 +237,41 @@ def check_warp(gen) -> dict:
     if not err <= 1e-2:
         raise AssertionError("warp_bicubic disagrees with its plain version (future frame)")
     errs.append(err)
+    tile_shares("warp[future frame]", warp_bicubic, frame, smooth, out_dtype=BF16)
     fl = smooth
     ms = time_ms(lambda: warp_bicubic(state, fl, out_dtype=BF16), reps=20)
     plain_ms = time_ms(lambda: warp_bicubic_plain(state, fl, out_dtype=BF16), reps=2)
     # library yardstick: torch's bicubic grid_sample (same semantics), NCHW
     x_nchw = state.permute(0, 3, 1, 2).contiguous()
-    grid = torch.stack([(xx + fl[0, ..., 0]) * (2.0 / (W - 1)) - 1,
-                        (yy + fl[0, ..., 1]) * (2.0 / (H - 1)) - 1], -1)[None]
+    grid = grid_of(fl, H, W)
     lib_ms = time_ms(lambda: F.grid_sample(x_nchw, grid, mode="bicubic",
                                            padding_mode="border", align_corners=True),
                      reps=5)
     nbytes = H * W * (4 * c + 2 * 4 + 2 * c)  # fp32 state + flow in, bf16 out
     bound = nbytes / HBM_BPS * 1e3
-    log(f"warp timing: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, F.grid_sample "
-        f"{lib_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.0f} MB)")
-    del state, x_nchw, grid, large
+    log(f"warp timing [state, 56-ch fp32 -> bf16]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"F.grid_sample {lib_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.0f} MB), "
+        f"{100 * bound / ms:.1f}% of the bound")
+    del x_nchw, grid, large
+    # the future frame is short: timed from a CUDA graph over 4 input sets
+    # (166 MB with their outputs), so its inputs come from HBM
+    sets = [(frame.clone(), fl.clone()) for _ in range(4)]
+    fut_ms = graph_ms(lambda a, f: warp_bicubic(a, f, out_dtype=BF16), sets, reps=96)
+    fut_plain_ms = time_ms(lambda: warp_bicubic_plain(frame, fl, out_dtype=BF16), reps=2)
+    lib_sets = [(a.float().permute(0, 3, 1, 2).contiguous(), grid_of(f, H, W)) for a, f in sets]
+    fut_lib_ms = graph_ms(lambda a, g: F.grid_sample(a, g, mode="bicubic", padding_mode="border",
+                                                     align_corners=True), lib_sets, reps=96)
+    fut_bytes = H * W * (2 * 3 + 2 * 4 + 2 * 3)  # bf16 frame + flow in, bf16 out
+    fut_bound = fut_bytes / HBM_BPS * 1e3
+    log(f"warp timing [future frame, 3-ch bf16 -> bf16]: kernel {fut_ms:.4f} ms, plain "
+        f"{fut_plain_ms:.3f} ms, F.grid_sample (fp32 NCHW copy of the frame) {fut_lib_ms:.4f} ms, "
+        f"bound {fut_bound:.4f} ms ({fut_bytes / 1e6:.1f} MB), "
+        f"{100 * fut_bound / fut_ms:.1f}% of the bound")
+    del state, sets, lib_sets
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=lib_ms)
+                bound_by="bytes", library_ms=lib_ms, future_ms=fut_ms,
+                future_plain_ms=fut_plain_ms, future_bound_ms=fut_bound,
+                future_library_ms=fut_lib_ms)
 
 
 # ----------------------------------------------------------- conv chains
@@ -512,6 +567,7 @@ def check_catmull_warp() -> dict:
         if not (err <= tol and zeros_ok):
             raise AssertionError(f"warp_catmull_zero disagrees with its plain version ({name})")
         errs.append(err)
+        tile_shares(f"warp_catmull_zero[{name}]", warp_catmull_zero, x, fl, zero_outside=True)
     fl = smooth
     # The kernel takes about as long as its wrapper's host work, so it and
     # the yardstick are timed from a CUDA graph.  One call's 20.7 MB fit in
@@ -533,10 +589,74 @@ def check_catmull_warp() -> dict:
     log(f"warp_catmull_zero timing at [1, {h}, {w}, 4]: kernel {ms:.4f} ms (inputs from HBM; "
         f"{hot_ms:.4f} ms with one input set, L2-resident), plain {plain_ms:.3f} ms, "
         f"F.grid_sample bicubic/zeros (a yardstick of another function: a = -0.75) "
-        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at the HBM rate)")
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at the HBM rate), "
+        f"{100 * bound / ms:.1f}% of the bound")
     del sets, lib_sets
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", library_ms=lib_ms)
+
+
+def compare_warp_source(src_dir: str) -> None:
+    """The warp kernel of another checkout (``src_dir``, e.g. the parent
+    commit's tree) against this one, at the three shapes and in one process:
+    both built with _build's nvcc flags and launched through the C entry
+    ``rvdd_warp_bicubic`` (12 arguments, the same in both), timed in turns
+    (other, this, this, other) as check_warp and check_catmull_warp time
+    them.  These launches go around the wrappers and their counts."""
+    so = _build.BUILD_DIR / "libwarp_bicubic_other.so"
+    src = Path(src_dir) / "rvdd_tpu_torch" / "csrc" / "warp_bicubic.cu"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                   check=True, capture_output=True)
+    libs = {"other": ctypes.CDLL(str(so)), "this": _build.load_library("warp_bicubic")}
+    for lib in libs.values():
+        lib.rvdd_warp_bicubic.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_void_p, *[ctypes.c_int] * 5, ctypes.c_float,
+                                          ctypes.c_int, ctypes.c_void_p]
+        lib.rvdd_warp_bicubic.restype = ctypes.c_int
+
+    def launcher(lib, out_dtype, a, zero):
+        def run(x, fl):
+            out = torch.empty(x.shape, dtype=out_dtype, device=DEV)
+            rc = lib.rvdd_warp_bicubic(
+                x.data_ptr(), int(x.dtype == BF16), fl.data_ptr(), out.data_ptr(),
+                int(out_dtype == BF16), *x.shape, a, int(zero),
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"warp launch failed: CUDA error {rc}")
+            return out
+        return run
+
+    _, raw_flow = make_inputs(H // 2, W // 2, seed=0, device=DEV)
+    smooth = flow_upsample_2x(raw_flow[:, 0, 0]).contiguous()
+    state = torch.rand(1, H, W, 56, device=DEV) * 2 - 1
+    frame = (torch.rand(1, H, W, 3, device=DEV) * 2 - 1).to(BF16)
+    raw, true = make_inputs(H // 2, W // 2, seed=0, device=DEV, with_flow=True)
+    stack = solver_stack(raw[0, 0])
+    solver_fl = true[0, 0, 0].contiguous()[None]
+    shapes = {
+        "state_ms": (BF16, -0.75, False, [(state, smooth)], "time"),
+        "future_frame_ms": (BF16, -0.75, False,
+                            [(frame.clone(), smooth.clone()) for _ in range(4)], "graph"),
+        "solver_ms": (torch.float32, -0.5, True,
+                      [(stack.clone(), solver_fl.clone()) for _ in range(8)], "graph"),
+    }
+    rec = {"other": src_dir}
+    for key, (out_dtype, a, zero, sets, how) in shapes.items():
+        times = []
+        for which in ("other", "this", "this", "other"):
+            fn = launcher(libs[which], out_dtype, a, zero)
+            if how == "time":
+                times.append(time_ms(lambda: fn(*sets[0]), reps=20))
+            else:
+                times.append(graph_ms(fn, sets, reps=96))
+        ref = launcher(libs["other"], out_dtype, a, zero)(*sets[0])
+        got = launcher(libs["this"], out_dtype, a, zero)(*sets[0])
+        diff = float((ref.float() - got.float()).abs().max())
+        rec[key] = times
+        log(f"warp source comparison [{key}] other, this, this, other: "
+            f"{', '.join(f'{t:.4f}' for t in times)} ms; max |other - this| {diff:.3e}")
+    del state, frame, shapes
+    log(json.dumps({"warp_source_comparison": rec}))
 
 
 def check_tvl1() -> None:
@@ -651,7 +771,11 @@ def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
     return launches
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke run of rvdd_tpu_torch on one CUDA card.")
+    ap.add_argument("--warp-source", metavar="DIR",
+                    help="also time the warp kernel of the checkout at DIR against this one")
+    args = ap.parse_args(argv)
     card = card_info()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -674,6 +798,8 @@ def main():
         _, _, packed = make_model("fused", seed=0, device=DEV, model="convnext+feat+future")
         cnx_rec = check_cnx_chains(packed, gen)
         catmull_rec = check_catmull_warp()
+        if args.warp_source:
+            compare_warp_source(args.warp_source)
         check_tvl1()
     del packed
     torch.cuda.empty_cache()
@@ -696,8 +822,9 @@ def main():
              launches=total["warp_catmull_zero"], **catmull_rec),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kr[k] for k in keys} for kr in kernels]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "future_ms", "future_plain_ms",
+            "future_bound_ms", "future_library_ms")
+    log(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr} for kr in kernels]}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

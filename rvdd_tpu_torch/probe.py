@@ -1,11 +1,13 @@
-"""Where a kernel's time goes: per-phase cycle counts of the two chain kernels.
+"""Where a kernel's time goes: per-phase cycle counts of the chain kernels
+and the warp.
 
-    python -m rvdd_tpu_torch.probe [--reps 10]
+    python -m rvdd_tpu_torch.probe [--reps 10] [--kernels conv_chain,...]
 
-Needs a CUDA card.  Builds conv_chain.cu and convnext_chain.cu a second
-time with ``-DRVDD_PHASE_CLOCKS`` (into ``_build/lib<name>_phases.so``), in
-which thread 0 of each CTA adds the ``clock64`` cycles of each phase of its
-tiles to a device counter, and runs single launches at 1080p:
+Needs a CUDA card.  Builds conv_chain.cu, convnext_chain.cu and
+warp_bicubic.cu a second time with ``-DRVDD_PHASE_CLOCKS`` (into
+``_build/lib<name>_phases.so``), in which thread 0 of each CTA adds the
+``clock64`` cycles of each phase of its tiles to a device counter, and runs
+single launches at 1080p:
 
 - ``conv_chain``: a 3x3 48->48 layer (K = 432), and a chain of that layer
   and a 3x3 96->48 layer reading an aux tensor (K = 864); phases: waiting
@@ -13,7 +15,14 @@ tiles to a device counter, and runs single launches at 1080p:
 - ``convnext_chain``: a plain block, a proj block (96 input channels) and
   an upsample block; phases: the halo tile (staging, projection or
   interpolation), the depthwise and LayerNorm, the 1x1 products with the
-  GELU and the epilogue.
+  GELU and the epilogue;
+- ``warp_bicubic``: the 56-channel fp32 state to bf16 (the wide kernel),
+  the 3-channel bf16 future frame (narrow) and the solver's [1, 540, 960,
+  4] fp32 stack (narrow), by bench's smooth flow and the solver's known
+  flow; phases of a tile that stages its window: flow, weights and
+  footprint, the window copy, the gather and stores.  Timed from a CUDA
+  graph of ``--reps`` launches, since the small shapes are shorter than
+  their wrapper's host work.
 
 For each it prints the time (CUDA events, the build without clocks) and the
 mean cycles per tile and phase, as thread 0 of each CTA sees them (in
@@ -32,8 +41,11 @@ import subprocess
 import torch
 
 from rvdd_tpu_torch import _build
+from rvdd_tpu_torch.bench import make_inputs
 from rvdd_tpu_torch.ops.cuda import conv_chain as cc
 from rvdd_tpu_torch.ops.cuda import convnext_chain as cx
+from rvdd_tpu_torch.ops.cuda import warp_bicubic as wb
+from rvdd_tpu_torch.ops.warp import flow_upsample_2x
 
 H, W = 1080, 1920
 
@@ -62,6 +74,20 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_time_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over ``reps`` calls captured in one CUDA
+    graph (no host gaps between launches)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, 3) / reps
+    del graph
+    return ms
 
 
 def phases(lib: ctypes.CDLL, fn) -> list:
@@ -119,29 +145,54 @@ def cnx_cases(dev, gen):
     ]
 
 
+def warp_cases(dev, gen):
+    _, raw = make_inputs(H // 2, W // 2, seed=0, device=dev)
+    smooth = flow_upsample_2x(raw[:, 0, 0]).contiguous()
+    state = torch.rand(1, H, W, 56, device=dev, generator=gen) * 2 - 1
+    frame = (torch.rand(1, H, W, 3, device=dev, generator=gen) * 2 - 1).to(torch.bfloat16)
+    _, true = make_inputs(H // 2, W // 2, seed=0, device=dev, with_flow=True)
+    stack = torch.rand(1, H // 2, W // 2, 4, device=dev, generator=gen) * 255
+    solver_flow = true[0, 0, 0].contiguous()[None]
+    return [
+        ("state 56-ch fp32 -> bf16 (wide)",
+         lambda: wb.warp_bicubic(state, smooth, out_dtype=torch.bfloat16)),
+        ("future frame 3-ch bf16 (narrow)",
+         lambda: wb.warp_bicubic(frame, smooth, out_dtype=torch.bfloat16)),
+        ("solver [1, 540, 960, 4] fp32 (narrow)", lambda: wb.warp_catmull_zero(stack, solver_flow)),
+    ]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--kernels", default="conv_chain,convnext_chain,warp_bicubic",
+                    help="comma-separated sources to probe")
     args = ap.parse_args()
+    names = args.kernels.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("probe: needs a CUDA card")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
-    _build.build(("conv_chain", "convnext_chain"))
+    _build.build(tuple(names))
     groups = [
-        ("conv_chain", conv_cases(dev, gen),
+        ("conv_chain", lambda: conv_cases(dev, gen),
          ("wait for tile", "products", "epilogue + staging")),
-        ("convnext_chain", [(n, f, None) for n, f in cnx_cases(dev, gen)],
+        ("convnext_chain", lambda: [(n, f, None) for n, f in cnx_cases(dev, gen)],
          ("halo tile", "depthwise + LN", "1x1 + GELU + epilogue")),
+        ("warp_bicubic", lambda: [(n, f, None) for n, f in warp_cases(dev, gen)],
+         ("flow + footprint", "window copy", "gather + store")),
     ]
-    for name, cases, labels in groups:
+    for name, make_cases, labels in groups:
+        if name not in names:
+            continue
         base = _build._LIBS.get(name) or _build.load_library(name)
         clocked = build_phases(name)
-        for label, fn, flops in cases:
+        timer = graph_time_ms if name == "warp_bicubic" else time_ms
+        for label, fn, flops in make_cases():
             _build._LIBS[name] = base
-            ms = time_ms(fn, args.reps)
+            ms = timer(fn, args.reps)
             _build._LIBS[name] = clocked
             ph = phases(clocked, fn)
             rate = f", {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s" if flops else ""
