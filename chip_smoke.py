@@ -13,7 +13,11 @@
    a PyTorch library yardstick (F.grid_sample for the warps, cuDNN F.conv2d
    per conv layer, and for a ConvNeXt chain its blocks as cuDNN depthwise
    conv, F.layer_norm, bf16 matmuls and F.gelu), beside the bound computed
-   from the inputs, and the share of the bound.  The warp is timed at its
+   from the inputs, and the share of the bound.  conv_chain is checked in
+   both its modes: the bf16 chains of convunet+feat, and the fp32-band
+   (bf16_3x) chains A and dec2 of convunet+feat+future's 'auto' preset
+   (hybrid:glue+A+dec2), with each layer's launch plan (resident or
+   streamed weights); the fp32 bound counts three bf16 products a MAC.  The warp is timed at its
    three shapes (the 56-ch state, the 3-ch bf16 future frame, the solver's
    stack) and prints, per flow, the share of output tiles that staged their
    source window in shared memory, gathered directly or were all zeroed
@@ -33,15 +37,23 @@
    - online flows (self-contained streaming): convunet+feat with the fast
      and the default solver preset, and the flagship with the fast preset;
      each frame first computes its window's flows with the TV-L1 solver,
-     whose warp is warp_catmull_zero (nwarps x nscales launches a flow).
+     whose warp is warp_catmull_zero (nwarps x nscales launches a flow);
+   - convunet+feat+future (cached flows) under 'auto', which resolves to
+     hybrid:glue+A+dec2: the state and future-frame warps in fp32 and six
+     conv_chain chains, A and dec2 (9 of the 21 launches) in the fp32 mode.
    Each path checks every output is finite, that its first two frames
    agree with the port's plain module path (fp32, TF32 off) fed the same
-   flows within tests/test_fast_step.py's envelope (normalized max error
-   < 0.2 at step 1, < 0.3 at step 2), and that it launched its kernels the
-   expected number of times (launch counts set to 0 just before the path
-   and read just after).
-6. Prints a ``{"kernels": [...]}`` JSON line, the card line and, last,
-   ``{"ok": true, "device": {...}}``.
+   flows within its preset's envelope (normalized max error < 0.2 at step
+   1 and < 0.3 at step 2 for 'fast', tests/test_fast_step.py; half that for
+   the hybrid, see ENVELOPE), and that it launched its kernels the expected
+   number of times (launch counts set to 0 just before the path and read
+   just after).  The hybrid path's two frames are also run under 'fast' and
+   compared the same way: the hybrid's max and mean errors must be below
+   fast's at both steps.
+6. Prints a ``{"kernels": [...]}`` JSON line (conv_chain's entry adds the
+   fp32 mode's ``fp32_*`` times, bound and error), the card line and,
+   last, ``{"ok": true, "device": {...}}``.  Every time and fps line
+   carries the card's name and power limit.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a card: without one it exits 2 before doing anything.
@@ -74,9 +86,14 @@ from rvdd_tpu_torch.bench import (  # noqa: E402
     card_info,
     make_inputs,
     make_model,
+    resolve_precision,
     step_fn,
 )
-from rvdd_tpu_torch.ops.cuda.conv_chain import conv_chain, conv_chain_plain  # noqa: E402
+from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
+    conv_chain,
+    conv_chain_plain,
+    layer_plan,
+)
 from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
     HIDDEN,
     KSIZE,
@@ -104,23 +121,43 @@ from rvdd_tpu_torch.ops.warp import flow_upsample_2x  # noqa: E402
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 HBM_BPS = 3.35e12   # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 H, W = 1080, 1920   # main-path output resolution (raw 540x960)
-#: net launches per frame of each model
+#: net launches per frame of each model under 'auto' (conv_chain_fp32:
+#: the conv_chain launches in the fp32-band mode)
 NET_LAUNCHES = {
-    "convunet+feat": {"warp_bicubic": 1, "conv_chain": 21, "convnext_chain": 0},
-    "convnext+feat+future": {"warp_bicubic": 2, "conv_chain": 0, "convnext_chain": 25},
+    "convunet+feat": {"warp_bicubic": 1, "conv_chain": 21, "conv_chain_fp32": 0,
+                      "convnext_chain": 0},
+    "convnext+feat+future": {"warp_bicubic": 2, "conv_chain": 0, "conv_chain_fp32": 0,
+                             "convnext_chain": 25},
+    "convunet+feat+future": {"warp_bicubic": 2, "conv_chain": 21, "conv_chain_fp32": 9,
+                             "convnext_chain": 0},
 }
 #: the main paths: model, flow preset (None: cached flows), frames (the
-#: state=None frame and the streamed ones) and the frames before timing
+#: state=None frame and the streamed ones) and the frames before timing;
+#: every path runs its model's 'auto' preset
 PATHS = (
     ("convunet+feat", None, 13, 3),
     ("convnext+feat+future", None, 13, 3),
     ("convunet+feat", "fast", 5, 2),
     ("convunet+feat", "default", 3, 1),
     ("convnext+feat+future", "fast", 3, 1),
+    ("convunet+feat+future", None, 13, 3),
 )
+#: normalized max error of a path's first two frames against the plain
+#: module path, by preset: tests/test_fast_step.py's envelope for 'fast';
+#: half of it for the hybrid, whose full-res cycle is fp32.  The hybrid
+#: must also beat 'fast' on the same frames at both steps.  (The limit of
+#: tests/test_hybrid_precision.py:72, 0.05 at step 1 on its 32x32 inputs,
+#: sits inside the bf16 noise of the chains the hybrid keeps in bf16:
+#: rvdd_tpu's own hybrid:glue+A+dec2 gives 0.041-0.062 at step 1 and
+#: 0.054-0.062 at step 2 on three seeds of those inputs, the port's
+#: 0.038-0.050 and 0.055-0.057, with the same mean errors; at 1080p the
+#: port's step 1 gave 0.0593.  tests/test_torch_presets.py holds the port
+#: to rvdd_tpu there.)
+ENVELOPE = {"fast": (0.2, 0.3), "hybrid:glue+A+dec2": (0.1, 0.15)}
 KERNELS = (warp_bicubic, conv_chain, convnext_chain, warp_catmull_zero)
 BF16 = torch.bfloat16
 DEV = torch.device("cuda")
+CARD = ""  # nvidia-smi's name and power limit, set by main()
 
 
 def log(*a):
@@ -251,7 +288,7 @@ def check_warp(gen) -> dict:
     bound = nbytes / HBM_BPS * 1e3
     log(f"warp timing [state, 56-ch fp32 -> bf16]: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"F.grid_sample {lib_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.0f} MB), "
-        f"{100 * bound / ms:.1f}% of the bound")
+        f"{100 * bound / ms:.1f}% of the bound, card {CARD}")
     del x_nchw, grid, large
     # the future frame is short: timed from a CUDA graph over 4 input sets
     # (166 MB with their outputs), so its inputs come from HBM
@@ -266,7 +303,7 @@ def check_warp(gen) -> dict:
     log(f"warp timing [future frame, 3-ch bf16 -> bf16]: kernel {fut_ms:.4f} ms, plain "
         f"{fut_plain_ms:.3f} ms, F.grid_sample (fp32 NCHW copy of the frame) {fut_lib_ms:.4f} ms, "
         f"bound {fut_bound:.4f} ms ({fut_bytes / 1e6:.1f} MB), "
-        f"{100 * fut_bound / fut_ms:.1f}% of the bound")
+        f"{100 * fut_bound / fut_ms:.1f}% of the bound, card {CARD}")
     del state, sets, lib_sets
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", library_ms=lib_ms, future_ms=fut_ms,
@@ -301,37 +338,39 @@ def chain_specs(packed, gen):
 
 
 def chain_work(chain, x, kw, outs):
-    """(flops, bytes) the chain must do and move: each input read once,
-    each output written once, split layers counted as two products."""
+    """(flops, bytes) the chain must do and move: each input read once (the
+    aux window only, in the band dtype), each output written once, split
+    layers counted as two bf16 products and the fp32 mode's as three."""
     hh, ww = x.shape[1:3]
     if kw.get("upsample_input"):
         hh, ww = 2 * hh, 2 * ww
     flops = 0
     nbytes = x.numel() * x.element_size() + sum(o.numel() * o.element_size() for o in outs)
     if kw.get("aux") is not None:
-        nbytes += hh * ww * chain.layers[1].aux_c * 2
+        nbytes += hh * ww * chain.layers[1].aux_c * kw["aux"].element_size()
     for layer in chain.layers:
         cin = layer.cin0 + layer.aux_c
         f = 2 * hh * ww * layer.cout * layer.ks * layer.ks * cin
-        flops += 2 * f if layer.split else f
+        flops += f * (3 if chain.band_fp32 else 2 if layer.split else 1)
         nbytes += layer.w_hi.numel() * 2 * (2 if layer.split else 1) + layer.bias.numel() * 4
     return flops, nbytes
 
 
 def library_layers_ms(chain, x, kw) -> float:
-    """cuDNN bf16 F.conv2d (channels_last), one call per layer at the
-    layer's shape: a yardstick, not used by the port."""
+    """cuDNN F.conv2d (channels_last) in the chain's band dtype, one call
+    per layer at the layer's shape (fp32 with TF32 off under plain_mode): a
+    yardstick, not used by the port."""
     hh, ww = x.shape[1:3]
     if kw.get("upsample_input"):
         hh, ww = 2 * hh, 2 * ww
     total = 0.0
     for layer in chain.layers:
         cin = layer.cin0 + layer.aux_c
-        inp = torch.randn(1, cin, hh, ww, device=DEV).to(BF16).to(
+        inp = torch.randn(1, cin, hh, ww, device=DEV).to(chain.dtype).to(
             memory_format=torch.channels_last)
-        wgt = torch.randn(layer.cout, cin, layer.ks, layer.ks, device=DEV).to(BF16).to(
+        wgt = torch.randn(layer.cout, cin, layer.ks, layer.ks, device=DEV).to(chain.dtype).to(
             memory_format=torch.channels_last)
-        b = torch.zeros(layer.cout, device=DEV, dtype=BF16)
+        b = torch.zeros(layer.cout, device=DEV, dtype=chain.dtype)
         total += time_ms(lambda: F.conv2d(inp, wgt, b, padding=layer.ks // 2), reps=5)
         del inp, wgt
     return total
@@ -363,7 +402,8 @@ def check_chains(packed, gen) -> dict:
         log(f"conv_chain[{name}] {len(chain.layers)} launches: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, cuDNN per layer {lib_ms:.3f} ms, bound {bound:.4f} ms "
             f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB), "
-            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the bound")
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the bound, "
+            f"card {CARD}")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
@@ -374,7 +414,82 @@ def check_chains(packed, gen) -> dict:
     log(f"conv_chain per frame: {flops_all / 1e12:.3f} TFLOP, kernel {tot['ms']:.3f} ms, "
         f"bound {tot['bound_ms']:.4f} ms, {flops_all / (tot['ms'] * 1e-3) / 1e12:.1f} TFLOP/s, "
         f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound; cuDNN per layer "
-        f"{tot['library_ms']:.3f} ms")
+        f"{tot['library_ms']:.3f} ms, card {CARD}")
+    return tot
+
+
+def fp32_chain_specs(packed, gen):
+    """The fp32-band chains of convunet+feat+future's 'auto' preset with
+    main-path-shaped random fp32 inputs: A (the 9-channel input, the
+    56-channel state's feature window) and dec2 (upsampled, the state
+    emit)."""
+    def rnd(*shape, relu=True):
+        t = torch.randn(*shape, device=DEV, generator=gen)
+        return t.relu() if relu else t
+
+    return [
+        ("A", rnd(1, H, W, 9, relu=False),
+         dict(aux=rnd(1, H, W, 56, relu=False), aux_channels=(8, 48), emit=packed["A_emit"],
+              pool=packed["A_pool"])),
+        ("dec2", rnd(1, H // 2, W // 2, 48),
+         dict(aux=rnd(1, H, W, 48), upsample_input=True, state_out=(56, ((4, 0), (3, 8))))),
+    ]
+
+
+def check_fp32_chains(packed, gen) -> dict:
+    """conv_chain's fp32-band mode (three wgmma a k-step into one fp32
+    accumulator, fp32 bands and outputs) on the hybrid preset's chains A and
+    dec2 at 1080p, against conv_chain_plain in the same mode with TF32 off:
+    max error 2^-12 of max|out| and mean 1e-4 x std (the two sum the same
+    split products in different orders; where a band's sums differ by an
+    ulp its lo half's bf16 rounding can flip, 2^-15 of the value at most,
+    and the next layers carry it: the means seen are 5e-6 to 1e-5; a lo
+    half lost to zero would give about 2^-9 of the value).  Times the chains, their
+    TFLOP/s counting three products a MAC and their share of the bound: the
+    larger of those products at the bf16 peak and the fp32 bytes at the HBM
+    rate.  Returns the ``fp32_*`` fields of the kernels line."""
+    tot = dict(fp32_max_abs_err=0.0, fp32_ms=0.0, fp32_plain_ms=0.0, fp32_bound_ms=0.0,
+               fp32_library_ms=0.0)
+    for name, x, kw in fp32_chain_specs(packed, gen):
+        chain = packed[name]
+        assert chain.band_fp32, name
+        plans = [layer_plan(layer, True) for layer in chain.layers]
+        log(f"conv_chain fp32[{name}] launch plans: " + "; ".join(
+            f"layer {i} K={layer.ks ** 2 * (layer.cin0_pad + layer.aux_c)}: {p['mode']}, "
+            f"{p['trw']} rows x {p['nwg']} warpgroups, {p['smem']} B"
+            for i, (layer, p) in enumerate(zip(chain.layers, plans))))
+        got = conv_chain(x, chain, **kw)
+        want = conv_chain_plain(x, chain, **kw)
+        for i, (g, wv) in enumerate(zip(got, want)):
+            err = float((g - wv).abs().max())
+            mean = float((g - wv).abs().mean()) / float(wv.std())
+            tol = 2.0 ** -12 * float(wv.abs().max())
+            log(f"conv_chain fp32[{name}] out {i} {tuple(g.shape)} {g.dtype}: max_abs_err "
+                f"{err:.3e} (tol {tol:.3e} = 2^-12 x max|out| {float(wv.abs().max()):.3f}), "
+                f"mean {mean:.2e} x std (tol 1e-4), finite {bool(torch.isfinite(g).all())}")
+            if not (g.dtype == torch.float32 and err <= tol and mean < 1e-4
+                    and torch.isfinite(g).all()):
+                raise AssertionError(f"conv_chain fp32[{name}] disagrees with its plain version")
+            tot["fp32_max_abs_err"] = max(tot["fp32_max_abs_err"], err)
+        flops, nbytes = chain_work(chain, x, kw, got)
+        del got, want
+        ms = time_ms(lambda: conv_chain(x, chain, **kw), reps=10)
+        plain_ms = time_ms(lambda: conv_chain_plain(x, chain, **kw), reps=2)
+        lib_ms = library_layers_ms(chain, x, kw)
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3
+        bound = max(t_ops, t_bytes)
+        log(f"conv_chain fp32[{name}] {len(chain.layers)} launches: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, cuDNN fp32 per layer (TF32 off) {lib_ms:.3f} ms, bound "
+            f"{bound:.4f} ms (3 bf16 products a MAC: {flops / 1e9:.1f} GFLOP -> {t_ops:.4f} ms; "
+            f"{nbytes / 1e6:.0f} MB -> {t_bytes:.4f} ms), {flops / (ms * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s, {100 * bound / ms:.1f}% of the bound, card {CARD}")
+        tot["fp32_ms"] += ms
+        tot["fp32_plain_ms"] += plain_ms
+        tot["fp32_bound_ms"] += bound
+        tot["fp32_library_ms"] += lib_ms
+    log(f"conv_chain fp32 chains A + dec2 per frame: kernel {tot['fp32_ms']:.3f} ms, bound "
+        f"{tot['fp32_bound_ms']:.4f} ms, {100 * tot['fp32_bound_ms'] / tot['fp32_ms']:.1f}% of "
+        f"the bound, card {CARD}")
     return tot
 
 
@@ -509,7 +624,7 @@ def check_cnx_chains(packed, gen) -> dict:
             f"(1x1 products {tensor / 1e9:.1f} GFLOP -> {t_tc:.4f} ms plus depthwise "
             f"{dw / 1e9:.1f} GFLOP -> {t_dw:.4f} ms at the bf16 peak; {nbytes / 1e6:.0f} MB "
             f"-> {t_b:.4f} ms), {(tensor + dw) / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
-            f"{100 * bound / ms:.1f}% of the bound")
+            f"{100 * bound / ms:.1f}% of the bound, card {CARD}")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
@@ -521,7 +636,7 @@ def check_cnx_chains(packed, gen) -> dict:
         f"{terms[1]:.4f} ms, bytes {terms[2]:.4f} ms; kernel {tot['ms']:.3f} ms, "
         f"bound {tot['bound_ms']:.4f} ms, "
         f"{(terms[0] + terms[1]) / tot['ms'] * PEAK_BF16 / 1e12:.1f} TFLOP/s, "
-        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound")
+        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound, card {CARD}")
     return tot
 
 
@@ -590,7 +705,7 @@ def check_catmull_warp() -> dict:
         f"{hot_ms:.4f} ms with one input set, L2-resident), plain {plain_ms:.3f} ms, "
         f"F.grid_sample bicubic/zeros (a yardstick of another function: a = -0.75) "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at the HBM rate), "
-        f"{100 * bound / ms:.1f}% of the bound")
+        f"{100 * bound / ms:.1f}% of the bound, card {CARD}")
     del sets, lib_sets
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by="bytes", library_ms=lib_ms)
@@ -654,7 +769,8 @@ def compare_warp_source(src_dir: str) -> None:
         diff = float((ref.float() - got.float()).abs().max())
         rec[key] = times
         log(f"warp source comparison [{key}] other, this, this, other: "
-            f"{', '.join(f'{t:.4f}' for t in times)} ms; max |other - this| {diff:.3e}")
+            f"{', '.join(f'{t:.4f}' for t in times)} ms; max |other - this| {diff:.3e}, "
+            f"card {CARD}")
     del state, frame, shapes
     log(json.dumps({"warp_source_comparison": rec}))
 
@@ -682,7 +798,7 @@ def check_tvl1() -> None:
             ms = 1e3 * (time.perf_counter() - t0)
             launches = warp_catmull_zero.launches
             epe = float((fl - truth).norm(dim=-1)[m:-m, m:-m].median())
-            log(f"tvl1[{preset}, {route} route] {ms:.1f} ms a flow (host clock), "
+            log(f"tvl1[{preset}, {route} route] {ms:.1f} ms a flow (host clock, card {CARD}), "
                 f"{sum(its)} iterations over {len(its)} stages {its}, warp_catmull_zero "
                 f"launches {launches}, median endpoint error {epe:.4f} px (limit 0.25)")
             want = p.nwarps * _num_scales(w, h, p) if route == "kernel" else 0
@@ -701,18 +817,30 @@ def check_tvl1() -> None:
 # -------------------------------------------------------------- main path
 
 
+def first_two(model, precision, raw, flows, net_impl="fused"):
+    """The first two frames of ``model`` (state None, then carried) in the
+    given preset, fed the flows the main path used."""
+    cfg, net, packed = make_model(net_impl, seed=0, device=DEV, model=model, precision=precision)
+    d0, st = step_fn(cfg, net, packed, None, raw, flows[0])
+    d1, _ = step_fn(cfg, net, packed, st, raw, flows[1])
+    return d0, d1
+
+
 def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
-    """Drive one main path; returns its launch counts."""
+    """Drive one main path under its model's 'auto' preset; returns its
+    launch counts."""
     fd = MODELS[model][1]
+    preset = resolve_precision(model)
     cfg, net, packed = make_model("fused", seed=0, device=DEV, model=model)
     raw, flows = make_inputs(H // 2, W // 2, seed=0, device=DEV, model=model,
                              with_flow=flow is not None)
     flow_log = FlowLog() if flow is not None else None
-    name = model + (f" online flow ({flow})" if flow else "")
+    name = model + (f" online flow ({flow})" if flow else "") + f" [{preset}]"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
+    conv_chain.fp32_launches = 0
     # the first frames warm the allocator; the rest are timed as bench.py
     # times them: host clock, one synchronize.  Only the first two outputs
     # (and, online, their flows) are kept, so the loop allocates as a
@@ -736,6 +864,7 @@ def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / (n_frames - warm)
     launches = {k.__name__: k.launches for k in KERNELS}
+    launches["conv_chain_fp32"] = conv_chain.fp32_launches
     if not bool(finite):
         raise AssertionError(f"a {name} main-path output is not finite")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -750,23 +879,39 @@ def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
         flow_ms = flow_log.ms()[n_logged:]
         its = len(flow_log.iterations) // n_frames
         log(f"main path {name}: flows {sum(flow_ms) / len(flow_ms):.1f} ms a frame (CUDA "
-            f"events), {1 + fd} flows and {sum(flow_log.iterations) / n_frames:.0f} duality "
+            f"events, card {CARD}), {1 + fd} flows and {sum(flow_log.iterations) / n_frames:.0f} duality "
             f"iterations a frame, the last frame's stages {flow_log.iterations[-its:]}")
     if launches != want:
         raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
     del state, packed
 
     with plain_mode():
-        cfg_m, net_m, _ = make_model("module", seed=0, device=DEV, model=model)
-        ref0, st = step_fn(cfg_m, net_m, None, None, raw, used_flows[0])
-        ref1, _ = step_fn(cfg_m, net_m, None, st, raw, used_flows[1])
-    for i, (got, want_, lim) in enumerate(((dens[0], ref0, 0.2), (dens[1], ref1, 0.3))):
-        err = float((got - want_).abs().max()) / (float(want_.std()) + 1e-6)
+        refs = first_two(model, "auto", raw, used_flows, net_impl="module")
+
+    def errs(outs):
+        """(max, mean) normalized error of each of two frames."""
+        return [(float((g - r).abs().max()) / (float(r.std()) + 1e-6),
+                 float((g - r).abs().mean()) / (float(r.std()) + 1e-6))
+                for g, r in zip(outs, refs)]
+
+    err = errs(dens)
+    for i, lim in enumerate(ENVELOPE[preset]):
         log(f"main path {name} step {i + 1} vs plain module path (same flows): normalized "
-            f"max err {err:.4f} (limit {lim})")
-        if not err < lim:
+            f"max err {err[i][0]:.4f} (limit {lim}), mean {err[i][1]:.5f}")
+        if not err[i][0] < lim:
             raise AssertionError(f"{name} step {i + 1} outside the envelope")
-    del net_m, st, ref0, ref1, dens, used_flows
+    if preset != "fast":
+        # the same two frames under 'fast': fp32 chains whose lo halves were
+        # lost would leave the preset no closer to fp32 than 'fast' is
+        err_fast = errs(first_two(model, "fast", raw, used_flows))
+        for i in range(2):
+            log(f"main path {name} step {i + 1}: the same frames under 'fast': normalized max "
+                f"err {err_fast[i][0]:.4f}, mean {err_fast[i][1]:.5f}; {preset} "
+                f"{err[i][0]:.4f}, {err[i][1]:.5f}")
+            if not (err[i][0] < err_fast[i][0] and err[i][1] < err_fast[i][1]):
+                raise AssertionError(f"{name} step {i + 1}: no closer to the module path than "
+                                     "'fast'")
+    del refs, dens, used_flows
     torch.cuda.empty_cache()
     return launches
 
@@ -776,7 +921,8 @@ def main(argv=None):
     ap.add_argument("--warp-source", metavar="DIR",
                     help="also time the warp kernel of the checkout at DIR against this one")
     args = ap.parse_args(argv)
-    card = card_info()
+    global CARD
+    card = CARD = card_info()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -795,6 +941,8 @@ def main(argv=None):
         warp_rec = check_warp(gen)
         _, _, packed = make_model("fused", seed=0, device=DEV)
         conv_rec = check_chains(packed, gen)
+        _, _, packed = make_model("fused", seed=0, device=DEV, model="convunet+feat+future")
+        conv_rec.update(check_fp32_chains(packed, gen))
         _, _, packed = make_model("fused", seed=0, device=DEV, model="convnext+feat+future")
         cnx_rec = check_cnx_chains(packed, gen)
         catmull_rec = check_catmull_warp()
@@ -823,7 +971,8 @@ def main(argv=None):
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "future_ms", "future_plain_ms",
-            "future_bound_ms", "future_library_ms")
+            "future_bound_ms", "future_library_ms", "fp32_ms", "fp32_plain_ms", "fp32_bound_ms",
+            "fp32_library_ms", "fp32_max_abs_err")
     log(json.dumps({"kernels": [{k: kr[k] for k in keys if k in kr} for kr in kernels]}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

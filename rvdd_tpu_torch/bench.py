@@ -1,10 +1,18 @@
 """Streaming 1080p throughput of the port's main paths on one card.
 
-Port of bench.py's inference mode for two models:
+Port of bench.py's inference mode for three models:
 
 * ``convunet+feat`` (the default): recurrent convunet+feat;
+* ``convunet+feat+future``: the same net with the future frame (a window
+  of 3 raw frames and 2 flows a step, 9 input channels);
 * ``convnext+feat+future``: the ConvNeXt flagship ``newunet-mode=feat``
-  with the future frame (a window of 3 raw frames and 2 flows a step).
+  with the future frame.
+
+``--precision`` picks the fused-path preset (models/fast_unet.py:
+FUSED_PRECISIONS, or ``hybrid:<chains>``); the default ``auto`` resolves
+as bench.py:152-156 does: ``hybrid:glue+A+dec2`` for convunet+feat+future
+(chains A and dec2 in the kernel's fp32 mode, fp32 warps), ``fast`` for
+the others.
 
 One stream, packed GBRG raw 540x960x4 in and RGB 1080x1920x3 out.  Per
 frame: Hamilton-Adams demosaic of the current (and future) frame and the
@@ -31,12 +39,15 @@ Flows come in one of two ways:
   solver is launch-bound plain PyTorch around its kernel (PERF.md).
 
     python -m rvdd_tpu_torch.bench [--model convunet+feat] [--frames 30]
+                                   [--precision auto]
                                    [--with_flow [--fast_flow]]
                                    [--height 540] [--width 960] [--profile]
 
 Prints one JSON line: metric (``1080p_fps_per_chip_<model>``, with
-``_online_flow`` or ``_online_flow_fast`` appended for online flows), value
-(frames/s), unit, ms per frame, with online flows ``flow_ms_per_frame``
+``_online_flow`` or ``_online_flow_fast`` appended for online flows, and
+``_<preset>`` for a ``--precision`` other than ``auto``), value
+(frames/s), unit, ms per frame, the resolved preset, with online flows
+``flow_ms_per_frame``
 (CUDA events around compute_window_flows) and
 ``flow_iterations_per_frame``, and the card's name and power limit.
 ``--profile`` prints device time by kernel instead, the solver's launches
@@ -58,6 +69,7 @@ import torch
 
 from rvdd_tpu_torch.device import resolve_device
 from rvdd_tpu_torch.models import build_network
+from rvdd_tpu_torch.models.fast_unet import resolve_fused_precision
 from rvdd_tpu_torch.recurrent.engine import (
     EngineConfig,
     compute_window_flows,
@@ -70,8 +82,16 @@ from rvdd_tpu_torch.recurrent.engine import (
 #: --model -> (architecture string, future_patch_depth), as bench.py:144-151
 MODELS = {
     "convunet+feat": ("convunet-mode=fixedfeatures+feat", 0),
+    "convunet+feat+future": ("convunet-mode=fixedfeatures+feat", 1),
     "convnext+feat+future": ("newunet-mode=feat", 1),
 }
+
+
+def resolve_precision(model: str, precision: str = "auto") -> str:
+    """The fused preset ``model`` runs under ``precision`` ('auto' resolves
+    as bench.py:152-156)."""
+    arch, fd = MODELS[model]
+    return resolve_fused_precision(precision, arch=arch, feature_rec=True, future=fd > 0)
 
 
 def make_inputs(height: int = 540, width: int = 960, seed: int = 0, device="cuda",
@@ -118,14 +138,15 @@ def make_inputs(height: int = 540, width: int = 960, seed: int = 0, device="cuda
 
 
 def make_model(net_impl: str = "fused", seed: int = 0, device="cuda",
-               model: str = "convunet+feat"):
-    """(cfg, net, packed) for ``model`` with seeded kaiming weights.  The
-    ConvNeXt module path runs the exact GELU; the fused path runs the tanh
-    GELU of the 'fast' preset."""
+               model: str = "convunet+feat", precision: str = "auto"):
+    """(cfg, net, packed) for ``model`` with seeded kaiming weights, the
+    fused path in the preset ``precision`` resolves to.  The ConvNeXt
+    module path runs the exact GELU; its fused path runs the tanh GELU of
+    the 'fast' preset."""
     arch, fd = MODELS[model]
     cfg = EngineConfig(model_patch_depth=2, future_patch_depth=fd, feature_rec=True,
                        warp_impl="kernel" if net_impl == "fused" else "plain",
-                       net_impl=net_impl)
+                       net_impl=net_impl, fused_precision=resolve_precision(model, precision))
     net = build_network(arch, cfg.network_input_nc, 3, True, seed=seed, device=device)
     packed = fused_pack(cfg, net) if net_impl == "fused" else None
     return cfg, net, packed
@@ -200,19 +221,22 @@ def card_info() -> str:
 WARMUP_FRAMES = 2  # streamed frames before timing: the allocator settles
 
 
-def metric_name(height: int, width: int, model: str, flow: Optional[str] = None) -> str:
+def metric_name(height: int, width: int, model: str, flow: Optional[str] = None,
+                precision: str = "auto") -> str:
     res = f"{2 * height}p" if (height, width) == (540, 960) else f"{2 * height}x{2 * width}"
     suffix = {None: "", "default": "_online_flow", "fast": "_online_flow_fast"}[flow]
+    if precision != "auto":
+        suffix += f"_{resolve_precision(model, precision)}"
     return f"{res}_fps_per_chip_{model.replace('+', '_')}{suffix}"
 
 
-def _warm_stream(height, width, seed, device, model, flow):
+def _warm_stream(height, width, seed, device, model, flow, precision="auto"):
     """The fused main path on the card after the first frame (state=None)
     and the warm-up frames: (dev, frame, state, flow_log)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("the benchmark measures the card; it has no CPU mode")
-    cfg, net, packed = make_model("fused", seed, dev, model)
+    cfg, net, packed = make_model("fused", seed, dev, model, precision)
     raw, flows = make_inputs(height, width, seed, dev, model, with_flow=flow is not None)
     log = FlowLog() if flow is not None else None
 
@@ -230,10 +254,12 @@ def _warm_stream(height, width, seed, device, model, flow):
 
 
 def run(frames: int = 30, height: int = 540, width: int = 960, seed: int = 0,
-        device="cuda", model: str = "convunet+feat", flow: Optional[str] = None) -> dict:
+        device="cuda", model: str = "convunet+feat", flow: Optional[str] = None,
+        precision: str = "auto") -> dict:
     """Time ``frames`` streamed frames on the card; returns the JSON record.
-    ``flow``: None (cached flows) or a preset name for online flows."""
-    dev, frame, state, log = _warm_stream(height, width, seed, device, model, flow)
+    ``flow``: None (cached flows) or a preset name for online flows;
+    ``precision``: the fused preset ('auto': the model's own)."""
+    dev, frame, state, log = _warm_stream(height, width, seed, device, model, flow, precision)
     t0 = time.perf_counter()
     for _ in range(frames):
         den, state = frame(state)
@@ -242,10 +268,11 @@ def run(frames: int = 30, height: int = 540, width: int = 960, seed: int = 0,
     if not torch.isfinite(den).all():
         raise RuntimeError("non-finite output")
     rec = {
-        "metric": metric_name(height, width, model, flow),
+        "metric": metric_name(height, width, model, flow, precision),
         "value": frames / dt,
         "unit": "frames/sec",
         "ms_per_frame": 1e3 * dt / frames,
+        "precision": resolve_precision(model, precision),
     }
     if log is not None:
         rec["flow_ms_per_frame"] = sum(log.ms()) / frames
@@ -281,7 +308,8 @@ def _device_events(events):
 
 
 def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
-            device="cuda", model: str = "convunet+feat", flow: Optional[str] = None) -> dict:
+            device="cuda", model: str = "convunet+feat", flow: Optional[str] = None,
+            precision: str = "auto") -> dict:
     """Device time by kernel over ``frames`` streamed frames (torch.profiler,
     CUDA activity), per frame; busy = the sum of kernel durations (one
     stream, so they do not overlap), idle share = 1 - busy / wall.  With
@@ -289,7 +317,7 @@ def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    dev, frame, state, _ = _warm_stream(height, width, seed, device, model, flow)
+    dev, frame, state, _ = _warm_stream(height, width, seed, device, model, flow, precision)
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
@@ -306,7 +334,7 @@ def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
     busy = sum(v[0] for v in groups.values())
     rows = sorted(((k, v[0], v[1] / frames) for k, v in groups.items()),
                   key=lambda r: -r[1])
-    return {"metric": metric_name(height, width, model, flow),
+    return {"metric": metric_name(height, width, model, flow, precision),
             "wall_ms_per_frame": wall_ms, "busy_ms_per_frame": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "solver_busy_ms_per_frame": sum(ms for k, ms, _ in rows if k.startswith("tvl1")),
@@ -322,6 +350,9 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=540, help="raw (half-res) height")
     ap.add_argument("--width", type=int, default=960, help="raw (half-res) width")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--precision", default="auto",
+                    help="fused-path preset (fast, mixed, wsplit or hybrid:<chain>+...); auto: "
+                         "hybrid:glue+A+dec2 for convunet+feat+future, fast for the others")
     ap.add_argument("--with_flow", action="store_true",
                     help="self-contained mode: compute TV-L1 flows on the card every frame")
     ap.add_argument("--fast_flow", action="store_true",
@@ -334,14 +365,14 @@ def main(argv=None):
     flow = ("fast" if args.fast_flow else "default") if args.with_flow else None
     if args.profile:
         rec = profile(min(args.frames, 10), args.height, args.width, args.seed,
-                      model=args.model, flow=flow)
+                      model=args.model, flow=flow, precision=args.precision)
         for k in rec["kernels"]:
             print(f"{k['ms_per_frame']:9.3f} ms/frame {k['launches_per_frame']:8.1f} x  "
                   f"{k['name']}")
         print(json.dumps({k: v for k, v in rec.items() if k != "kernels"}))
         return
     print(json.dumps(run(args.frames, args.height, args.width, args.seed, model=args.model,
-                         flow=flow)))
+                         flow=flow, precision=args.precision)))
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@
 //     concatenated copy is made;
 //   * upsample_input: the prologue builds the 2x bilinear
 //     (align_corners=False, edge-replicated) upsample of the half-res
-//     input while it stages the tile, in fp32, rounded once to bf16;
+//     input while it stages the tile, in fp32 (rounded once to bf16 in the
+//     bf16 modes);
 //   * pool emit: the epilogue writes the whole 2x2 max pool (tiles start
 //     at even coordinates and hold whole row pairs, so each window lies in
 //     one tile);
@@ -21,8 +22,19 @@
 //   * weight split: the layer runs a second product with the lo half of
 //     the weights (w = hi + lo, hi by mantissa masking) into the same fp32
 //     accumulator.
-// Numerics of rvdd_tpu's 'fast' preset: bf16 activations and weights, fp32
-// accumulation, fp32 bias; every band (layer output) is stored as bf16.
+// Two numerics, a launch argument each:
+//   * rvdd_tpu's 'fast' bands: bf16 activations and weights, fp32
+//     accumulation, fp32 bias; every band (layer output) is stored as bf16;
+//   * fp32 bands with bf16_3x products (band_dtype=float32 with
+//     mxu_precision='high', conv_pallas.py:306-327 and :574-580): inputs,
+//     bands and emitted outputs are fp32 in global memory.  Staging loads a
+//     tile's fp32 values through registers and splits each by its mantissa
+//     (hi = the top 16 bits, exact in bf16; lo = bf16(v - hi)) into two
+//     bf16 planes of the same layout, so a tap stays a descriptor offset;
+//     every layer's weights are split, and each k-step issues three wgmma
+//     into one accumulator, w_hi a_hi + w_hi a_lo + w_lo a_hi (the lo lo
+//     term, about 2^-16 relative, is dropped as on the TPU).  TF32 wgmma
+//     would keep 10 mantissa bits against about 16 here.
 //
 // What bounds it on the H100: operations.  The six chains of a 1080p frame
 // need about 1.07 TFLOP (with dec2's split layers): about 1.0 ms at the
@@ -31,7 +43,8 @@
 // ks^2 * (cin0_pad + aux_c) (144 to 864).  The design:
 //   * a persistent CTA of two or three warpgroups keeps the layer's whole
 //     packed weight matrix ([K/8][N][8] bf16, the wgmma B layout; both
-//     halves of a split layer, at most 83 KB) in shared memory, loaded once;
+//     halves of a split layer, at most 83 KB in the bf16 modes) in shared
+//     memory, loaded once;
 //   * each warpgroup walks its own tiles of TRW (4, or 2 where shared memory
 //     is short) rows x 64 output columns in its own shared-memory region,
 //     so the warpgroups drift apart and one's staging and epilogue overlap
@@ -42,13 +55,14 @@
 //     channels], so 8 consecutive pixels of one channel group are one
 //     128-byte core matrix and tap (dy, dx) of a 64-pixel output row is the
 //     same descriptor moved by (dy * (64 + 2) + dx) * 16 bytes: no im2col
-//     copy (the upsample layer and a 6-channel input build their tile with
-//     loads and arithmetic instead);
+//     copy (the upsample layer, a 6-channel input and the fp32 modes build
+//     their tile with loads and arithmetic instead);
 //   * the warpgroup holds one m64nN accumulator per tile row and issues
-//     ks^2 * cin/16 wgmma m64nNk16 per row (twice that for a split layer),
-//     the first with scale-d 0, before one wait;
+//     ks^2 * cin/16 wgmma m64nNk16 per row (twice that for a split layer,
+//     three times in the fp32 mode), the first with scale-d 0, before one
+//     wait;
 //   * the epilogue adds bias and relu in registers, writes the fp32 state
-//     from registers, and stages the bf16 band in the warpgroup's region for
+//     from registers, and stages the band in the warpgroup's region for
 //     16-byte stores and the 2x2 pool (4-byte stores straight from the
 //     accumulator layout doubled the layer's time on the H100); then the
 //     region takes the next tile's input.
@@ -56,6 +70,18 @@
 // shared memory feeds at about 85% of the tensor-core rate; the rest of the
 // gap to the peak is staging and the epilogue (chip_smoke.py prints each
 // chain's TFLOP/s and share of the bound).
+//
+// Shared memory in the fp32 mode: the split weights of the layers that
+// read 48 + 48 aux channels (K = 864, N = 48) take 165,888 bytes, and a
+// tile's hi and lo planes 101,376 at TRW 2 (76,032 at one row), above the
+// 232,448 a block may have.  Such a layer streams its weights instead: one
+// warpgroup per CTA, and the hi and lo weights of one tap (18,432 bytes)
+// at a time, double-buffered with cp.async, so tap t + 1 (after the last,
+// the next tile's first) loads while tap t's products run; a barrier and a
+// wgmma wait per tap.  Every tile reloads the 166 KB of weights from L2.
+// The choice is a function of the layer's shape alone: the resident form
+// where one of its configurations fits, else the streamed one, else the
+// launch fails with cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,20 +96,30 @@ namespace {
 constexpr int TW = 64;                 // output columns per tile: one m64 product
 constexpr int SMEM_MAX = 232448;       // per block on the H100
 
+// what a launch computes: bf16 bands with 1-pass or split (hi + lo)
+// weights; or fp32 bands with bf16_3x products, the weights resident or
+// streamed a tap at a time
+enum Mode { BF16 = 0, BF16_SPLIT = 1, F32_3X = 2, F32_3X_STREAM = 3 };
+
+__host__ __device__ constexpr bool mode_split(int m) { return m != BF16; }
+__host__ __device__ constexpr bool mode_f32(int m) { return m >= F32_3X; }
+
 struct LayerArgs {
-  const bf16* in0;                // [B, h0, w0, in0_stride], channels at in0_off
+  const void* in0;                // [B, h0, w0, in0_stride], channels at in0_off
   int in0_c, in0_stride, in0_off, in0_h, in0_w, upsample;
-  const bf16* aux;                // [B, H, W, aux_stride], channels at aux_off
+  const void* aux;                // [B, H, W, aux_stride], channels at aux_off
   int aux_c, aux_stride, aux_off;
   const bf16* w;                  // [K/8][cout_pad][8] hi, then lo when split
   const float* bias;              // [cout]
   int ks, cin0_pad, cout, cout_pad, relu;
   int B, H, W;                    // output (full) resolution
-  bf16* out;                      // [B, H, W, cout] or null
-  bf16* pooled;                   // [B, H/2, W/2, cout] or null
+  void* out;                      // [B, H, W, cout] or null
+  void* pooled;                   // [B, H/2, W/2, cout] or null
   float* state;                   // [B, H, W, state_stride] or null
   int state_stride, state_off, state_zero;
 };
+// in0, aux, out and pooled are bf16 in the bf16 modes and fp32 in the fp32
+// modes (the band dtype); state is always fp32
 
 // a launch configuration: tile rows per warpgroup, warpgroups per CTA
 struct Config {
@@ -92,21 +128,29 @@ struct Config {
 
 struct Smem {
   int rows_in, cols_in, plane;    // staged tile geometry; plane = bytes per channel group
-  int w, buf, buf_bytes, total;   // weights; warpgroup g's region at buf + g * buf_bytes:
-                                  // its input tile, then its bf16 band [trw][64][n]
+  int lo;                         // fp32 modes: bytes from the hi planes to the lo planes
+  int w, wtap;                    // weights at w; a streamed tap's hi + lo take wtap bytes
+  int buf, buf_bytes, total;      // warpgroup g's region at buf + g * buf_bytes:
+                                  // its input tile, then its band [trw][64][n]
 };
 
 __host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
 
-__host__ __device__ inline Smem smem_layout(int ks, int cin_tot, int n, bool split, Config c) {
+__host__ __device__ inline Smem smem_layout(int ks, int cin_tot, int n, int mode, Config c) {
   Smem s;
   const int halo = ks / 2;
   s.rows_in = c.trw + 2 * halo;
   s.cols_in = TW + 2 * halo;
   s.plane = s.rows_in * s.cols_in * 16;
+  s.lo = (cin_tot / 8) * s.plane;
   s.w = 0;
-  s.buf = align128(ks * ks * cin_tot * n * 2 * (split ? 2 : 1));
-  const int tile = (cin_tot / 8) * s.plane, band = c.trw * TW * n * 2;
+  s.wtap = cin_tot * n * 2 * 2;
+  const int wbytes = mode == F32_3X_STREAM
+                         ? 2 * s.wtap
+                         : ks * ks * cin_tot * n * 2 * (mode_split(mode) ? 2 : 1);
+  s.buf = align128(wbytes);
+  const int f32 = mode_f32(mode);
+  const int tile = s.lo * (f32 ? 2 : 1), band = c.trw * TW * n * (f32 ? 4 : 2);
   s.buf_bytes = align128(tile > band ? tile : band);
   s.total = s.buf + c.nwg * s.buf_bytes;
   return s;
@@ -130,6 +174,21 @@ __device__ __forceinline__ uint4 load_px8(const bf16* base, size_t pixel,
   return r.u;
 }
 
+// the same for an fp32 tensor, as floats
+__device__ __forceinline__ void load_f8(const float* base, size_t pixel, int stride, int off,
+                                        int c0, int c, bool vec, float* v) {
+  const float* p = base + pixel * stride + off + c0;
+  if (vec) {
+    const float4 x0 = *reinterpret_cast<const float4*>(p);
+    const float4 x1 = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = x0.x; v[1] = x0.y; v[2] = x0.z; v[3] = x0.w;
+    v[4] = x1.x; v[5] = x1.y; v[6] = x1.z; v[7] = x1.w;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = (c0 + k < c) ? p[k] : 0.f;
+}
+
 __device__ __forceinline__ void unpack8(uint4 u, float* v) {
   Pack8 r;
   r.u = u;
@@ -137,29 +196,58 @@ __device__ __forceinline__ void unpack8(uint4 u, float* v) {
   for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(__ushort_as_bfloat16(r.s[k]));
 }
 
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  return make_uint4(wg::pack_bf16x2(v[0], v[1]), wg::pack_bf16x2(v[2], v[3]),
+                    wg::pack_bf16x2(v[4], v[5]), wg::pack_bf16x2(v[6], v[7]));
+}
+
+// v = hi + lo in bf16: hi keeps the top 16 bits of each fp32 value (the
+// mantissa mask of conv_pallas.py:315-323, exact in bf16), lo = bf16(v - hi)
+__device__ __forceinline__ void split8(const float* v, uint4& hi, uint4& lo) {
+  Pack8 h, l;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t bits = __float_as_uint(v[k]);
+    h.s[k] = (unsigned short)(bits >> 16);
+    l.s[k] = __bfloat16_as_ushort(__float2bfloat16_rn(v[k] - __uint_as_float(bits & 0xFFFF0000u)));
+  }
+  hi = h.u;
+  lo = l.u;
+}
+
+// 8 channels of in0 at one pixel of its own grid, as floats
+template <bool F32>
+__device__ __forceinline__ void in0_f8(const LayerArgs& a, size_t pixel, int c0, bool vec,
+                                       float* v) {
+  if constexpr (F32)
+    load_f8(static_cast<const float*>(a.in0), pixel, a.in0_stride, a.in0_off, c0, a.in0_c, vec, v);
+  else
+    unpack8(load_px8(static_cast<const bf16*>(a.in0), pixel, a.in0_stride, a.in0_off, c0,
+                     a.in0_c, vec), v);
+}
+
 // 8 channels of the 2x bilinear (align_corners=False) upsample of the
-// half-res in0 at full-res (gy, gx): rows j and jn, columns i and ic, with
-// weights 0.75 / 0.25 and edge replication; rows first, as
-// rvdd_tpu/ops/resize.py does, then rounded once to bf16
-__device__ __forceinline__ uint4 load_up8(const LayerArgs& a, int b, int gy,
-                                          int gx, int c0, bool vec) {
+// half-res in0 at full-res (gy, gx), in fp32: rows j and jn, columns i and
+// ic, with weights 0.75 / 0.25 and edge replication; rows first, as
+// rvdd_tpu/ops/resize.py does
+template <bool F32>
+__device__ __forceinline__ void load_up8(const LayerArgs& a, int b, int gy, int gx, int c0,
+                                         bool vec, float* r) {
   const int j = gy >> 1, i = gx >> 1;
   const int jn = min(max((gy & 1) ? j + 1 : j - 1, 0), a.in0_h - 1);
   const int ic = min(max((gx & 1) ? i + 1 : i - 1, 0), a.in0_w - 1);
   const size_t r0 = (size_t)b * a.in0_h + j, r1 = (size_t)b * a.in0_h + jn;
   float v00[8], v01[8], v10[8], v11[8];
-  unpack8(load_px8(a.in0, r0 * a.in0_w + i, a.in0_stride, a.in0_off, c0, a.in0_c, vec), v00);
-  unpack8(load_px8(a.in0, r0 * a.in0_w + ic, a.in0_stride, a.in0_off, c0, a.in0_c, vec), v01);
-  unpack8(load_px8(a.in0, r1 * a.in0_w + i, a.in0_stride, a.in0_off, c0, a.in0_c, vec), v10);
-  unpack8(load_px8(a.in0, r1 * a.in0_w + ic, a.in0_stride, a.in0_off, c0, a.in0_c, vec), v11);
-  Pack8 r;
+  in0_f8<F32>(a, r0 * a.in0_w + i, c0, vec, v00);
+  in0_f8<F32>(a, r0 * a.in0_w + ic, c0, vec, v01);
+  in0_f8<F32>(a, r1 * a.in0_w + i, c0, vec, v10);
+  in0_f8<F32>(a, r1 * a.in0_w + ic, c0, vec, v11);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float ri = 0.75f * v00[k] + 0.25f * v10[k];
     const float rn = 0.75f * v01[k] + 0.25f * v11[k];
-    r.s[k] = __bfloat16_as_ushort(__float2bfloat16_rn(0.75f * ri + 0.25f * rn));
+    r[k] = 0.75f * ri + 0.25f * rn;
   }
-  return r.u;
 }
 
 struct TileIdx {
@@ -175,15 +263,19 @@ __device__ __forceinline__ TileIdx tile_idx(const LayerArgs& a, int t, int tr) {
   return ti;
 }
 
-// stage tile t's input [cg][rows_in][cols_in][8] into buf.  Items go to
+// stage tile t's input [cg][rows_in][cols_in][8] into buf (the fp32
+// modes: its hi planes, and its lo planes L.lo bytes on).  Items go to
 // threads by octets of pixels: lane -> (channel group lane / 8, pixel lane
 // % 8), so each quarter-warp writes one 128-byte core matrix (no bank
 // conflicts) and a warp reads 4 channel groups of 8 neighbouring pixels.
-// cp.async for 16-byte aligned channel groups, loads and arithmetic for the
-// upsample and for unaligned inputs, zeros outside the image (the conv's
-// zero padding) and in pad channels
+// bf16 modes: cp.async for 16-byte aligned channel groups, loads and
+// arithmetic for the upsample and for unaligned inputs.  fp32 modes: loads,
+// the upsample in fp32 and the split, through registers.  Zeros outside the
+// image (the conv's zero padding) and in pad channels
+template <int MODE>
 __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
                            unsigned char* buf, int t128) {
+  constexpr bool F32 = mode_f32(MODE);
   const TileIdx ti = tile_idx(a, t, tr);
   const int halo = a.ks >> 1;
   const int cg_n = (a.cin0_pad + a.aux_c) >> 3;
@@ -191,8 +283,10 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
   const int per = 8 * cg_n;  // items per octet of pixels
   const uint64_t magic = ((1ull << 32) + per - 1) / per;  // k / per == (k * magic) >> 32 here
   const int n = (npix + 7) / 8 * per;
-  const bool in0_vec = (a.in0_c % 8 == 0) && (a.in0_stride % 8 == 0) && (a.in0_off % 8 == 0);
-  const bool aux_vec = (a.aux_c % 8 == 0) && (a.aux_stride % 8 == 0) && (a.aux_off % 8 == 0);
+  // vector loads: 16 bytes of bf16, or two 16-byte fp32 halves
+  const int align = F32 ? 4 : 8;
+  const bool in0_vec = (a.in0_c % 8 == 0) && (a.in0_stride % align == 0) && (a.in0_off % align == 0);
+  const bool aux_vec = (a.aux_c % 8 == 0) && (a.aux_stride % align == 0) && (a.aux_off % align == 0);
   for (int k = t128; k < n; k += 128) {
     const int oct = (int)(((uint64_t)k * magic) >> 32), rem = k - oct * per;
     const int cg = rem >> 3, pix = oct * 8 + (rem & 7);
@@ -204,21 +298,160 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
     const int c0 = cg * 8;
     if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W || (c0 < a.cin0_pad && c0 >= a.in0_c)) {
       *d = make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (F32) *reinterpret_cast<uint4*>(buf + L.lo + cg * L.plane + pix * 16) = *d;
       continue;
     }
     const size_t pixel = ((size_t)ti.b * a.H + gy) * a.W + gx;
-    if (c0 < a.cin0_pad) {
+    if constexpr (F32) {
+      float v[8];
+      if (c0 >= a.cin0_pad)
+        load_f8(static_cast<const float*>(a.aux), pixel, a.aux_stride, a.aux_off,
+                c0 - a.cin0_pad, a.aux_c, aux_vec, v);
+      else if (a.upsample)
+        load_up8<true>(a, ti.b, gy, gx, c0, in0_vec, v);
+      else
+        in0_f8<true>(a, pixel, c0, in0_vec, v);
+      uint4 hi, lo;
+      split8(v, hi, lo);
+      *d = hi;
+      *reinterpret_cast<uint4*>(buf + L.lo + cg * L.plane + pix * 16) = lo;
+    } else if (c0 < a.cin0_pad) {
+      const bf16* in0 = static_cast<const bf16*>(a.in0);
       if (a.upsample) {
-        *d = load_up8(a, ti.b, gy, gx, c0, in0_vec);
+        float v[8];
+        load_up8<false>(a, ti.b, gy, gx, c0, in0_vec, v);
+        *d = pack8(v);
       } else if (in0_vec) {
-        wg::cp_async16(d, a.in0 + pixel * a.in0_stride + a.in0_off + c0);
+        wg::cp_async16(d, in0 + pixel * a.in0_stride + a.in0_off + c0);
       } else {
-        *d = load_px8(a.in0, pixel, a.in0_stride, a.in0_off, c0, a.in0_c, false);
+        *d = load_px8(in0, pixel, a.in0_stride, a.in0_off, c0, a.in0_c, false);
       }
-    } else if (aux_vec) {
-      wg::cp_async16(d, a.aux + pixel * a.aux_stride + a.aux_off + (c0 - a.cin0_pad));
     } else {
-      *d = load_px8(a.aux, pixel, a.aux_stride, a.aux_off, c0 - a.cin0_pad, a.aux_c, false);
+      const bf16* aux = static_cast<const bf16*>(a.aux);
+      if (aux_vec)
+        wg::cp_async16(d, aux + pixel * a.aux_stride + a.aux_off + (c0 - a.cin0_pad));
+      else
+        *d = load_px8(aux, pixel, a.aux_stride, a.aux_off, c0 - a.cin0_pad, a.aux_c, false);
+    }
+  }
+}
+
+// cp.async of tap `tap`'s weights, hi then lo (wtap bytes in all), from the
+// packed matrix (hi [K/8][N][8] then lo) to dst; threads [0, nthreads)
+__device__ __forceinline__ void load_tap(unsigned char* dst, const bf16* w, int tap, int wtap,
+                                         int hi_bytes, int tid, int nthreads) {
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(w);
+  const int part = wtap / 2;
+  for (int i = tid * 16; i < wtap; i += nthreads * 16) {
+    const int lo = i >= part;
+    wg::cp_async16(dst + i, src + lo * hi_bytes + tap * part + (i - lo * part));
+  }
+}
+
+// the staged bf16 band [TRW][64][N] of tile ti to out and pooled
+template <int N, int TRW>
+__device__ __forceinline__ void store_band_bf16(const LayerArgs& a, const TileIdx& ti,
+                                                const bf16* band, int t128) {
+  constexpr int C8 = N / 8;
+  bf16* out = static_cast<bf16*>(a.out);
+  bf16* pooled = static_cast<bf16*>(a.pooled);
+  if (out != nullptr) {
+    if (a.cout == N) {
+      for (int it = t128; it < TRW * TW * C8; it += 128) {
+        const int pix = it / C8, q = it - pix * C8;
+        const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
+        if (gy >= a.H || gx >= a.W) continue;
+        *reinterpret_cast<uint4*>(out + (((size_t)ti.b * a.H + gy) * a.W + gx) * N + q * 8) =
+            *reinterpret_cast<const uint4*>(band + pix * N + q * 8);
+      }
+    } else {
+      for (int it = t128; it < TRW * TW * a.cout; it += 128) {
+        const int pix = it / a.cout, c = it - pix * a.cout;
+        const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
+        if (gy >= a.H || gx >= a.W) continue;
+        out[(((size_t)ti.b * a.H + gy) * a.W + gx) * a.cout + c] = band[pix * N + c];
+      }
+    }
+  }
+  if (pooled != nullptr) {
+    const int h2 = a.H >> 1, w2 = a.W >> 1;
+    const int c8 = a.cout == N ? C8 : a.cout;  // 8-channel groups, or single channels
+    for (int it = t128; it < (TRW / 2) * (TW / 2) * c8; it += 128) {
+      const int q = it % c8, pq = it / c8;
+      const int py = pq / (TW / 2), px = pq % (TW / 2);
+      const int gy2 = (ti.y0 >> 1) + py, gx2 = (ti.x0 >> 1) + px;
+      if (gy2 >= h2 || gx2 >= w2) continue;
+      const size_t o = (((size_t)ti.b * h2 + gy2) * w2 + gx2) * a.cout;
+      if (a.cout == N) {
+        const bf16* s0 = band + ((2 * py) * TW + 2 * px) * N + q * 8;
+        float m[8], v[8];
+        unpack8(*reinterpret_cast<const uint4*>(s0), m);
+        const int others[3] = {N, TW * N, TW * N + N};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          unpack8(*reinterpret_cast<const uint4*>(s0 + others[k]), v);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) m[e] = fmaxf(m[e], v[e]);
+        }
+        *reinterpret_cast<uint4*>(pooled + o + q * 8) = pack8(m);
+      } else {
+        const bf16* s0 = band + ((2 * py) * TW + 2 * px) * N + q;
+        const float mx = fmaxf(fmaxf(__bfloat162float(s0[0]), __bfloat162float(s0[N])),
+                               fmaxf(__bfloat162float(s0[TW * N]), __bfloat162float(s0[TW * N + N])));
+        pooled[o + q] = __float2bfloat16_rn(mx);
+      }
+    }
+  }
+}
+
+// the staged fp32 band [TRW][64][N] of tile ti to out and pooled (fp32)
+template <int N, int TRW>
+__device__ __forceinline__ void store_band_f32(const LayerArgs& a, const TileIdx& ti,
+                                               const float* band, int t128) {
+  constexpr int C4 = N / 4;
+  float* out = static_cast<float*>(a.out);
+  float* pooled = static_cast<float*>(a.pooled);
+  if (out != nullptr) {
+    if (a.cout == N) {
+      for (int it = t128; it < TRW * TW * C4; it += 128) {
+        const int pix = it / C4, q = it - pix * C4;
+        const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
+        if (gy >= a.H || gx >= a.W) continue;
+        *reinterpret_cast<float4*>(out + (((size_t)ti.b * a.H + gy) * a.W + gx) * N + q * 4) =
+            *reinterpret_cast<const float4*>(band + pix * N + q * 4);
+      }
+    } else {
+      for (int it = t128; it < TRW * TW * a.cout; it += 128) {
+        const int pix = it / a.cout, c = it - pix * a.cout;
+        const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
+        if (gy >= a.H || gx >= a.W) continue;
+        out[(((size_t)ti.b * a.H + gy) * a.W + gx) * a.cout + c] = band[pix * N + c];
+      }
+    }
+  }
+  if (pooled != nullptr) {
+    const int h2 = a.H >> 1, w2 = a.W >> 1;
+    const int c4 = a.cout == N ? C4 : a.cout;  // 4-channel groups, or single channels
+    for (int it = t128; it < (TRW / 2) * (TW / 2) * c4; it += 128) {
+      const int q = it % c4, pq = it / c4;
+      const int py = pq / (TW / 2), px = pq % (TW / 2);
+      const int gy2 = (ti.y0 >> 1) + py, gx2 = (ti.x0 >> 1) + px;
+      if (gy2 >= h2 || gx2 >= w2) continue;
+      const size_t o = (((size_t)ti.b * h2 + gy2) * w2 + gx2) * a.cout;
+      if (a.cout == N) {
+        const float* s0 = band + ((2 * py) * TW + 2 * px) * N + q * 4;
+        float4 m = *reinterpret_cast<const float4*>(s0);
+        const int others[3] = {N, TW * N, TW * N + N};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float4 v = *reinterpret_cast<const float4*>(s0 + others[k]);
+          m = make_float4(fmaxf(m.x, v.x), fmaxf(m.y, v.y), fmaxf(m.z, v.z), fmaxf(m.w, v.w));
+        }
+        *reinterpret_cast<float4*>(pooled + o + q * 4) = m;
+      } else {
+        const float* s0 = band + ((2 * py) * TW + 2 * px) * N + q;
+        pooled[o + q] = fmaxf(fmaxf(s0[0], s0[N]), fmaxf(s0[TW * N], s0[TW * N + N]));
+      }
     }
   }
 }
@@ -231,32 +464,41 @@ __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db,
 }
 
 // N = cout_pad; TRW = tile rows of a warpgroup (one m64 accumulator each);
-// SPLIT: a second product with the lo weights (a template flag: a branch
-// between the wgmma makes ptxas serialize them).  Each warpgroup walks its
-// own tiles in its own shared-memory region, so one warpgroup's staging and
-// epilogue overlap another's products.
-template <int N, int TRW, bool SPLIT>
+// MODE (a template parameter: a branch between the wgmma makes ptxas
+// serialize them) picks the products and the band dtype.  Each warpgroup
+// walks its own tiles in its own shared-memory region, so one warpgroup's
+// staging and epilogue overlap another's products; a streamed layer runs
+// one warpgroup a CTA.
+template <int N, int TRW, int MODE>
 __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool SPLIT = mode_split(MODE), F32 = mode_f32(MODE);
+  constexpr bool STREAM = MODE == F32_3X_STREAM;
   constexpr int NACC = N / 2, C8 = N / 8;
   const int nwg = blockDim.x >> 7;
   const int cin_tot = a.cin0_pad + a.aux_c;  // a multiple of 16
   const int kch = cin_tot >> 4;
   const int K = a.ks * a.ks * cin_tot;
-  const Smem L = smem_layout(a.ks, cin_tot, N, SPLIT, Config{TRW, nwg});
+  const int taps = a.ks * a.ks;
+  const Smem L = smem_layout(a.ks, cin_tot, N, MODE, Config{TRW, nwg});
   const int tid = threadIdx.x, g = tid >> 7, t128 = tid & 127;
   const int warp_in = t128 >> 5, lane = tid & 31;
   const int tiles_x = (a.W + TW - 1) / TW, tiles_y = (a.H + TRW - 1) / TRW;
   const int ntiles = tiles_x * tiles_y * a.B;
   const int t0 = blockIdx.x * nwg + g, stride = gridDim.x * nwg;
   unsigned char* buf = smem + L.buf + g * L.buf_bytes;
-  bf16* band = reinterpret_cast<bf16*>(buf);  // [TRW][TW][N] once the products are done
+  const int hi_bytes = K * N * 2;  // bytes of w_hi (and of w_lo)
 
-  // ---- the layer's packed weights, once per CTA, and the first tile
-  const int wbytes = K * N * 2 * (SPLIT ? 2 : 1);
-  for (int i = tid * 16; i < wbytes; i += blockDim.x * 16)
-    wg::cp_async16(smem + L.w + i, reinterpret_cast<const unsigned char*>(a.w) + i);
-  if (t0 < ntiles) stage_tile(a, L, t0, TRW, buf, t128);
+  // ---- the layer's packed weights, once per CTA (a streamed layer: its
+  // first tap), and the first tile
+  if constexpr (STREAM) {
+    load_tap(smem + L.w, a.w, 0, L.wtap, hi_bytes, tid, blockDim.x);
+  } else {
+    const int wbytes = hi_bytes * (SPLIT ? 2 : 1);
+    for (int i = tid * 16; i < wbytes; i += blockDim.x * 16)
+      wg::cp_async16(smem + L.w + i, reinterpret_cast<const unsigned char*>(a.w) + i);
+  }
+  if (t0 < ntiles) stage_tile<MODE>(a, L, t0, TRW, buf, t128);
   wg::cp_async_commit();
   wg::cp_async_wait<0>();
   wg::fence_async_smem();
@@ -271,10 +513,10 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
       const int c = 8 * j + 2 * (lane & 3) + e;
       bias[j][e] = c < a.cout ? __ldg(a.bias + c) : 0.f;
     }
-  const uint32_t w_hi = wg::smem_addr(smem + L.w);
-  const uint32_t w_lo = w_hi + K * N * 2;
+  const uint32_t w_base = wg::smem_addr(smem + L.w);
   const uint32_t a_base = wg::smem_addr(buf);
   const bool st_vec = (a.state_stride % 2 == 0) && (a.state_off % 2 == 0);
+  int slot = 0;  // a streamed layer: the weight buffer of the tap about to run
   PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long c0 = 0, c1 = 0; int nt = 0;)
   for (int t = t0; t < ntiles; t += stride) {
     PHASE_CLOCK(c0 = clock64();)
@@ -291,35 +533,68 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
     for (int dy = 0; dy < a.ks; ++dy) {
 #pragma unroll 1
       for (int dx = 0; dx < a.ks; ++dx) {
+        const int tap = dy * a.ks + dx;
         const uint32_t a_tap = a_base + (dy * L.cols_in + dx) * 16;
-        const int ks0 = (dy * a.ks + dx) * kch;
+        uint32_t wh, wl;
+        if constexpr (STREAM) {
+          if (tap > 0) {  // this tap's weights are in; the last tap's products are done
+            wg::cp_async_wait<0>();
+            wg::fence_async_smem();
+            wg::bar_warpgroup(g);
+          }
+          // the next tap (after the last: the next tile's first) into the
+          // other buffer
+          if (tap + 1 < taps || t + stride < ntiles)
+            load_tap(smem + L.w + (slot ^ 1) * L.wtap, a.w, tap + 1 < taps ? tap + 1 : 0,
+                     L.wtap, hi_bytes, t128, 128);
+          wg::cp_async_commit();
+          wh = w_base + slot * L.wtap;
+          wl = wh + L.wtap / 2;
+          wg::fence();
+        } else {
+          wh = w_base + tap * kch * N * 32;
+          wl = wh + hi_bytes;
+        }
 #pragma unroll 1
         for (int kc = 0; kc < kch; ++kc) {
-          const int accumulate = (ks0 + kc) > 0;
-          const uint32_t wo = (ks0 + kc) * N * 32;
-          const uint64_t db = wg::desc(w_hi + wo, N * 16, 128);
+          const int accumulate = (tap + kc) > 0;
+          const uint32_t wo = kc * N * 32;
+          const uint32_t ak = a_tap + 2 * kc * L.plane;
+          const uint64_t dh = wg::desc(wh + wo, N * 16, 128);
 #pragma unroll
           for (int r = 0; r < TRW; ++r)
-            mma<N>(acc[r], wg::desc(a_tap + 2 * kc * L.plane + r * L.cols_in * 16, L.plane, 128),
-                   db, accumulate);
-          if constexpr (SPLIT) {
-            const uint64_t dl = wg::desc(w_lo + wo, N * 16, 128);
+            mma<N>(acc[r], wg::desc(ak + r * L.cols_in * 16, L.plane, 128), dh, accumulate);
+          if constexpr (F32) {  // w_hi a_lo
 #pragma unroll
             for (int r = 0; r < TRW; ++r)
-              mma<N>(acc[r], wg::desc(a_tap + 2 * kc * L.plane + r * L.cols_in * 16, L.plane, 128),
-                     dl, 1);
+              mma<N>(acc[r], wg::desc(ak + L.lo + r * L.cols_in * 16, L.plane, 128), dh, 1);
           }
+          if constexpr (SPLIT) {  // w_lo a_hi
+            const uint64_t dl = wg::desc(wl + wo, N * 16, 128);
+#pragma unroll
+            for (int r = 0; r < TRW; ++r)
+              mma<N>(acc[r], wg::desc(ak + r * L.cols_in * 16, L.plane, 128), dl, 1);
+          }
+        }
+        if constexpr (STREAM) {
+          wg::commit();
+          wg::wait<0>();
+#pragma unroll
+          for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
+          slot ^= 1;
         }
       }
     }
-    wg::commit();
-    wg::wait<0>();
+    if constexpr (!STREAM) {
+      wg::commit();
+      wg::wait<0>();
 #pragma unroll
-    for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
+      for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
+    }
     PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)  // phase 1: the products
     wg::bar_warpgroup(g);  // the input tile is consumed: the region takes the band
 
-    // ---- epilogue from registers: bias, act, fp32 state, bf16 band staged
+    // ---- epilogue from registers: bias, act, fp32 state, band staged
     const TileIdx ti = tile_idx(a, t, TRW);
 #pragma unroll
     for (int r = 0; r < TRW; ++r) {
@@ -336,7 +611,12 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
           }
-          *reinterpret_cast<uint32_t*>(band + (r * TW + m) * N + c) = wg::pack_bf16x2(v0, v1);
+          if constexpr (F32)
+            *reinterpret_cast<float2*>(reinterpret_cast<float*>(buf) + (r * TW + m) * N + c) =
+                make_float2(v0, v1);
+          else
+            *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(buf) + (r * TW + m) * N + c) =
+                wg::pack_bf16x2(v0, v1);
           const int gx = ti.x0 + m;
           if (a.state != nullptr && gy < a.H && gx < a.W && c < a.cout) {
             float* st = a.state + (((size_t)ti.b * a.H + gy) * a.W + gx) * a.state_stride +
@@ -357,57 +637,12 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
 
     // ---- band and pool from the staged band: 16-byte stores where the
     // layer's channels fill N
-    if (a.out != nullptr) {
-      if (a.cout == N) {
-        for (int it = t128; it < TRW * TW * C8; it += 128) {
-          const int pix = it / C8, q = it - pix * C8;
-          const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
-          if (gy >= a.H || gx >= a.W) continue;
-          *reinterpret_cast<uint4*>(a.out + (((size_t)ti.b * a.H + gy) * a.W + gx) * N + q * 8) =
-              *reinterpret_cast<const uint4*>(band + pix * N + q * 8);
-        }
-      } else {
-        for (int it = t128; it < TRW * TW * a.cout; it += 128) {
-          const int pix = it / a.cout, c = it - pix * a.cout;
-          const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
-          if (gy >= a.H || gx >= a.W) continue;
-          a.out[(((size_t)ti.b * a.H + gy) * a.W + gx) * a.cout + c] = band[pix * N + c];
-        }
-      }
-    }
-    if (a.pooled != nullptr) {
-      const int h2 = a.H >> 1, w2 = a.W >> 1;
-      const int c8 = a.cout == N ? C8 : a.cout;  // 8-channel groups, or single channels
-      for (int it = t128; it < (TRW / 2) * (TW / 2) * c8; it += 128) {
-        const int q = it % c8, pq = it / c8;
-        const int py = pq / (TW / 2), px = pq % (TW / 2);
-        const int gy2 = (ti.y0 >> 1) + py, gx2 = (ti.x0 >> 1) + px;
-        if (gy2 >= h2 || gx2 >= w2) continue;
-        const size_t o = (((size_t)ti.b * h2 + gy2) * w2 + gx2) * a.cout;
-        if (a.cout == N) {
-          const bf16* s0 = band + ((2 * py) * TW + 2 * px) * N + q * 8;
-          float m[8], v[8];
-          unpack8(*reinterpret_cast<const uint4*>(s0), m);
-          const int others[3] = {N, TW * N, TW * N + N};
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            unpack8(*reinterpret_cast<const uint4*>(s0 + others[k]), v);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) m[e] = fmaxf(m[e], v[e]);
-          }
-          *reinterpret_cast<uint4*>(a.pooled + o + q * 8) =
-              make_uint4(wg::pack_bf16x2(m[0], m[1]), wg::pack_bf16x2(m[2], m[3]),
-                         wg::pack_bf16x2(m[4], m[5]), wg::pack_bf16x2(m[6], m[7]));
-        } else {
-          const bf16* s0 = band + ((2 * py) * TW + 2 * px) * N + q;
-          const float mx = fmaxf(fmaxf(__bfloat162float(s0[0]), __bfloat162float(s0[N])),
-                                 fmaxf(__bfloat162float(s0[TW * N]), __bfloat162float(s0[TW * N + N])));
-          a.pooled[o + q] = __float2bfloat16_rn(mx);
-        }
-      }
-    }
+    if constexpr (F32)
+      store_band_f32<N, TRW>(a, ti, reinterpret_cast<const float*>(buf), t128);
+    else
+      store_band_bf16<N, TRW>(a, ti, reinterpret_cast<const bf16*>(buf), t128);
     wg::bar_warpgroup(g);  // the band is out: stage the next tile
-    if (t + stride < ntiles) stage_tile(a, L, t + stride, TRW, buf, t128);
+    if (t + stride < ntiles) stage_tile<MODE>(a, L, t + stride, TRW, buf, t128);
     wg::cp_async_commit();
     PHASE_CLOCK(ph[2] += clock64() - c0; ++nt;)  // phase 2: epilogue and staging
   }
@@ -416,41 +651,75 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
 }
 
 // the configurations in order of preference: the first whose shared memory
-// fits is launched
+// fits is launched (a streamed layer takes one warpgroup a CTA)
 constexpr Config CONFIGS[] = {{4, 3}, {2, 3}, {2, 2}, {2, 1}};
+constexpr Config STREAM_CONFIGS[] = {{4, 1}, {2, 1}};
 
-template <int N, int TRW, bool SPLIT>
+template <int N, int TRW, int MODE>
 cudaError_t launch(const LayerArgs& a, Config c, int smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(conv_layer_kernel<N, TRW, SPLIT>,
+  cudaError_t e = cudaFuncSetAttribute(conv_layer_kernel<N, TRW, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_layer_kernel<N, TRW, SPLIT>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv_layer_kernel<N, TRW, MODE>,
                                                       128 * c.nwg, smem);
   if (e != cudaSuccess) return e;
   const long long ntiles = (long long)((a.W + TW - 1) / TW) * ((a.H + TRW - 1) / TRW) * a.B;
   const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long ctas = (ntiles + c.nwg - 1) / c.nwg;
   const int grid = (int)(ctas < slots ? ctas : slots);
-  conv_layer_kernel<N, TRW, SPLIT><<<grid, 128 * c.nwg, smem, s>>>(a);
+  conv_layer_kernel<N, TRW, MODE><<<grid, 128 * c.nwg, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int N, bool SPLIT>
-cudaError_t launch_n(const LayerArgs& a, cudaStream_t s) {
-  for (const Config& c : CONFIGS) {
-    const int smem = smem_layout(a.ks, a.cin0_pad + a.aux_c, N, SPLIT, c).total;
-    if (smem > SMEM_MAX) continue;
-    return c.trw == 4 ? launch<N, 4, SPLIT>(a, c, smem, s) : launch<N, 2, SPLIT>(a, c, smem, s);
+// the first configuration of `mode` whose shared memory fits, or {0, 0}
+Config pick(const LayerArgs& a, int n, int mode) {
+  const bool stream = mode == F32_3X_STREAM;
+  const Config* cs = stream ? STREAM_CONFIGS : CONFIGS;
+  const int nc = stream ? sizeof(STREAM_CONFIGS) / sizeof(Config) : sizeof(CONFIGS) / sizeof(Config);
+  for (int i = 0; i < nc; ++i)
+    if (smem_layout(a.ks, a.cin0_pad + a.aux_c, n, mode, cs[i]).total <= SMEM_MAX) return cs[i];
+  return Config{0, 0};
+}
+
+struct Plan {
+  int mode;
+  Config c;  // {0, 0}: nothing fits
+};
+
+// a layer's mode and configuration, a function of its shape alone.  fp32
+// bands: the weights stay resident where a configuration fits, and stream
+// a tap at a time otherwise (the layers with K = 864)
+Plan plan(const LayerArgs& a, int n, bool split, bool f32) {
+  if (!f32) {
+    const int m = split ? BF16_SPLIT : BF16;
+    return Plan{m, pick(a, n, m)};
   }
-  return cudaErrorInvalidValue;
+  const Config c = pick(a, n, F32_3X);
+  return c.nwg ? Plan{F32_3X, c} : Plan{F32_3X_STREAM, pick(a, n, F32_3X_STREAM)};
+}
+
+template <int N, int MODE>
+cudaError_t launch_mode(const LayerArgs& a, Config c, cudaStream_t s) {
+  const int smem = smem_layout(a.ks, a.cin0_pad + a.aux_c, N, MODE, c).total;
+  return c.trw == 4 ? launch<N, 4, MODE>(a, c, smem, s) : launch<N, 2, MODE>(a, c, smem, s);
 }
 
 template <int N>
-cudaError_t launch_split(const LayerArgs& a, bool split, cudaStream_t s) {
-  return split ? launch_n<N, true>(a, s) : launch_n<N, false>(a, s);
+cudaError_t launch_plan(const LayerArgs& a, Plan p, cudaStream_t s) {
+  if (p.c.nwg == 0) return cudaErrorInvalidValue;  // no configuration fits
+  switch (p.mode) {
+    case BF16: return launch_mode<N, BF16>(a, p.c, s);
+    case BF16_SPLIT: return launch_mode<N, BF16_SPLIT>(a, p.c, s);
+    case F32_3X: return launch_mode<N, F32_3X>(a, p.c, s);
+    default: return launch_mode<N, F32_3X_STREAM>(a, p.c, s);
+  }
+}
+
+bool bad_shape(int ks, int cin_tot, int split, int f32) {
+  return cin_tot % 16 || cin_tot <= 0 || (ks != 1 && ks != 3) || (f32 && !split);
 }
 
 }  // namespace
@@ -466,41 +735,65 @@ const char* rvdd_cuda_error_string(int e) {
 // cout <= cout_pad, H == 2*in0_h and W == 2*in0_w when upsample, even H
 // and W when pooled, 16-byte aligned tensors, and w packed by the wrapper's
 // pack_kmajor ([K/8][cout_pad][8], the lo half after the hi half when
-// split).  Returns a cudaError_t as int.
+// split).  f32 = 1 selects fp32 bands with bf16_3x products: in0, aux, out
+// and pooled are then fp32 and the weights must be split.  Returns a
+// cudaError_t as int.
 int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
                     int in0_h, int in0_w, int upsample,
                     const void* aux, int aux_c, int aux_stride, int aux_off,
-                    const void* w, int split, const void* bias,
+                    const void* w, int split, int f32, const void* bias,
                     int ks, int cin0_pad, int cout, int cout_pad, int relu,
                     int B, int H, int W,
                     void* out, void* pooled,
                     void* state, int state_stride, int state_off, int state_zero,
                     void* stream) {
   LayerArgs a;
-  a.in0 = (const bf16*)in0; a.in0_c = in0_c; a.in0_stride = in0_stride;
+  a.in0 = in0; a.in0_c = in0_c; a.in0_stride = in0_stride;
   a.in0_off = in0_off; a.in0_h = in0_h; a.in0_w = in0_w; a.upsample = upsample;
-  a.aux = (const bf16*)aux; a.aux_c = aux_c; a.aux_stride = aux_stride; a.aux_off = aux_off;
+  a.aux = aux; a.aux_c = aux_c; a.aux_stride = aux_stride; a.aux_off = aux_off;
   a.w = (const bf16*)w; a.bias = (const float*)bias;
   a.ks = ks; a.cin0_pad = cin0_pad; a.cout = cout; a.cout_pad = cout_pad; a.relu = relu;
   a.B = B; a.H = H; a.W = W;
-  a.out = (bf16*)out; a.pooled = (bf16*)pooled;
+  a.out = out; a.pooled = pooled;
   a.state = (float*)state; a.state_stride = state_stride; a.state_off = state_off;
   a.state_zero = state_zero;
 
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if ((cin0_pad + aux_c) % 16 || cin0_pad + aux_c <= 0 || (ks != 1 && ks != 3)) {
+  if (bad_shape(ks, cin0_pad + aux_c, split, f32)) {
     e = cudaErrorInvalidValue;
   } else {
+    const Plan p = plan(a, cout_pad, split != 0, f32 != 0);
     switch (cout_pad) {
-      case 16: e = launch_split<16>(a, split != 0, s); break;
-      case 32: e = launch_split<32>(a, split != 0, s); break;
-      case 48: e = launch_split<48>(a, split != 0, s); break;
+      case 16: e = launch_plan<16>(a, p, s); break;
+      case 32: e = launch_plan<32>(a, p, s); break;
+      case 48: e = launch_plan<48>(a, p, s); break;
       default: e = cudaErrorInvalidValue;
     }
   }
   if (e != cudaSuccess) cudaGetLastError();  // clear it; report it once
   return (int)e;
+}
+
+// The launch plan of a layer of that shape (K = ks^2 * cin_tot), as
+// rvdd_conv_layer makes it: out[0] the mode (0 bf16, 1 bf16 with split
+// weights, 2 fp32 bands with resident weights, 3 fp32 bands with streamed
+// weights), out[1] the tile rows, out[2] the warpgroups a CTA, out[3] the
+// shared memory a CTA.  Returns a cudaError_t as int: cudaErrorInvalidValue
+// for a shape the kernel does not take or that fits no configuration.
+int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int split, int f32, int* out) {
+  if (bad_shape(ks, cin_tot, split, f32) || (cout_pad != 16 && cout_pad != 32 && cout_pad != 48))
+    return (int)cudaErrorInvalidValue;
+  LayerArgs a = {};
+  a.ks = ks;
+  a.cin0_pad = cin_tot;
+  const Plan p = plan(a, cout_pad, split != 0, f32 != 0);
+  if (p.c.nwg == 0) return (int)cudaErrorInvalidValue;
+  out[0] = p.mode;
+  out[1] = p.c.trw;
+  out[2] = p.c.nwg;
+  out[3] = smem_layout(ks, cin_tot, cout_pad, p.mode, p.c).total;
+  return 0;
 }
 
 }  // extern "C"

@@ -20,9 +20,9 @@ limit, so chains C and dec0 always run) and the depthwise-engine knobs
 (``DW_KNOBS``).
 
 Numerics: rvdd_tpu's ``fast`` preset, the only one ported: bf16 bands and
-weights with fp32 accumulation and tanh GELU.  In the engine's
-combined-state mode the dec2 chain writes the next recurrence state
-``[den 3 | zero 5 | feat 48]`` in fp32.
+weights with fp32 accumulation and tanh GELU (:func:`check_precision`).  In
+the engine's combined-state mode the dec2 chain writes the next recurrence
+state ``[den 3 | zero 5 | feat 48]`` in fp32.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ from typing import Optional
 import torch
 
 from rvdd_tpu_torch.models.convnext_unet import ConvNeXtUNet
-from rvdd_tpu_torch.models.fast_unet import get_fused_precision
 from rvdd_tpu_torch.ops.cuda.convnext_chain import (
     WIDTH,
     convnext_chain,
@@ -60,6 +59,20 @@ def supports_fast_path_cnx(net, h: int, w: int) -> bool:
     )
 
 
+def check_precision(precision: str) -> None:
+    """Only 'fast' is ported.  rvdd_tpu's 'mixed' and 'accurate' need the
+    erf GELU and fp32 bands in convnext_chain (ROADMAP.md, Queue 2 item 2);
+    a hybrid names ConvUNet chains and is refused as rvdd_tpu refuses it
+    (rvdd_tpu/models/fast_convnext.py:298-303)."""
+    if precision.startswith("hybrid:"):
+        raise ValueError("per-chain hybrid presets are a ConvUNet feature; the ConvNeXt "
+                         "fused path takes 'fast'")
+    if precision != "fast":
+        raise NotImplementedError(
+            f"fused precision {precision!r} is not ported for ConvNeXt; only 'fast' is "
+            "(ROADMAP.md, Queue 2 item 2)")
+
+
 # ------------------------------------------------------------------- weights
 
 
@@ -69,7 +82,7 @@ def pack_fast_cnx(net: ConvNeXtUNet, feature_rec: bool, in_nc: int,
     """One-time packing of the module's weights into the seven chains."""
     if in_nc != net.in_channels:
         raise ValueError(f"in_nc {in_nc} != net.in_channels {net.in_channels}")
-    get_fused_precision(precision)
+    check_precision(precision)
 
     def sds(*names):
         return [net.get_submodule(n).state_dict() for n in names]

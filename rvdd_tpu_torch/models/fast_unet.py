@@ -4,18 +4,24 @@ The full-, half- and quarter-resolution levels run as six conv chains
 (A, B, C on the way down; dec0, dec1, dec2 on the way up) through the CUDA
 ``conv_chain`` kernel; the cheap eighth-resolution core (``_middle8``)
 stays in plain PyTorch, as it stays in XLA in rvdd_tpu.  Activations are
-NHWC bf16 between chains; the chains pool and upsample inside the kernel,
-so there is no glue between them.
+NHWC between chains, each in the band dtype of the chain that made it; the
+chains pool and upsample inside the kernel, and a chain's input is rounded
+to its own band dtype where it is read (``.to(chain.dtype)``, rvdd_tpu's
+``x.astype(band_dtype)``).
 
-Numerics: rvdd_tpu's ``fast`` preset, the only one ported: bf16 bands and
-weights with fp32 accumulation, and dec2's post0 and head layers with
-split (hi + lo) weights.  In the engine's combined-state mode the dec2
-chain writes the next recurrence state ``[den 3 | zero 5 | feat 48]`` in
-fp32 straight from its accumulator.
+Numerics: the fused-path presets of rvdd_tpu/models/fast_unet.py:30-129.
+Each chain runs either bf16 bands with 1-pass (or split-weight) products,
+or fp32 bands with bf16_3x products (the kernel's fp32 mode); 'glue' (the
+engine's warps and frame inputs) runs bf16 or fp32, and the eighth-res
+core (``_middle8``) follows the glue or, where 'middle' is named, runs
+fp32 operands.  In the engine's combined-state mode
+the dec2 chain writes the next recurrence state ``[den 3 | zero 5 | feat
+48]`` in fp32 straight from its accumulator, in every preset.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -24,31 +30,77 @@ import torch.nn.functional as F
 from rvdd_tpu_torch.models.unet import ConvUNet
 from rvdd_tpu_torch.ops.cuda.conv_chain import conv_chain, pack_chain
 
-#: fused-path numerics presets.  Only 'fast' is ported: bf16 bands, 1-pass
-#: bf16 products, and dec2's last two layers (post0, head) with split
-#: weights.  rvdd_tpu's 'mixed', 'accurate', 'wsplit', 'wf32' and
-#: 'hybrid:<chains>' wait for a later slice (ROADMAP.md).
+#: the six conv chains, in rvdd_tpu's names
+CHAINS = ("A", "B", "C", "dec0", "dec1", "dec2")
+#: what a hybrid preset may name: the chains, 'middle' (the eighth-res
+#: core) and 'glue' (everything between chains: the state and future-frame
+#: warps and the frame inputs)
+HYBRID_CHAINS = ("A", "B", "C", "middle", "dec0", "dec1", "dec2", "glue")
+#: the 'fast' preset's selective split: dec2's post0 and head layers carry
+#: about 2/3 of the fused path's error power (rvdd_tpu, PARITY.md)
+_FAST_SPLIT = {"dec2": (False, False, False, True, True)}
+
+#: fused-path numerics presets, resolved: ``fp32`` names the parts that
+#: run fp32 bands (a chain: bf16_3x products, every layer split; 'middle':
+#: fp32 operands; 'glue': fp32 warps and inputs); ``weight_split`` gives
+#: the bf16 chains' per-layer hi/lo split (a tuple per chain, or True for
+#: every layer of every chain).
+#:   fast:   bf16 everywhere, dec2's post0 and head split;
+#:   mixed:  fp32 everywhere, bf16_3x products;
+#:   wsplit: bf16 bands, every layer split.
+#: 'hybrid:<c1>+<c2>+...' runs the named parts as 'mixed' and the rest as
+#: 'fast' (see get_fused_precision).  rvdd_tpu's 'accurate' and 'wf32' need
+#: 6-pass ('highest') products and fp32 weights, which the kernel does not
+#: have yet: they raise (ROADMAP.md, Queue 2 item 1).
 FUSED_PRECISIONS = {
-    "fast": dict(weight_split={"dec2": (False, False, False, True, True)}),
+    "fast": dict(fp32=frozenset(), weight_split=_FAST_SPLIT),
+    "mixed": dict(fp32=frozenset(HYBRID_CHAINS), weight_split={}),
+    "wsplit": dict(fp32=frozenset(), weight_split=True),
 }
+_NOT_PORTED = ("accurate", "wf32")
 
 
 def get_fused_precision(name: str) -> dict:
-    if name not in FUSED_PRECISIONS:
+    """Resolve a FUSED_PRECISIONS key or a hybrid, as rvdd_tpu's
+    get_fused_precision does.  ``hybrid:<c1>+...`` (parts from
+    HYBRID_CHAINS) runs the named parts with the 'mixed' numerics and every
+    other chain with the 'fast' ones, including fast's split of dec2's last
+    two layers when dec2 is not named (rvdd_tpu/models/fast_unet.py:93-95)."""
+    if name.startswith("hybrid:"):
+        parts = tuple(name[len("hybrid:"):].split("+"))
+        bad = [c for c in parts if c not in HYBRID_CHAINS]
+        if bad:
+            raise ValueError(f"unknown hybrid chains {bad}; pick from {HYBRID_CHAINS}")
+        return dict(fp32=frozenset(parts),
+                    weight_split={} if "dec2" in parts else _FAST_SPLIT)
+    if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"fused precision {name!r} is not ported; only 'fast' is (ROADMAP.md)")
+            f"fused precision {name!r} needs 6-pass products and fp32 weights in conv_chain, "
+            "not ported yet (ROADMAP.md, Queue 2 item 1)")
+    if name not in FUSED_PRECISIONS:
+        raise ValueError(f"unknown fused precision {name!r}; pick from "
+                         f"{sorted(FUSED_PRECISIONS) + list(_NOT_PORTED)} or 'hybrid:<chains>'")
     return FUSED_PRECISIONS[name]
+
+
+def glue_dtype(prec: dict) -> torch.dtype:
+    """The dtype between chains (the engine's state and future-frame warps
+    and the frame inputs) of a resolved preset: fp32 where 'glue' runs fp32
+    (every part of 'mixed', or a hybrid that names it), else bf16."""
+    return torch.float32 if "glue" in prec["fp32"] else torch.bfloat16
 
 
 def resolve_fused_precision(name: str, *, arch: str, feature_rec: bool,
                             future: bool) -> str:
-    """Resolve 'auto' as rvdd_tpu does: 'fast' for every variant except
-    convunet+feat+future, whose preset ('hybrid:glue+A+dec2') is not ported
-    yet and raises.  Any other name must be a ported preset."""
+    """Resolve 'auto' as rvdd_tpu does: 'hybrid:glue+A+dec2' for
+    convunet+feat+future, whose bf16 error recirculates on the full-res
+    cycle carry -> warp -> A -> skip0 -> dec2 -> carry (-0.30 dB under
+    'fast'; closing that cycle in fp32 costs -0.002 dB, PARITY.md), and
+    'fast' for every other variant.  Any other name is checked and
+    returned."""
     if name == "auto":
         if arch.startswith("convunet") and feature_rec and future:
-            raise NotImplementedError(
-                "convunet+feat+future resolves to 'hybrid:glue+A+dec2', not ported yet")
+            return "hybrid:glue+A+dec2"
         return "fast"
     get_fused_precision(name)
     return name
@@ -98,14 +150,20 @@ def _swap_concat(k: torch.Tensor, first: int) -> torch.Tensor:
 @torch.no_grad()
 def pack_fast_params(net: ConvUNet, feature_rec: bool, in_nc: int,
                      precision: str = "fast") -> dict:
-    """One-time packing of the module's weights into the six chains."""
+    """One-time packing of the module's weights into the six chains, each
+    in its mode under ``precision`` (a FUSED_PRECISIONS key or a hybrid):
+    ``packed[name].band_fp32`` says which chains run fp32 bands,
+    ``packed["middle_dtype"]`` and ``packed["middle_fp32"]`` how the
+    eighth-res core runs (see :func:`_middle8`)."""
     if in_nc != net.in_channels:
         raise ValueError(f"in_nc {in_nc} != net.in_channels {net.in_channels}")
-    split = get_fused_precision(precision)["weight_split"]
+    prec = get_fused_precision(precision)
+    split = prec["weight_split"]
 
     def chain(name, convs, acts, ks, ws=None):
+        per_layer = (True,) * len(convs) if split is True else split.get(name)
         return pack_chain(ws or [_hwio(c) for c in convs], [_bias(c) for c in convs],
-                          acts, ks, weight_split=split.get(name))
+                          acts, ks, weight_split=per_layer, band_fp32=name in prec["fp32"])
 
     e = [getattr(net, f"enc_conv{i}") for i in range(4)]
     packed = {}
@@ -133,8 +191,12 @@ def pack_fast_params(net: ConvUNet, feature_rec: bool, in_nc: int,
             acts = acts[:-1] + ("none",)
         packed[f"dec{i}"] = chain(f"dec{i}", convs, acts, (3,) * 3 + ((3, 1) if i == 2 else ()),
                                   ws=ws)
+    # the eighth-res core (_middle8): fp32 arrays where the glue is fp32 or
+    # 'middle' is named, fp32 operands where 'middle' is named
+    packed["middle_fp32"] = "middle" in prec["fp32"]
+    packed["middle_dtype"] = torch.float32 if packed["middle_fp32"] else glue_dtype(prec)
     packed["params_mid"] = {
-        name: (conv.weight.detach().to(torch.bfloat16), conv.bias.detach().to(torch.bfloat16))
+        name: (conv.weight.detach().float(), conv.bias.detach().float())
         for name, conv in (("enc_conv3.conv0", e[3].conv0), ("enc_conv3.conv1", e[3].conv1),
                            ("bottleneck0", net.bottleneck0), ("bottleneck1", net.bottleneck1))
     }
@@ -144,29 +206,56 @@ def pack_fast_params(net: ConvUNet, feature_rec: bool, in_nc: int,
 # --------------------------------------------------------------- eighth res
 
 
-def _bf16_conv(x, wb, act=True):
-    """bf16 operands, fp32 accumulation, bf16 output (a bf16 XLA conv).
-    The fp32 conv gives the same result on every device: bf16 values are
-    exact in TF32 too, so cuDNN's default TF32 mode does not round them."""
-    w, b = wb
-    y = F.conv2d(x.float(), w.float(), b.float(), padding=1)
-    if act:
-        y = torch.relu(y)
-    return y.to(torch.bfloat16)
+@contextlib.contextmanager
+def _cudnn_fp32():
+    """cuDNN's convs in full fp32 for the scope: its default TF32 keeps 10
+    mantissa bits, against about 16 for rvdd_tpu's 'high' (bf16_3x) that
+    an fp32 middle stands for.  Outside the scope the flag is as the caller
+    left it (TF32 off slows the bf16-valued convs of the other modes and
+    buys them nothing: bf16 values are exact in TF32)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
-def _middle8(params, d2: torch.Tensor) -> torch.Tensor:
+def _middle8(params, d2: torch.Tensor, store: torch.dtype = torch.bfloat16,
+             exact: bool = False) -> torch.Tensor:
     """Eighth-res core: enc3 -> bottleneck with its running residual sum;
-    NHWC bf16 [B, H/8, W/8, 48] in and out.  Plain PyTorch, as it is XLA in
-    rvdd_tpu: too small for the chain kernels and cheap."""
-    x = d2.permute(0, 3, 1, 2)
-    h = _bf16_conv(x, params["enc_conv3.conv0"])
-    skip3 = _bf16_conv(h, params["enc_conv3.conv1"])
-    d = s = skip3
-    for i in range(2):
-        d = _bf16_conv(d, params[f"bottleneck{i}"])
-        s = (s.float() + d.float()).to(torch.bfloat16)
-    return s.permute(0, 2, 3, 1).contiguous()
+    NHWC [B, H/8, W/8, 48] in and out (``store``).  Plain PyTorch, as it is
+    XLA in rvdd_tpu: too small for the chain kernels and cheap.  rvdd_tpu
+    runs it on arrays of its glue dtype with 1-pass dots, or on fp32 arrays
+    with 'high' dots where the preset names 'middle'
+    (rvdd_tpu/models/fast_unet.py:257-267 and :519-523), so three modes:
+
+    * ``store`` bf16: bf16 operands, each conv's result and the residual
+      sum rounded to bf16 (bf16 XLA convs);
+    * ``store`` fp32: 1-pass dots on fp32 arrays, as the TPU runs them:
+      activations and weights rounded to bf16 at each conv, results,
+      biases and the residual sum kept fp32;
+    * ``exact`` (store fp32): fp32 operands throughout, under
+      :func:`_cudnn_fp32`.
+
+    A conv of bf16-rounded operands is exact in fp32 on every device (bf16
+    values are exact in TF32 too)."""
+    def conv(h, name, act=True):
+        w, b = params[name]
+        if not exact:
+            h, w = h.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+            if store == torch.bfloat16:
+                b = b.to(torch.bfloat16).float()
+        y = F.conv2d(h, w, b, padding=1)
+        return (torch.relu(y) if act else y).to(store).float()
+
+    x = d2.permute(0, 3, 1, 2).float()
+    with _cudnn_fp32() if exact else contextlib.nullcontext():
+        d = s = conv(conv(x, "enc_conv3.conv0"), "enc_conv3.conv1")  # skip3
+        for i in range(2):
+            d = conv(d, f"bottleneck{i}")
+            s = (s + d).to(store).float()
+    return s.to(store).permute(0, 2, 3, 1).contiguous()
 
 
 # ------------------------------------------------------------------ forward
@@ -175,28 +264,34 @@ def _middle8(params, d2: torch.Tensor) -> torch.Tensor:
 def fast_forward(net: ConvUNet, packed: dict, x: torch.Tensor,
                  aux: Optional[torch.Tensor] = None, *, aux_channels=None,
                  combine_state: bool = False):
-    """Fused forward on NHWC bf16 x [B, H, W, in_nc].
+    """Fused forward on NHWC x [B, H, W, in_nc], each chain and the
+    eighth-res core in the mode :func:`pack_fast_params` gave them.
 
     aux: the recurrent features [B, H, W, 48], or a wider tensor with
-    ``aux_channels=(offset, 48)`` (the warped recurrence state).
-    Returns (out [B, H, W, out_nc] bf16, new_feat [B, H, W, 48] bf16 or
-    None), or with ``combine_state`` the next recurrence state
+    ``aux_channels=(offset, 48)`` (the warped recurrence state).  Each
+    chain's inputs are rounded to its band dtype where it reads them, so x
+    and aux may come in either dtype (the engine passes its glue dtype).
+    Returns (out [B, H, W, out_nc], new_feat [B, H, W, 48] or None) in
+    dec2's band dtype, or with ``combine_state`` the next recurrence state
     [B, H, W, 8 (+48)] fp32 ``[den 3 | zero 5 | feat 48]``.
     """
     feat_rec = net.feature_rec
-    skip0, d0 = conv_chain(x, packed["A"], aux=aux if feat_rec else None,
+    ca, cb, cc, c0, c1, c2 = (packed[n] for n in CHAINS)
+    skip0, d0 = conv_chain(x.to(ca.dtype), ca, aux=aux.to(ca.dtype) if feat_rec else None,
                            aux_channels=aux_channels, emit=packed["A_emit"],
                            pool=packed["A_pool"])
-    skip1, d1 = conv_chain(d0, packed["B"], emit=(1, 2), pool=(2,))
-    skip2, d2 = conv_chain(d1, packed["C"], emit=(1, 2), pool=(2,))
-    m8 = _middle8(packed["params_mid"], d2)
-    (dec0,) = conv_chain(m8, packed["dec0"], aux=skip2, emit=(2,), upsample_input=True)
-    (dec1,) = conv_chain(dec0, packed["dec1"], aux=skip1, emit=(2,), upsample_input=True)
+    skip1, d1 = conv_chain(d0.to(cb.dtype), cb, emit=(1, 2), pool=(2,))
+    skip2, d2 = conv_chain(d1.to(cc.dtype), cc, emit=(1, 2), pool=(2,))
+    m8 = _middle8(packed["params_mid"], d2, packed["middle_dtype"], packed["middle_fp32"])
+    (dec0,) = conv_chain(m8.to(c0.dtype), c0, aux=skip2.to(c0.dtype), emit=(2,),
+                         upsample_input=True)
+    (dec1,) = conv_chain(dec0.to(c1.dtype), c1, aux=skip1.to(c1.dtype), emit=(2,),
+                         upsample_input=True)
     if combine_state:
         layers = ((4, 0), (3, 8)) if feat_rec else ((4, 0),)
-        (state,) = conv_chain(dec1, packed["dec2"], aux=skip0, upsample_input=True,
-                              state_out=(56 if feat_rec else 8, layers))
+        (state,) = conv_chain(dec1.to(c2.dtype), c2, aux=skip0.to(c2.dtype),
+                              upsample_input=True, state_out=(56 if feat_rec else 8, layers))
         return state
-    new_feat, out = conv_chain(dec1, packed["dec2"], aux=skip0, emit=(3, 4),
+    new_feat, out = conv_chain(dec1.to(c2.dtype), c2, aux=skip0.to(c2.dtype), emit=(3, 4),
                                upsample_input=True)
     return out, (new_feat if feat_rec else None)

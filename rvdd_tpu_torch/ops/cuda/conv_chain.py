@@ -15,12 +15,23 @@ What bounds it on the H100 is operations (~1.07 TFLOP a 1080p frame,
 what its design (wgmma with the packed weights resident in shared memory)
 does about it.
 
-Numerics are rvdd_tpu's ``fast`` preset: bf16 activations and weights,
-fp32 accumulation and bias, bf16 bands between layers, and for the layers
-marked split, weights split by mantissa masking into w_hi + w_lo
-(conv_pallas.py:654-669) and accumulated as two products.  The plain
-version repeats those rounding points with F.conv2d in fp32 and is what a
-CPU tensor runs.
+A chain runs in one of two numerics, fixed when it is packed:
+
+* bf16 bands (rvdd_tpu's ``fast`` preset): bf16 activations and weights,
+  fp32 accumulation and bias, bf16 bands between layers, and for the
+  layers marked split, weights split by mantissa masking into w_hi + w_lo
+  (conv_pallas.py:654-669) and accumulated as two products;
+* fp32 bands (``pack_chain(..., band_fp32=True)``; rvdd_tpu's
+  ``band_dtype=float32, mxu_precision='high'``): inputs, bands and outputs
+  are fp32, every layer's weights are split, and each layer's input is
+  split the same way (hi by the mantissa mask, lo = bf16(a - hi)), so a
+  product is w_hi a_hi + w_hi a_lo + w_lo a_hi summed in fp32 (the manual
+  bf16_3x of conv_pallas.py:306-327).
+
+The plain version repeats those rounding points with F.conv2d in fp32 and
+is what a CPU tensor runs.  The wrapper takes tensors of the chain's band
+dtype only and raises TypeError on any other; the caller rounds (as
+rvdd_tpu's ``x.astype(band_dtype)``, conv_pallas.py:610-612).
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [
     _P, _I, _I, _I, _I, _I, _I,      # in0, c, stride, off, h, w, upsample
     _P, _I, _I, _I,                  # aux, c, stride, off
-    _P, _I, _P,                      # w_pack, split, bias
+    _P, _I, _I, _P,                  # w_pack, split, f32, bias
     _I, _I, _I, _I, _I,              # ks, cin0_pad, cout, cout_pad, relu
     _I, _I, _I,                      # B, H, W
     _P, _P,                          # out, pooled
@@ -70,7 +81,9 @@ def unpack_kmajor(p: torch.Tensor) -> torch.Tensor:
 
 def split_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """w = hi + lo as a bf16 pair: hi by masking the low 16 mantissa bits
-    (exact in bf16), lo = bf16(w - hi)."""
+    (exact in bf16), lo = bf16(w - hi).  A cast round trip would not do:
+    bf16(w) rounds to nearest, and rvdd_tpu found XLA could fold its
+    ``w - f32(bf16(w))`` to zero (conv_pallas.py:654-669)."""
     wf = w.float().contiguous()
     hi = (wf.view(torch.int32) & -65536).view(torch.float32)
     return hi.to(torch.bfloat16), (wf - hi).to(torch.bfloat16)
@@ -100,17 +113,32 @@ class ChainLayer:
 @dataclasses.dataclass(frozen=True)
 class Chain:
     layers: Tuple[ChainLayer, ...]
+    #: fp32 bands with bf16_3x products (every layer split); else bf16 bands
+    band_fp32: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The band dtype: of the inputs the chain takes and the outputs it
+        emits (the combined state is fp32 in both modes)."""
+        return torch.float32 if self.band_fp32 else torch.bfloat16
 
 
 def pack_chain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                acts: Sequence[str], ks: Sequence[int], *,
-               weight_split: Optional[Sequence[bool]] = None) -> Chain:
+               weight_split: Optional[Sequence[bool]] = None,
+               band_fp32: bool = False) -> Chain:
     """Pack HWIO fp32 weights ``ws[l]`` [k, k, cin, cout] and biases for
     :func:`conv_chain`, once per set of weights.  Layer 1's cin may exceed
     layer 0's cout: the excess is the aux channels concatenated after the
-    conv output.  ``weight_split[l]`` marks layers with hi/lo weights."""
+    conv output.  ``weight_split[l]`` marks layers with hi/lo weights;
+    ``band_fp32`` makes the chain run fp32 bands with bf16_3x products,
+    which splits every layer (as ``mxu_precision='high'`` forces
+    ``weight_dtype='split'``, conv_pallas.py:574-580)."""
     nl = len(ws)
-    split = tuple(weight_split) if weight_split is not None else (False,) * nl
+    if band_fp32:
+        split = (True,) * nl
+    else:
+        split = tuple(weight_split) if weight_split is not None else (False,) * nl
     if not (len(bs) == len(acts) == len(ks) == len(split) == nl):
         raise ValueError("pack_chain: ws, bs, acts, ks and weight_split differ in length")
     layers = []
@@ -153,7 +181,16 @@ def pack_chain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
             bias=bs[l].float().contiguous(), w_pack=torch.cat(halves).contiguous(),
         ))
         prev = cout
-    return Chain(tuple(layers))
+    return Chain(tuple(layers), band_fp32=band_fp32)
+
+
+def _oihw(layer: ChainLayer, m: torch.Tensor) -> torch.Tensor:
+    """A kernel matrix [ks*ks*(cin0_pad+aux_c), cout_pad] of the layer as
+    OIHW fp32, pad rows and columns dropped."""
+    k = layer.ks
+    m = m.float().reshape(k, k, layer.cin0_pad + layer.aux_c, layer.cout_pad)
+    m = torch.cat([m[:, :, :layer.cin0], m[:, :, layer.cin0_pad:]], dim=2)[..., :layer.cout]
+    return m.permute(3, 2, 0, 1).contiguous()
 
 
 def layer_weight_from_pack(layer: ChainLayer) -> torch.Tensor:
@@ -162,11 +199,7 @@ def layer_weight_from_pack(layer: ChainLayer) -> torch.Tensor:
     columns dropped): equals ``layer.w_plain``."""
     halves = unpack_kmajor(layer.w_pack.float()).reshape(
         2 if layer.split else 1, -1, layer.cout_pad)
-    m = halves.sum(0) if layer.split else halves[0]
-    k = layer.ks
-    m = m.reshape(k, k, layer.cin0_pad + layer.aux_c, layer.cout_pad)
-    m = torch.cat([m[:, :, :layer.cin0], m[:, :, layer.cin0_pad:]], dim=2)[..., :layer.cout]
-    return m.permute(3, 2, 0, 1).contiguous()
+    return _oihw(layer, halves.sum(0) if layer.split else halves[0])
 
 
 def _state_plan(state_out, chain: Chain):
@@ -193,14 +226,31 @@ def _conv_nhwc(x, w_oihw, bias, ks):
     return y.permute(0, 2, 3, 1)
 
 
+def _layer_plain(inp, layer: ChainLayer, band_fp32: bool):
+    """One layer: bias, act.  bf16 bands: one conv of the bf16-valued
+    input with the weights the kernel multiplies by.  fp32 bands: the three
+    bf16_3x convs, w_hi a_hi + w_hi a_lo + w_lo a_hi, summed in fp32 as
+    rvdd_tpu sums its three dots."""
+    if band_fp32:
+        a_hi, a_lo = (t.float() for t in split_weight(inp))  # as the kernel splits its tile
+        k = layer.ks
+        w_hi, w_lo = _oihw(layer, layer.w_hi), _oihw(layer, layer.w_lo)
+        y = (_conv_nhwc(a_hi, w_hi, None, k) + _conv_nhwc(a_lo, w_hi, None, k)
+             + _conv_nhwc(a_hi, w_lo, None, k)) + layer.bias
+    else:
+        y = _conv_nhwc(inp, layer.w_plain, layer.bias, layer.ks)
+    return torch.relu(y) if layer.relu else y
+
+
 def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
                      pool=(), upsample_input=False, state_out=None):
     """Plain PyTorch version of :func:`conv_chain`, same rounding points."""
     nl = len(chain.layers)
     emit = tuple(emit) or (nl - 1,)
+    bd = chain.dtype
     h = x.float()
     if upsample_input:
-        h = upsample2x_bilinear(h, align_corners=False).to(torch.bfloat16).float()
+        h = upsample2x_bilinear(h, align_corners=False).to(bd).float()
     b, hh, ww, _ = h.shape
     auxw = None
     if aux is not None:
@@ -213,10 +263,8 @@ def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
     outs = {}
     for l, layer in enumerate(chain.layers):
         inp = torch.cat([h, auxw], dim=-1) if (l == 1 and layer.aux_c) else h
-        y = _conv_nhwc(inp, layer.w_plain, layer.bias, layer.ks)
-        if layer.relu:
-            y = torch.relu(y)
-        band = y.to(torch.bfloat16)
+        y = _layer_plain(inp, layer, chain.band_fp32)
+        band = y.to(bd)
         if plan is not None and l in plan:
             off = plan[l][0]
             state[..., off:off + layer.cout] = y
@@ -226,15 +274,42 @@ def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
     return (state,) if state_out is not None else tuple(outs[l] for l in emit)
 
 
+#: the kernel's modes, as rvdd_conv_layer_plan numbers them
+PLAN_MODES = ("bf16", "bf16 split", "fp32 resident", "fp32 streamed")
+
+
+def layer_plan(layer: ChainLayer, band_fp32: bool) -> dict:
+    """How the kernel runs ``layer`` in a chain of that band mode: the mode
+    (PLAN_MODES: an fp32 layer whose split weights do not fit shared memory
+    with its tile streams them a tap at a time), tile rows, warpgroups a
+    CTA and shared memory a CTA.  The rule lives in the CUDA source, so this
+    builds and loads the library (a machine with the CUDA toolkit); raises
+    for a layer no configuration fits."""
+    lib = _build.load_library("conv_chain")
+    fn = lib.rvdd_conv_layer_plan
+    fn.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    rc = fn(layer.ks, layer.cin0_pad + layer.aux_c, layer.cout_pad, int(layer.split),
+            int(band_fp32), out)
+    _build.check(lib, rc, "conv_chain plan")
+    return dict(mode=PLAN_MODES[out[0]], trw=out[1], nwg=out[2], smem=out[3])
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_bf16(name, t, device):
+def _check_dtype(name, t, chain: Chain):
+    if t.dtype != chain.dtype:
+        mode = "fp32" if chain.band_fp32 else "bf16"
+        raise TypeError(f"conv_chain: {name} must be {chain.dtype} for a chain with {mode} "
+                        f"bands, got {t.dtype}")
+
+
+def _check(name, t, device):
     if not t.is_cuda or t.device != device:
         raise ValueError(f"conv_chain: {name} must be on {device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"conv_chain: {name} must be bfloat16, got {t.dtype}")
     if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"conv_chain: {name} must be a contiguous, 16-byte aligned "
                          f"[B, H, W, C] tensor, got {tuple(t.shape)}")
@@ -244,27 +319,33 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
                aux_channels: Optional[Tuple[int, int]] = None,
                emit: Sequence[int] = (), pool: Sequence[int] = (),
                upsample_input: bool = False, state_out=None):
-    """Run a packed conv chain (see :func:`pack_chain`) on NHWC bf16 input.
+    """Run a packed conv chain (see :func:`pack_chain`) on NHWC input of
+    the chain's band dtype (``chain.dtype``: bf16, or fp32 for a
+    ``band_fp32`` chain; any other dtype raises TypeError).
 
     x: [B, H, W, Cx], or [B, H/2, W/2, Cx] with ``upsample_input``.
     aux: [B, H, W, Ca] joined to layer 1's input after layer 0's output;
     ``aux_channels=(offset, n)`` reads a channel window of it.
-    emit: layers returned as bf16 [B, H, W, Cout] (default: the last);
-    those in ``pool`` are returned 2x2 max-pooled.
+    emit: layers returned in the band dtype as [B, H, W, Cout] (default:
+    the last); those in ``pool`` are returned 2x2 max-pooled.
     state_out: ``(n_channels, ((layer, offset), ...))`` makes the chain
     return only ``(state,)``, a fresh [B, H, W, n_channels] fp32 tensor the
     named layers write from their fp32 accumulators (channels no layer
     writes must follow one that does and are zero).
 
     CUDA tensors launch one kernel per layer (counted in
-    ``conv_chain.launches``); CPU tensors run :func:`conv_chain_plain`.
+    ``conv_chain.launches``, and those of fp32-band chains also in
+    ``conv_chain.fp32_launches``); CPU tensors run :func:`conv_chain_plain`.
     """
+    _check_dtype("x", x, chain)
+    if aux is not None:
+        _check_dtype("aux", aux, chain)
     if x.device.type == "cpu":
         return conv_chain_plain(x, chain, aux=aux, aux_channels=aux_channels,
                                 emit=emit, pool=pool,
                                 upsample_input=upsample_input, state_out=state_out)
     dev = x.device
-    _check_bf16("x", x, dev)
+    _check("x", x, dev)
     nl = len(chain.layers)
     emit = tuple(emit) or (nl - 1,)
     pool = tuple(pool)
@@ -278,7 +359,7 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
     if nl > 1 and chain.layers[1].aux_c:
         if aux is None:
             raise ValueError("conv_chain: layer 1 reads aux channels but aux is None")
-        _check_bf16("aux", aux, dev)
+        _check("aux", aux, dev)
         aux_off, n = aux_channels if aux_channels else (0, aux.shape[-1])
         aux_stride = aux.shape[-1]
         if tuple(aux.shape[:3]) != (b, hh, ww) or n != chain.layers[1].aux_c \
@@ -306,8 +387,8 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
     for l, layer in enumerate(chain.layers):
         emitted = state_out is None and l in emit
         band = l < nl - 1 or (emitted and l not in pool)
-        out = torch.empty(b, hh, ww, layer.cout, dtype=torch.bfloat16, device=dev) if band else None
-        pooled = (torch.empty(b, hh // 2, ww // 2, layer.cout, dtype=torch.bfloat16, device=dev)
+        out = torch.empty(b, hh, ww, layer.cout, dtype=chain.dtype, device=dev) if band else None
+        pooled = (torch.empty(b, hh // 2, ww // 2, layer.cout, dtype=chain.dtype, device=dev)
                   if emitted and l in pool else None)
         st_off, st_zero = plan.get(l, (0, 0))
         use_aux = l == 1 and layer.aux_c > 0
@@ -315,12 +396,14 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
                 int(l == 0 and upsample_input),
                 aux.data_ptr() if use_aux else None, layer.aux_c if use_aux else 0,
                 aux_stride, aux_off,
-                layer.w_pack.data_ptr(), int(layer.split), layer.bias.data_ptr(),
+                layer.w_pack.data_ptr(), int(layer.split), int(chain.band_fp32),
+                layer.bias.data_ptr(),
                 layer.ks, layer.cin0_pad, layer.cout, layer.cout_pad, int(layer.relu),
                 b, hh, ww, _ptr(out), _ptr(pooled),
                 state.data_ptr() if l in plan else None, n_state, st_off, st_zero,
                 stream)
         conv_chain.launches += 1
+        conv_chain.fp32_launches += chain.band_fp32
         _build.check(lib, rc, f"conv_chain layer {l}")
         if emitted:
             outs[l] = pooled if l in pool else out
@@ -329,3 +412,4 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
 
 
 conv_chain.launches = 0
+conv_chain.fp32_launches = 0

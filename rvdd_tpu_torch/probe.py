@@ -10,8 +10,11 @@ warp_bicubic.cu a second time with ``-DRVDD_PHASE_CLOCKS`` (into
 single launches at 1080p:
 
 - ``conv_chain``: a 3x3 48->48 layer (K = 432), and a chain of that layer
-  and a 3x3 96->48 layer reading an aux tensor (K = 864); phases: waiting
-  for the tile, the products, the epilogue with the next tile's staging;
+  and a 3x3 96->48 layer reading an aux tensor (K = 864), each with bf16
+  bands and in the fp32-band mode (where the K = 864 layer streams its
+  weights a tap at a time); phases: waiting for the tile, the products
+  (with a streamed layer's per-tap waits), the epilogue with the next
+  tile's staging;
 - ``convnext_chain``: a plain block, a proj block (96 input channels) and
   an upsample block; phases: the halo tile (staging, projection or
   interpolation), the depthwise and LayerNorm, the 1x1 products with the
@@ -106,16 +109,24 @@ def conv_cases(dev, gen):
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=gen) * scale
 
-    x = rnd(1, H, W, 48).to(torch.bfloat16)
-    aux = rnd(1, H, W, 48).to(torch.bfloat16)
+    x = rnd(1, H, W, 48)
+    aux = rnd(1, H, W, 48)
     zero = torch.zeros(48, device=dev)
-    k432 = cc.pack_chain([rnd(3, 3, 48, 48, scale=0.07)], [zero], ["relu"], [3])
-    k864 = cc.pack_chain([rnd(3, 3, 48, 48, scale=0.07), rnd(3, 3, 96, 48, scale=0.05)],
-                         [zero, zero], ["relu", "relu"], [3, 3])
+    w0, w1 = rnd(3, 3, 48, 48, scale=0.07), rnd(3, 3, 96, 48, scale=0.05)
+    k432, k864 = (cc.pack_chain(ws, [zero] * len(ws), ["relu"] * len(ws), [3] * len(ws))
+                  for ws in ([w0], [w0, w1]))
+    f432, f864 = (cc.pack_chain(ws, [zero] * len(ws), ["relu"] * len(ws), [3] * len(ws),
+                                band_fp32=True) for ws in ([w0], [w0, w1]))
+    xb, auxb = x.to(torch.bfloat16), aux.to(torch.bfloat16)
     return [
-        ("3x3 48->48 (K=432)", lambda: cc.conv_chain(x, k432), 2 * H * W * 432 * 48),
+        ("3x3 48->48 (K=432)", lambda: cc.conv_chain(xb, k432), 2 * H * W * 432 * 48),
         ("3x3 48->48 then 3x3 96->48 with aux (K=432, 864)",
-         lambda: cc.conv_chain(x, k864, aux=aux), 2 * H * W * 1296 * 48),
+         lambda: cc.conv_chain(xb, k864, aux=auxb), 2 * H * W * 1296 * 48),
+        # fp32 bands: three bf16 products a MAC
+        ("fp32 bands, 3x3 48->48 (K=432, weights resident)",
+         lambda: cc.conv_chain(x, f432), 3 * 2 * H * W * 432 * 48),
+        ("fp32 bands, 3x3 48->48 then 3x3 96->48 with aux (K=432 resident, 864 streamed)",
+         lambda: cc.conv_chain(x, f864, aux=aux), 3 * 2 * H * W * 1296 * 48),
     ]
 
 

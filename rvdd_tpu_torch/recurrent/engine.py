@@ -19,7 +19,10 @@ Two step implementations, chosen by ``EngineConfig.net_impl``:
   to the CUDA chains of the net's family (six ``conv_chain`` chains for
   ConvUNet, seven ``convnext_chain`` chains for ConvNeXtUNet), whose last
   one writes the next state.  With ``future_patch_depth=1`` the future frame is warped by the
-  same CUDA warp and joins the net input.
+  same CUDA warp and joins the net input.  ``fused_precision`` picks the
+  chains' numerics (models/fast_unet.py:FUSED_PRECISIONS, ConvUNet; the
+  ConvNeXt path takes 'fast'); the warps and the frame inputs run in its
+  glue dtype (bf16, or fp32 where the preset names 'glue').
 
 Online flow: ``compute_window_flows`` computes a window's flows on the
 device with the TV-L1 solver (ops/tvl1.py; on CUDA tensors its warp is
@@ -46,7 +49,13 @@ from rvdd_tpu_torch.models.fast_convnext import (
     pack_fast_cnx,
     supports_fast_path_cnx,
 )
-from rvdd_tpu_torch.models.fast_unet import fast_forward, pack_fast_params, supports_fast_path
+from rvdd_tpu_torch.models.fast_unet import (
+    fast_forward,
+    get_fused_precision,
+    glue_dtype,
+    pack_fast_params,
+    supports_fast_path,
+)
 from rvdd_tpu_torch.ops.bayer import remosaic
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import warp_bicubic
 from rvdd_tpu_torch.ops.demosaic import hamilton_adams
@@ -77,7 +86,8 @@ class EngineConfig:
     state_dtype: str = "float32"
     #: 'module' (the net's forward) or 'fused' (the CUDA chains)
     net_impl: str = "module"
-    #: fused-path preset (models/fast_unet.py:FUSED_PRECISIONS)
+    #: fused-path preset (models/fast_unet.py:FUSED_PRECISIONS or
+    #: 'hybrid:<chains>'; the ConvNeXt fused path takes 'fast' only)
     fused_precision: str = "fast"
 
     @property
@@ -148,6 +158,15 @@ def _check_fused(cfg: EngineConfig) -> None:
     what = [k for k, v in bad.items() if v]
     if what:
         raise NotImplementedError(f"net_impl='fused' does not support {what} yet (ROADMAP.md)")
+    get_fused_precision(cfg.fused_precision)
+
+
+def _fused_glue_dtype(cfg: EngineConfig, net) -> torch.dtype:
+    """The dtype of the warped state window, the current frame and the
+    warped future frames (rvdd_tpu/recurrent/engine.py:215-218)."""
+    if isinstance(net, ConvNeXtUNet):
+        return torch.bfloat16  # its one preset, 'fast'
+    return glue_dtype(get_fused_precision(cfg.fused_precision))
 
 
 def _fused_state_c(cfg: EngineConfig) -> int:
@@ -238,10 +257,11 @@ def step(cfg: EngineConfig, net, state: RecurrentState, cur: torch.Tensor,
 
 
 def _fused_step(cfg, net, state, cur, future, flows, packed):
-    """Main path: warp the fp32 state with the CUDA warp (bf16 out) and
-    each future frame (rounded to bf16, warped to bf16), feed
+    """Main path: warp the fp32 state with the CUDA warp and each future
+    frame (rounded to the glue dtype, warped to it), feed
     [warped den | cur | warped future] and the warped features to the
-    chains, whose dec2 chain writes the next state from its fp32 values."""
+    chains, whose dec2 chain writes the next state from its fp32 values.
+    The glue dtype is bf16, or fp32 under a preset that names 'glue'."""
     _check_fused(cfg)
     if flows is None:
         raise NotImplementedError("net_impl='fused' needs flows")
@@ -251,13 +271,14 @@ def _fused_step(cfg, net, state, cur, future, flows, packed):
         raise ValueError(f"net_impl='fused': no fast path for {type(net).__name__} at {h}x{w}")
     if packed is None:
         packed = fused_pack(cfg, net)
+    glue = _fused_glue_dtype(cfg, net)
     fused = state.lastden
-    warped = warp_bicubic(fused, flows[:, 0].float().contiguous(), out_dtype=torch.bfloat16)
-    parts = [warped[..., :STATE_DEN], cur.to(torch.bfloat16)]
+    warped = warp_bicubic(fused, flows[:, 0].float().contiguous(), out_dtype=glue)
+    parts = [warped[..., :STATE_DEN], cur.to(glue)]
     for k in range(cfg.future_patch_depth):
-        parts.append(warp_bicubic(future[:, k].to(torch.bfloat16).contiguous(),
+        parts.append(warp_bicubic(future[:, k].to(glue).contiguous(),
                                   flows[:, cfg.d + k].float().contiguous(),
-                                  out_dtype=torch.bfloat16))
+                                  out_dtype=glue))
     x = torch.cat(parts, dim=-1)
     nxt = forward(net, packed, x, warped if cfg.feature_rec else None,
                   aux_channels=(STATE_FEAT_OFF, STATE_FEAT), combine_state=True)

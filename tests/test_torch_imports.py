@@ -55,6 +55,8 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         bench.run(frames=1, device="cpu")  # the benchmark only measures the card
     with pytest.raises(RuntimeError):
         bench.run(frames=1, model="convnext+feat+future")
+    with pytest.raises(RuntimeError):
+        bench.run(frames=1, model="convunet+feat+future")
     assert resolve_device("cpu") == torch.device("cpu")
     for arch, in_nc in (("convunet-mode=fixedfeatures+feat", 6), ("newunet-mode=feat", 9)):
         net = build_network(arch, in_nc, 3, device="cpu")
@@ -83,3 +85,27 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.SOURCES:
         assert (_build.CSRC_DIR / f"{name}.cu").is_file()
     assert "rvdd_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_bench_convunet_feat_future_path_on_cpu():
+    """bench's convunet+feat+future path at a small size on the CPU (the
+    wrappers run their plain versions): 'auto' resolves to
+    hybrid:glue+A+dec2, chains A and dec2 are packed in the fp32 mode, and
+    two streamed frames from raw come out finite.  The metric names follow
+    bench.py's (a preset other than 'auto' is appended)."""
+    from rvdd_tpu_torch import bench
+
+    model = "convunet+feat+future"
+    assert bench.resolve_precision(model) == "hybrid:glue+A+dec2"
+    assert bench.resolve_precision("convunet+feat") == "fast"
+    assert bench.metric_name(540, 960, model) == "1080p_fps_per_chip_convunet_feat_future"
+    assert bench.metric_name(540, 960, model, precision="mixed") == \
+        "1080p_fps_per_chip_convunet_feat_future_mixed"
+    cfg, net, packed = bench.make_model("fused", seed=0, device="cpu", model=model)
+    assert cfg.fused_precision == "hybrid:glue+A+dec2" and cfg.network_input_nc == 9
+    assert packed["A"].band_fp32 and packed["dec2"].band_fp32 and not packed["B"].band_fp32
+    raw, flows = bench.make_inputs(16, 24, seed=0, device="cpu", model=model)
+    den, state = bench.step_fn(cfg, net, packed, None, raw, flows)
+    den2, _ = bench.step_fn(cfg, net, packed, state, raw, flows)
+    assert den2.shape == (1, 32, 48, 3) and bool(torch.isfinite(den2).all())
+    assert state.lastden.dtype == torch.float32 and state.lastden.shape[-1] == 56

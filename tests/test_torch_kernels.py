@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
     conv_chain,
     conv_chain_plain,
+    layer_plan,
     layer_weight_from_pack,
     pack_chain,
     pack_kmajor,
@@ -83,15 +84,18 @@ CARD_CASES = dict(CASES, six_channel_input=dict(
     h=16, w=40, chans=(6, 16, 16), acts=("none", "relu"), ks=(3, 3), aux=(56, 8, 16)))
 
 
-def make_case(case, seed=0, h=None, w=None, batch=1):
-    """numpy inputs and HWIO weights (kaiming scale) for one chain case."""
+def make_case(case, seed=0, h=None, w=None, batch=1, fp32=False):
+    """numpy inputs and HWIO weights (kaiming scale) for one chain case;
+    the inputs are bf16 values, or with ``fp32`` any fp32 values (the fp32
+    mode splits them)."""
     rng = np.random.default_rng(seed)
     h, w = h or case["h"], w or case["w"]
     hx, wx = (h // 2, w // 2) if case.get("upsample") else (h, w)
-    x = _bf16(rng.standard_normal((batch, hx, wx, case["chans"][0])))
+    rnd = (lambda a: np.asarray(a, np.float32)) if fp32 else _bf16
+    x = rnd(rng.standard_normal((batch, hx, wx, case["chans"][0])))
     aux = None
     if "aux" in case:
-        aux = _bf16(rng.standard_normal((batch, h, w, case["aux"][0])))
+        aux = rnd(rng.standard_normal((batch, h, w, case["aux"][0])))
     ws, bs = [], []
     for l in range(len(case["ks"])):
         cin = case["chans"][l] + (case["aux"][2] if (l == 1 and "aux" in case) else 0)
@@ -102,26 +106,29 @@ def make_case(case, seed=0, h=None, w=None, batch=1):
     return x, aux, ws, bs
 
 
-def run_port(case, x, aux, ws, bs, device, plain=False):
+def run_port(case, x, aux, ws, bs, device, plain=False, fp32=False):
+    """The port's chain on numpy inputs; ``fp32``: the fp32-band mode, the
+    inputs passed as fp32 (else rounded to bf16)."""
     chain = pack_chain([torch.from_numpy(a).to(device) for a in ws],
                        [torch.from_numpy(b).to(device) for b in bs],
-                       case["acts"], case["ks"], weight_split=case.get("split"))
+                       case["acts"], case["ks"], weight_split=case.get("split"),
+                       band_fp32=fp32)
     fn = conv_chain_plain if plain else conv_chain
     kw = dict(emit=case.get("emit", ()), pool=case.get("pool", ()),
               upsample_input=case.get("upsample", False), state_out=case.get("state"))
     if aux is not None:
-        kw["aux"] = torch.from_numpy(aux).to(device).to(BF16)
+        kw["aux"] = torch.from_numpy(aux).to(device).to(chain.dtype)
         kw["aux_channels"] = case["aux"][1:]
-    outs = fn(torch.from_numpy(x).to(device).to(BF16), chain, **kw)
+    outs = fn(torch.from_numpy(x).to(device).to(chain.dtype), chain, **kw)
     return [o.float().cpu().numpy() for o in outs]
 
 
-def _planar(jnp, x, wl):
-    """[1, H, W, C] numpy -> [(H*C), WL] bf16 (zero lanes >= W)."""
+def _planar(jnp, x, wl, dtype=None):
+    """[1, H, W, C] numpy -> [(H*C), WL] bf16 (or ``dtype``; zero lanes >= W)."""
     _, h, w, c = x.shape
     p = np.zeros((h, c, wl), np.float32)
     p[:, :, :w] = x[0].transpose(0, 2, 1)
-    return jnp.asarray(p.reshape(h * c, wl)).astype(jnp.bfloat16)
+    return jnp.asarray(p.reshape(h * c, wl)).astype(dtype or jnp.bfloat16)
 
 
 def _unplanar(p, h, w):
@@ -129,10 +136,12 @@ def _unplanar(p, h, w):
     return p.reshape(h, p.shape[0] // h, -1)[:, :, :w].transpose(0, 2, 1)[None]
 
 
-def run_tpu(tpu, case, x, aux, ws, bs):
+def run_tpu(tpu, case, x, aux, ws, bs, fp32=False):
     """rvdd_tpu's fused_conv_chain (interpret mode) plus the planar glue the
-    port folds into its kernel (lane pool, lane upsample)."""
+    port folds into its kernel (lane pool, lane upsample); ``fp32``: fp32
+    bands and outputs with mxu_precision='high' (the manual bf16_3x)."""
     jnp = tpu.jnp
+    dt = jnp.float32 if fp32 else jnp.bfloat16
     h, w = case["h"], case["w"]
     wl = tpu.conv.lane_width(w)
     packed, biases = [], []
@@ -143,13 +152,15 @@ def run_tpu(tpu, case, x, aux, ws, bs):
         packed.append(jnp.asarray(np.pad(m, ((0, pad), (0, 0)))))
         biases.append(jnp.asarray(np.pad(bt, (0, pad))))
     if case.get("upsample"):
-        xp = tpu.fu.lane_upsample2x_planar(_planar(jnp, x, wl // 2), h // 2, w // 2)
+        xp = tpu.fu.lane_upsample2x_planar(_planar(jnp, x, wl // 2, dt), h // 2, w // 2)
     else:
-        xp = _planar(jnp, x, wl)
+        xp = _planar(jnp, x, wl, dt)
     kw = dict(h_img=h, w_img=w, tile_h=8, interpret=True,
               upsample_input=case.get("upsample", False))
+    if fp32:
+        kw.update(band_dtype=jnp.float32, mxu_precision="high")
     if aux is not None:
-        kw["aux"] = _planar(jnp, aux, wl)
+        kw["aux"] = _planar(jnp, aux, wl, dt)
         kw["aux_channels"] = case["aux"][1:]
     if case.get("split"):
         kw["weight_dtype"] = tuple("split" if s else None for s in case["split"])
@@ -163,7 +174,7 @@ def run_tpu(tpu, case, x, aux, ws, bs):
     emit = case.get("emit", (len(ws) - 1,))
     outs = tpu.conv.fused_conv_chain(
         xp, tuple(packed), tuple(biases), case["acts"], case["ks"],
-        emit=emit, pool_rows=case.get("pool", ()), **kw)
+        emit=emit, pool_rows=case.get("pool", ()), out_dtype=dt, **kw)
     res = []
     for o, l in zip(outs, emit):
         cout = ws[l].shape[-1]
@@ -201,6 +212,101 @@ def test_conv_chain_plain_matches_fused_conv_chain(tpu, name):
         assert np.mean(np.abs(g - wv)) < 5e-3 * np.std(wv)
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_conv_chain_plain_fp32_matches_fused_conv_chain_high(tpu, name):
+    """The fp32-band mode against rvdd_tpu's fused_conv_chain with
+    band_dtype=float32 and mxu_precision='high' (the manual bf16_3x), fp32
+    inputs: both sides split every band and every weight by the mantissa
+    mask and sum the same three bf16 products in fp32, in different orders.
+    Max error 2e-4 x std (up to 8e-5 seen, against 1.5-3.2e-4 for either
+    side against the unsplit fp32 chain): where the two fp32 sums of a band
+    differ by an ulp, the bf16 rounding of its lo half can flip (2^-15 of
+    the value at most), and the next layers carry that; the upsample (lanes
+    then rows in rvdd_tpu, rows then lanes here, both fp32) adds fp32
+    rounding only.  The mean error is held to 1e-5 x std (up to 2.6e-6
+    seen)."""
+    case = CASES[name]
+    x, aux, ws, bs = make_case(case, seed=4, fp32=True)
+    got = run_port(case, x, aux, ws, bs, "cpu", fp32=True)
+    want = run_tpu(tpu, case, x, aux, ws, bs, fp32=True)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape, (g.shape, wv.shape)
+        assert _norm_err(g, wv) < 2e-4, (name, _norm_err(g, wv))
+        assert np.mean(np.abs(g - wv)) < 1e-5 * np.std(wv), name
+
+
+def fp32_reference(case, x, aux, ws, bs):
+    """The chain in plain fp32 with its unsplit weights: no rounding."""
+    from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
+
+    h = torch.from_numpy(x)
+    if case.get("upsample"):
+        h = upsample2x_bilinear(h)
+    auxw = None
+    if aux is not None:
+        off, n = case["aux"][1:]
+        auxw = torch.from_numpy(aux)[..., off:off + n]
+    outs = {}
+    for l, (wt, bt, act, k) in enumerate(zip(ws, bs, case["acts"], case["ks"])):
+        inp = torch.cat([h, auxw], -1) if (l == 1 and auxw is not None) else h
+        y = torch.nn.functional.conv2d(inp.permute(0, 3, 1, 2),
+                                       torch.from_numpy(wt).permute(3, 2, 0, 1),
+                                       torch.from_numpy(bt), padding=k // 2).permute(0, 2, 3, 1)
+        h = outs[l] = torch.relu(y) if act == "relu" else y
+    if "state" in case:
+        n, layers = case["state"]
+        state = torch.zeros(*h.shape[:3], n)
+        for l, off in layers:
+            state[..., off:off + outs[l].shape[-1]] = outs[l]
+        return [state.numpy()]
+    pool = case.get("pool", ())
+    return [(maxpool2x2(outs[l]) if l in pool else outs[l]).numpy()
+            for l in case.get("emit", (len(ws) - 1,))]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_conv_chain_fp32_mode_is_closer_to_fp32(name):
+    """Against the unsplit fp32 chain, the fp32-band mode (bf16_3x: about
+    16 mantissa bits per operand, no band rounding) is at least 10x closer
+    than the bf16-band mode (8 bits, every band rounded).  A split whose lo
+    half went to zero would leave the fp32 mode at the bf16 mode's error."""
+    case = CASES[name]
+    x, aux, ws, bs = make_case(case, seed=5, fp32=True)
+    want = fp32_reference(case, x, aux, ws, bs)
+    f32 = run_port(case, x, aux, ws, bs, "cpu", fp32=True)
+    b16 = run_port(case, x, aux, ws, bs, "cpu")
+    for a, b, wv in zip(f32, b16, want):
+        e32, e16 = float(np.max(np.abs(a - wv))), float(np.max(np.abs(b - wv)))
+        assert 10 * e32 < e16, (name, e32, e16)
+
+
+def test_conv_chain_fp32_mode_packing_and_dtypes():
+    """band_fp32 splits every layer whatever weight_split says, the chain
+    takes and emits fp32 only, and the wrapper raises TypeError (never
+    converts) on a tensor of the other dtype, for x and for aux."""
+    case = CASES["aux_window"]
+    x, aux, ws, bs = make_case(case, seed=6, fp32=True)
+    tw = [torch.from_numpy(a) for a in ws]
+    tb = [torch.from_numpy(b) for b in bs]
+    chain = pack_chain(tw, tb, case["acts"], case["ks"], weight_split=(False,) * 3,
+                       band_fp32=True)
+    assert chain.band_fp32 and chain.dtype == torch.float32
+    assert all(layer.split and layer.w_lo is not None for layer in chain.layers)
+    xt, at = torch.from_numpy(x), torch.from_numpy(aux)
+    kw = dict(aux_channels=case["aux"][1:])
+    (out,) = conv_chain(xt, chain, aux=at, **kw)
+    assert out.dtype == torch.float32
+    with pytest.raises(TypeError):
+        conv_chain(xt.to(BF16), chain, aux=at, **kw)
+    with pytest.raises(TypeError):
+        conv_chain(xt, chain, aux=at.to(BF16), **kw)
+    bf = pack_chain(tw, tb, case["acts"], case["ks"])
+    assert bf.dtype == BF16
+    with pytest.raises(TypeError):
+        conv_chain(xt, bf, aux=at.to(BF16), **kw)
+
+
 def test_conv_chain_wrapper_runs_plain_on_cpu():
     case = CASES["aux_window"]
     x, aux, ws, bs = make_case(case, seed=3)
@@ -233,6 +339,87 @@ def test_conv_chain_kernel_matches_plain(cuda, name):
         err = float(np.max(np.abs(g - wv)))
         assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, err)
         assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), name
+
+
+# fp32-band mode on the card: every card case, and the hybrid preset's two
+# fp32 chains at their widths: A (the 9-channel input of convunet+feat+
+# future, the state's 48-channel aux window, K = 864 at layer 1, the
+# pooled emit) and dec2 (upsampled input, K = 864, the 56-channel state)
+FP32_CARD_CASES = dict(
+    CARD_CASES,
+    chain_A=dict(h=16, w=40, chans=(9, 48, 48, 48, 48), acts=("none", "relu", "relu", "none"),
+                 ks=(3, 3, 3, 3), aux=(56, 8, 48), emit=(2, 3), pool=(3,)),
+    chain_dec2=dict(h=16, w=40, chans=(48, 48, 48, 48, 48, 3), acts=("relu",) * 4 + ("none",),
+                    ks=(3, 3, 3, 3, 1), aux=(48, 0, 48), upsample=True,
+                    state=(56, ((4, 0), (3, 8)))),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(20, 72, 1), (22, 72, 2), (26, 200, 2)],
+                         ids=["20x72", "22x72_b2", "26x200_b2"])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_fp32_kernel_matches_plain(cuda, name, shape):
+    """The fp32-band kernel (three wgmma a k-step, fp32 bands and outputs)
+    against its plain version with TF32 off, fp32 inputs, at widths and
+    heights that are not multiples of the tiles, batch 1 and 2.  Both sides
+    sum the same split products in fp32, in different orders; where a
+    band's fp32 sums differ by an ulp, the bf16 rounding of its lo half can
+    flip (2^-15 of the value at most), and the next layers carry it.  Max
+    error 2^-12 of max|out| (16 times below one bf16 ulp there: a lo half
+    lost to zero would give about 2^-9), mean 1e-4 x std (chip_smoke.py's
+    bound: at 1080p the means are 5e-6 to 1e-5)."""
+    case = FP32_CARD_CASES[name]
+    h, w, batch = shape
+    x, aux, ws, bs = make_case(case, seed=8, h=h, w=w, batch=batch, fp32=True)
+    before = conv_chain.launches
+    got = run_port(case, x, aux, ws, bs, cuda, fp32=True)
+    assert conv_chain.launches == before + len(case["ks"])
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True, fp32=True)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == batch
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -12 * float(np.max(np.abs(wv))), (name, shape, err)
+        assert np.mean(np.abs(g - wv)) < 1e-4 * np.std(wv), (name, shape)
+
+
+@pytest.mark.gpu
+def test_conv_chain_fp32_k864_layer_streams_its_weights(cuda):
+    """The layer that reads 48 + 48 aux channels (K = 864) has 165,888
+    bytes of split weights: with its tile's hi and lo planes it fits no
+    resident configuration, so in the fp32 mode it streams its weights (one
+    warpgroup a CTA); in the bf16 modes it stays resident.  The other fp32
+    layers of the path stay resident.  Every plan fits the 232,448 bytes a
+    block may have."""
+    case = FP32_CARD_CASES["chain_A"]
+    _, _, ws, bs = make_case(case)
+    chain = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
+                       case["acts"], case["ks"], band_fp32=True)
+    plans = [layer_plan(layer, True) for layer in chain.layers]
+    assert [p["mode"] for p in plans] == ["fp32 resident", "fp32 streamed",
+                                          "fp32 resident", "fp32 resident"], plans
+    assert plans[1]["nwg"] == 1 and all(p["smem"] <= 232448 for p in plans)
+    assert layer_plan(chain.layers[1], False)["mode"] == "bf16 split"
+    bf = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
+                    case["acts"], case["ks"])
+    assert layer_plan(bf.layers[1], False)["mode"] == "bf16"
+
+
+@pytest.mark.gpu
+def test_conv_chain_fp32_kernel_rejects_bf16(cuda):
+    case = FP32_CARD_CASES["chain_A"]
+    x, aux, ws, bs = make_case(case, fp32=True)
+    chain = pack_chain([torch.from_numpy(a).to(cuda) for a in ws],
+                       [torch.from_numpy(b).to(cuda) for b in bs],
+                       case["acts"], case["ks"], band_fp32=True)
+    xt, at = torch.from_numpy(x).to(cuda), torch.from_numpy(aux).to(cuda)
+    before = conv_chain.launches
+    with pytest.raises(TypeError):
+        conv_chain(xt.to(BF16), chain, aux=at, aux_channels=(8, 48))
+    with pytest.raises(TypeError):
+        conv_chain(xt, chain, aux=at.to(BF16), aux_channels=(8, 48))
+    assert conv_chain.launches == before
 
 
 # the main path's layer shapes: (ks, layer-0 input, aux, cout, split);

@@ -119,10 +119,13 @@ def test_unsupported_knobs_raise():
         build_network("convunet-mode=fixedfeatures-residual=true", 6, 3, device="cpu")
     with pytest.raises(NotImplementedError):
         build_network("newunet-mode=feat-fusion_mode=sum", 6, 3, device="cpu")
-    with pytest.raises(NotImplementedError):
-        resolve_fused_precision("mixed", arch="convunet", feature_rec=True, future=False)
-    with pytest.raises(NotImplementedError):
-        resolve_fused_precision("auto", arch="convunet", feature_rec=True, future=True)
+    assert resolve_fused_precision("mixed", arch="convunet", feature_rec=True,
+                                   future=False) == "mixed"
+    assert resolve_fused_precision("auto", arch="convunet", feature_rec=True,
+                                   future=True) == "hybrid:glue+A+dec2"
+    for name in ("accurate", "wf32"):
+        with pytest.raises(NotImplementedError):
+            resolve_fused_precision(name, arch="convunet", feature_rec=True, future=True)
     assert resolve_fused_precision("auto", arch="convunet", feature_rec=True,
                                    future=False) == "fast"
 
