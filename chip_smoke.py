@@ -12,9 +12,12 @@
    TF32 off on the plain side, and times the kernel, the plain version and
    a PyTorch library yardstick (F.grid_sample for the warps, cuDNN F.conv2d
    per conv layer, and for a ConvNeXt chain its blocks as cuDNN depthwise
-   conv, F.layer_norm, bf16 matmuls and F.gelu), beside the bound computed
-   from the inputs, and the share of the bound.  conv_chain is checked in
-   both its modes: the bf16 chains of convunet+feat, and the fp32-band
+   conv, F.layer_norm, matmuls and F.gelu in the chain's dtype), beside
+   the bound computed from the inputs, and the share of the bound.
+   convnext_chain is checked in both its modes on the flagship's seven
+   chains: bf16 (the 'fast' packing) and fp32 (the 'mixed' packing: erf
+   GELU, fp32 bands, six bf16 products a MAC, held to 2^-14 of max|out|).
+   conv_chain is checked in both its modes: the bf16 chains of convunet+feat, and the fp32-band
    (bf16_3x) chains A and dec2 of convunet+feat+future's 'auto' preset
    (hybrid:glue+A+dec2), with each layer's launch plan (resident or
    streamed weights); the fp32 bound counts three bf16 products a MAC.  The warp is timed at its
@@ -40,18 +43,21 @@
      whose warp is warp_catmull_zero (nwarps x nscales launches a flow);
    - convunet+feat+future (cached flows) under 'auto', which resolves to
      hybrid:glue+A+dec2: the state and future-frame warps in fp32 and six
-     conv_chain chains, A and dec2 (9 of the 21 launches) in the fp32 mode.
+     conv_chain chains, A and dec2 (9 of the 21 launches) in the fp32 mode;
+   - the flagship (cached flows) under 'mixed': fp32 warps and all seven
+     convnext_chain chains (25 launches) in the fp32 mode.
    Each path checks every output is finite, that its first two frames
    agree with the port's plain module path (fp32, TF32 off) fed the same
    flows within its preset's envelope (normalized max error < 0.2 at step
    1 and < 0.3 at step 2 for 'fast', tests/test_fast_step.py; half that for
-   the hybrid, see ENVELOPE), and that it launched its kernels the expected
-   number of times (launch counts set to 0 just before the path and read
-   just after).  The hybrid path's two frames are also run under 'fast' and
-   compared the same way: the hybrid's max and mean errors must be below
-   fast's at both steps.
-6. Prints a ``{"kernels": [...]}`` JSON line (conv_chain's entry adds the
-   fp32 mode's ``fp32_*`` times, bound and error), the card line and,
+   the hybrid; 2e-3 and 3e-3 for 'mixed'; see ENVELOPE), and that it
+   launched its kernels the expected number of times (launch counts set to
+   0 just before the path and read just after).  The two frames of a path
+   in another preset than 'fast' are also run under 'fast' and compared the
+   same way: its max and mean errors must be below fast's at both steps.
+6. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain and
+   convnext_chain entries add their fp32 mode's ``fp32_*`` times, bound
+   and error), the card line and,
    last, ``{"ok": true, "device": {...}}``.  Every time and fps line
    carries the card's name and power limit.
 
@@ -121,26 +127,32 @@ from rvdd_tpu_torch.ops.warp import flow_upsample_2x  # noqa: E402
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 HBM_BPS = 3.35e12   # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 H, W = 1080, 1920   # main-path output resolution (raw 540x960)
-#: net launches per frame of each model under 'auto' (conv_chain_fp32:
-#: the conv_chain launches in the fp32-band mode)
+#: net launches per frame of each model under each preset it runs here
+#: (conv_chain_fp32, convnext_chain_fp32: the launches in the fp32 mode)
 NET_LAUNCHES = {
-    "convunet+feat": {"warp_bicubic": 1, "conv_chain": 21, "conv_chain_fp32": 0,
-                      "convnext_chain": 0},
-    "convnext+feat+future": {"warp_bicubic": 2, "conv_chain": 0, "conv_chain_fp32": 0,
-                             "convnext_chain": 25},
-    "convunet+feat+future": {"warp_bicubic": 2, "conv_chain": 21, "conv_chain_fp32": 9,
-                             "convnext_chain": 0},
+    ("convunet+feat", "fast"): {"warp_bicubic": 1, "conv_chain": 21, "conv_chain_fp32": 0,
+                                "convnext_chain": 0, "convnext_chain_fp32": 0},
+    ("convnext+feat+future", "fast"): {"warp_bicubic": 2, "conv_chain": 0,
+                                       "conv_chain_fp32": 0, "convnext_chain": 25,
+                                       "convnext_chain_fp32": 0},
+    ("convunet+feat+future", "hybrid:glue+A+dec2"): {
+        "warp_bicubic": 2, "conv_chain": 21, "conv_chain_fp32": 9, "convnext_chain": 0,
+        "convnext_chain_fp32": 0},
+    ("convnext+feat+future", "mixed"): {"warp_bicubic": 2, "conv_chain": 0,
+                                        "conv_chain_fp32": 0, "convnext_chain": 25,
+                                        "convnext_chain_fp32": 25},
 }
 #: the main paths: model, flow preset (None: cached flows), frames (the
-#: state=None frame and the streamed ones) and the frames before timing;
-#: every path runs its model's 'auto' preset
+#: state=None frame and the streamed ones), the frames before timing and
+#: the fused preset ('auto': the model's own)
 PATHS = (
-    ("convunet+feat", None, 13, 3),
-    ("convnext+feat+future", None, 13, 3),
-    ("convunet+feat", "fast", 5, 2),
-    ("convunet+feat", "default", 3, 1),
-    ("convnext+feat+future", "fast", 3, 1),
-    ("convunet+feat+future", None, 13, 3),
+    ("convunet+feat", None, 13, 3, "auto"),
+    ("convnext+feat+future", None, 13, 3, "auto"),
+    ("convunet+feat", "fast", 5, 2, "auto"),
+    ("convunet+feat", "default", 3, 1, "auto"),
+    ("convnext+feat+future", "fast", 3, 1, "auto"),
+    ("convunet+feat+future", None, 13, 3, "auto"),
+    ("convnext+feat+future", None, 8, 2, "mixed"),
 )
 #: normalized max error of a path's first two frames against the plain
 #: module path, by preset: tests/test_fast_step.py's envelope for 'fast';
@@ -152,8 +164,10 @@ PATHS = (
 #: 0.054-0.062 at step 2 on three seeds of those inputs, the port's
 #: 0.038-0.050 and 0.055-0.057, with the same mean errors; at 1080p the
 #: port's step 1 gave 0.0593.  tests/test_torch_presets.py holds the port
-#: to rvdd_tpu there.)
-ENVELOPE = {"fast": (0.2, 0.3), "hybrid:glue+A+dec2": (0.1, 0.15)}
+#: to rvdd_tpu there.)  'mixed' (the flagship, every chain in the fp32
+#: mode) is held to the limits of tests/test_torch_presets.py's
+#: test_mixed_step_near_exact, and must beat 'fast' too.
+ENVELOPE = {"fast": (0.2, 0.3), "hybrid:glue+A+dec2": (0.1, 0.15), "mixed": (2e-3, 3e-3)}
 KERNELS = (warp_bicubic, conv_chain, convnext_chain, warp_catmull_zero)
 BF16 = torch.bfloat16
 DEV = torch.device("cuda")
@@ -496,10 +510,11 @@ def check_fp32_chains(packed, gen) -> dict:
 # ------------------------------------------------------- convnext chains
 
 
-def cnx_chain_specs(packed, gen):
-    """The flagship's seven chains with main-path-shaped random bf16 inputs."""
+def cnx_chain_specs(packed, gen, dtype=BF16):
+    """The flagship's seven chains with main-path-shaped random inputs of
+    ``dtype`` (the chains' dtype)."""
     def rnd(*shape):
-        return torch.randn(*shape, device=DEV, generator=gen).to(BF16)
+        return torch.randn(*shape, device=DEV, generator=gen).to(dtype)
 
     return [
         ("A", rnd(1, H, W, 9), dict(aux=rnd(1, H, W, 56), aux_channels=(8, 48), emit=(2,),
@@ -542,10 +557,12 @@ def cnx_chain_work(chain, x, kw, outs):
     """(tensor-core FLOP, depthwise FLOP, bytes) the chain must do and move:
     the 1x1 products (proj over the real input channels, pw1, pw2, head),
     the 49 depthwise taps, each input read once (the aux window only) and
-    each output written once, weights included.  Both kinds of FLOP are
-    bf16 products with fp32 sums, so the bound counts both at the bf16
-    tensor-core peak (rvdd_tpu's production engine runs the depthwise on
-    its matrix unit too)."""
+    each output written once, weights included.  In the bf16 mode both
+    kinds of FLOP are bf16 products with fp32 sums, so the bound counts
+    both at the bf16 tensor-core peak (rvdd_tpu's production engine runs
+    the depthwise on its matrix unit too).  In the fp32 mode the 1x1 FLOP
+    count six bf16 products a MAC (HIGHEST's three-way split) and the
+    depthwise FLOP are fp32 (check_cnx_chains puts them at their peaks)."""
     hh, ww = _full_res(x, kw)
     px = x.shape[0] * hh * ww
     tensor = dw = 0
@@ -556,87 +573,124 @@ def cnx_chain_work(chain, x, kw, outs):
         tensor += 2 * px * 2 * WIDTH * HIDDEN
         dw += 2 * px * KSIZE * KSIZE * WIDTH
         if i == 1 and blk.aux_c:
-            nbytes += px * blk.aux_c * 2
+            nbytes += px * blk.aux_c * x.element_size()
         nbytes += sum(t.numel() * t.element_size() for t in (
             blk.proj_w, blk.proj_b, blk.dw_w, blk.dw_b, blk.ln_g, blk.ln_b, blk.pw1,
             blk.pw1_b, blk.pw2, blk.pw2_b, blk.ls) if t is not None)
     if chain.head_w is not None:
         tensor += 2 * px * WIDTH * chain.n_head
-        nbytes += chain.head_w.numel() * 2 + chain.head_b.numel() * 4
-    return tensor, dw, nbytes
+        nbytes += chain.head_w.numel() * chain.head_w.element_size() + chain.head_b.numel() * 4
+    return tensor * (6 if chain.band_fp32 else 1), dw, nbytes
 
 
 def cnx_library_ms(chain, x, kw) -> float:
-    """The chain's blocks as a sequence of library calls at its shapes:
-    bf16 torch.matmul for proj/pw1/pw2, cuDNN depthwise F.conv2d
-    (groups=48, channels_last), F.layer_norm and F.gelu(tanh); timed and
-    summed.  A yardstick, not used by the port."""
+    """The chain's blocks as a sequence of library calls at its shapes, in
+    the chain's dtype: torch.matmul for proj/pw1/pw2 (TF32 off under
+    plain_mode), cuDNN depthwise F.conv2d (groups=48, channels_last),
+    F.layer_norm and F.gelu (tanh in the bf16 mode, exact in the fp32
+    mode); timed and summed.  A yardstick, not used by the port."""
     hh, ww = _full_res(x, kw)
+    dt = chain.dtype
+    approx = "none" if chain.band_fp32 else "tanh"
     total = 0.0
     for blk in chain.blocks:
         cin = blk.cin0 + blk.aux_c
-        inp = torch.randn(1, hh, ww, cin, device=DEV).to(BF16)
-        pw = torch.randn(cin, WIDTH, device=DEV).to(BF16) if blk.proj_w is not None else None
-        taps = torch.randn(WIDTH, 1, KSIZE, KSIZE, device=DEV).to(BF16)
-        w1 = torch.randn(WIDTH, HIDDEN, device=DEV).to(BF16)
-        w2 = torch.randn(HIDDEN, WIDTH, device=DEV).to(BF16)
-        g = torch.ones(WIDTH, device=DEV, dtype=BF16)
+        inp = torch.randn(1, hh, ww, cin, device=DEV).to(dt)
+        pw = torch.randn(cin, WIDTH, device=DEV).to(dt) if blk.proj_w is not None else None
+        taps = torch.randn(WIDTH, 1, KSIZE, KSIZE, device=DEV).to(dt)
+        w1 = torch.randn(WIDTH, HIDDEN, device=DEV).to(dt)
+        w2 = torch.randn(HIDDEN, WIDTH, device=DEV).to(dt)
+        g = torch.ones(WIDTH, device=DEV, dtype=dt)
 
         def run():
             h = inp @ pw if pw is not None else inp
             d = F.conv2d(h.permute(0, 3, 1, 2), taps, padding=KSIZE // 2, groups=WIDTH)
             d = F.layer_norm(d.permute(0, 2, 3, 1), (WIDTH,), g, g)
-            return h + F.gelu(d @ w1, approximate="tanh") @ w2
+            return h + F.gelu(d @ w1, approximate=approx) @ w2
 
         total += time_ms(run, reps=3)
         del inp, pw
     return total
 
 
+#: peak fp32 FLOP/s of the H100 SXM's CUDA cores (NVIDIA data sheet)
+PEAK_FP32 = 67e12
+
+
 def check_cnx_chains(packed, gen) -> dict:
+    """convnext_chain on the flagship's seven chains at 1080p in the mode
+    they were packed in, against convnext_chain_plain with TF32 off, and
+    timed beside the bound and the library sequence.  bf16 mode: max error
+    at most 4 bf16 ulps of max|out| (both sides round LN and GELU outputs
+    and bands to bf16 after sums in other orders).  fp32 mode (the 'mixed'
+    packing): max error at most 2^-14 of max|out| and mean below 1e-5 x
+    std (the split drops products below 2^-24 of each product, and the
+    sums run in other orders); its bound is the largest of the 1x1 work at
+    six bf16 products a MAC at the tensor-core peak, the depthwise in fp32
+    at the CUDA cores' peak and the fp32 bytes at the HBM rate.  Returns
+    the kernels line's fields, ``fp32_``-prefixed in the fp32 mode."""
+    fp32 = packed["A"].band_fp32
+    tag = "convnext_chain fp32" if fp32 else "convnext_chain"
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     terms = [0.0, 0.0, 0.0]
-    for name, x, kw in cnx_chain_specs(packed, gen):
+    for name, x, kw in cnx_chain_specs(packed, gen, packed["A"].dtype):
         chain = with_random_affine(packed[name], gen)
+        assert chain.band_fp32 == fp32, name
         got = convnext_chain(x, chain, **kw)
         want = convnext_chain_plain(x, chain, **kw)
         for i, (g, wv) in enumerate(zip(got, want)):
             g, wv = g.float(), wv.float()
             err = float((g - wv).abs().max())
-            tol = 2.0 ** -6 * float(wv.abs().max())
-            log(f"convnext_chain[{name}] out {i} {tuple(g.shape)}: max_abs_err {err:.3e} "
-                f"(tol {tol:.3e} = 4 bf16 ulps of max|out| {float(wv.abs().max()):.3f}), "
-                f"normalized {err / float(wv.std()):.3e}, "
-                f"mean {float((g - wv).abs().mean()) / float(wv.std()):.2e} x std, "
-                f"finite {bool(torch.isfinite(g).all())}")
-            if not (err <= tol and torch.isfinite(g).all()):
-                raise AssertionError(f"convnext_chain[{name}] disagrees with its plain version")
+            mean = float((g - wv).abs().mean()) / float(wv.std())
+            if fp32:
+                tol, rule, ok_mean = 2.0 ** -14 * float(wv.abs().max()), "2^-14 x", mean < 1e-5
+            else:
+                tol, rule, ok_mean = 2.0 ** -6 * float(wv.abs().max()), "4 bf16 ulps of", True
+            log(f"{tag}[{name}] out {i} {tuple(g.shape)} {got[i].dtype}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e} = {rule} max|out| {float(wv.abs().max()):.3f}), "
+                f"normalized {err / float(wv.std()):.3e}, mean {mean:.2e} x std"
+                f"{' (tol 1e-5)' if fp32 else ''}, finite {bool(torch.isfinite(g).all())}")
+            if not (err <= tol and ok_mean and torch.isfinite(g).all()
+                    and got[i].dtype == want[i].dtype):
+                raise AssertionError(f"{tag}[{name}] disagrees with its plain version")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
         tensor, dw, nbytes = cnx_chain_work(chain, x, kw, got)
         del got, want
         ms = time_ms(lambda: convnext_chain(x, chain, **kw), reps=5)
         plain_ms = time_ms(lambda: convnext_chain_plain(x, chain, **kw), reps=2)
         lib_ms = cnx_library_ms(chain, x, kw)
-        t_tc, t_dw, t_b = (tensor / PEAK_BF16 * 1e3, dw / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3)
-        bound = max(t_tc + t_dw, t_b)
-        log(f"convnext_chain[{name}] {len(chain.blocks)} launches: kernel {ms:.3f} ms, "
+        if fp32:
+            t_tc, t_dw = tensor / PEAK_BF16 * 1e3, dw / PEAK_FP32 * 1e3
+            t_b = nbytes / HBM_BPS * 1e3
+            bound = max(t_tc, t_dw, t_b)
+            how = (f"1x1 products {tensor / 1e9:.1f} GFLOP of bf16 (6 a MAC) -> {t_tc:.4f} ms, "
+                   f"depthwise {dw / 1e9:.1f} GFLOP of fp32 -> {t_dw:.4f} ms")
+        else:
+            t_tc, t_dw, t_b = (tensor / PEAK_BF16 * 1e3, dw / PEAK_BF16 * 1e3,
+                               nbytes / HBM_BPS * 1e3)
+            bound = max(t_tc + t_dw, t_b)
+            how = (f"1x1 products {tensor / 1e9:.1f} GFLOP -> {t_tc:.4f} ms plus depthwise "
+                   f"{dw / 1e9:.1f} GFLOP -> {t_dw:.4f} ms at the bf16 peak")
+        log(f"{tag}[{name}] {len(chain.blocks)} launches: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, library sequence {lib_ms:.3f} ms, bound {bound:.4f} ms "
-            f"(1x1 products {tensor / 1e9:.1f} GFLOP -> {t_tc:.4f} ms plus depthwise "
-            f"{dw / 1e9:.1f} GFLOP -> {t_dw:.4f} ms at the bf16 peak; {nbytes / 1e6:.0f} MB "
-            f"-> {t_b:.4f} ms), {(tensor + dw) / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
-            f"{100 * bound / ms:.1f}% of the bound, card {CARD}")
+            f"({how}; {nbytes / 1e6:.0f} MB -> {t_b:.4f} ms), "
+            f"{(tensor + dw) / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {100 * bound / ms:.1f}% of the "
+            f"bound, card {CARD}")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
         tot["bound_ms"] += bound
         tot["library_ms"] += lib_ms
         for k, v in enumerate((t_tc, t_dw, t_b)):
             terms[k] += v
-    tot["bound_by"] = "operations" if terms[0] + terms[1] > terms[2] else "bytes"
-    log(f"convnext_chain per frame: bound terms 1x1 products {terms[0]:.4f} ms + depthwise "
+    ops = max(terms[0], terms[1]) if fp32 else terms[0] + terms[1]
+    tot["bound_by"] = "operations" if ops > terms[2] else "bytes"
+    log(f"{tag} per frame: bound terms 1x1 products {terms[0]:.4f} ms, depthwise "
         f"{terms[1]:.4f} ms, bytes {terms[2]:.4f} ms; kernel {tot['ms']:.3f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms, "
-        f"{(terms[0] + terms[1]) / tot['ms'] * PEAK_BF16 / 1e12:.1f} TFLOP/s, "
-        f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound, card {CARD}")
+        f"bound {tot['bound_ms']:.4f} ms, {100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound; "
+        f"plain {tot['plain_ms']:.3f} ms, library sequence {tot['library_ms']:.3f} ms, "
+        f"card {CARD}")
+    if fp32:
+        return {f"fp32_{k}": v for k, v in tot.items() if k != "bound_by"}
     return tot
 
 
@@ -826,12 +880,12 @@ def first_two(model, precision, raw, flows, net_impl="fused"):
     return d0, d1
 
 
-def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
-    """Drive one main path under its model's 'auto' preset; returns its
-    launch counts."""
+def main_path(model: str, flow, n_frames: int, warm: int, precision: str) -> dict:
+    """Drive one main path under ``precision`` ('auto': its model's own
+    preset); returns its launch counts."""
     fd = MODELS[model][1]
-    preset = resolve_precision(model)
-    cfg, net, packed = make_model("fused", seed=0, device=DEV, model=model)
+    preset = resolve_precision(model, precision)
+    cfg, net, packed = make_model("fused", seed=0, device=DEV, model=model, precision=precision)
     raw, flows = make_inputs(H // 2, W // 2, seed=0, device=DEV, model=model,
                              with_flow=flow is not None)
     flow_log = FlowLog() if flow is not None else None
@@ -840,7 +894,7 @@ def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
-    conv_chain.fp32_launches = 0
+    conv_chain.fp32_launches = convnext_chain.fp32_launches = 0
     # the first frames warm the allocator; the rest are timed as bench.py
     # times them: host clock, one synchronize.  Only the first two outputs
     # (and, online, their flows) are kept, so the loop allocates as a
@@ -865,13 +919,14 @@ def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
     ms = 1e3 * (time.perf_counter() - t0) / (n_frames - warm)
     launches = {k.__name__: k.launches for k in KERNELS}
     launches["conv_chain_fp32"] = conv_chain.fp32_launches
+    launches["convnext_chain_fp32"] = convnext_chain.fp32_launches
     if not bool(finite):
         raise AssertionError(f"a {name} main-path output is not finite")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path {name}: {n_frames} frames, all finite, launches {launches}")
     log(f"main path {name}: {1e3 / ms:.2f} fps, {ms:.2f} ms/frame over {n_frames - warm} "
         f"frames (host clock), peak memory {peak:.2f} GiB, card {card_info()}")
-    want = {k: n * n_frames for k, n in NET_LAUNCHES[model].items()}
+    want = {k: n * n_frames for k, n in NET_LAUNCHES[model, preset].items()}
     want["warp_catmull_zero"] = 0
     if flow is not None:
         p = FLOW_PRESETS[flow]
@@ -897,7 +952,7 @@ def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
     err = errs(dens)
     for i, lim in enumerate(ENVELOPE[preset]):
         log(f"main path {name} step {i + 1} vs plain module path (same flows): normalized "
-            f"max err {err[i][0]:.4f} (limit {lim}), mean {err[i][1]:.5f}")
+            f"max err {err[i][0]:.4g} (limit {lim}), mean {err[i][1]:.4g}")
         if not err[i][0] < lim:
             raise AssertionError(f"{name} step {i + 1} outside the envelope")
     if preset != "fast":
@@ -906,8 +961,8 @@ def main_path(model: str, flow, n_frames: int, warm: int) -> dict:
         err_fast = errs(first_two(model, "fast", raw, used_flows))
         for i in range(2):
             log(f"main path {name} step {i + 1}: the same frames under 'fast': normalized max "
-                f"err {err_fast[i][0]:.4f}, mean {err_fast[i][1]:.5f}; {preset} "
-                f"{err[i][0]:.4f}, {err[i][1]:.5f}")
+                f"err {err_fast[i][0]:.4g}, mean {err_fast[i][1]:.4g}; {preset} "
+                f"{err[i][0]:.4g}, {err[i][1]:.4g}")
             if not (err[i][0] < err_fast[i][0] and err[i][1] < err_fast[i][1]):
                 raise AssertionError(f"{name} step {i + 1}: no closer to the module path than "
                                      "'fast'")
@@ -945,6 +1000,9 @@ def main(argv=None):
         conv_rec.update(check_fp32_chains(packed, gen))
         _, _, packed = make_model("fused", seed=0, device=DEV, model="convnext+feat+future")
         cnx_rec = check_cnx_chains(packed, gen)
+        _, _, packed = make_model("fused", seed=0, device=DEV, model="convnext+feat+future",
+                                  precision="mixed")
+        cnx_rec.update(check_cnx_chains(packed, gen))
         catmull_rec = check_catmull_warp()
         if args.warp_source:
             compare_warp_source(args.warp_source)

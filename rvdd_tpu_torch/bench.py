@@ -8,11 +8,13 @@ Port of bench.py's inference mode for three models:
 * ``convnext+feat+future``: the ConvNeXt flagship ``newunet-mode=feat``
   with the future frame.
 
-``--precision`` picks the fused-path preset (models/fast_unet.py:
-FUSED_PRECISIONS, or ``hybrid:<chains>``); the default ``auto`` resolves
-as bench.py:152-156 does: ``hybrid:glue+A+dec2`` for convunet+feat+future
-(chains A and dec2 in the kernel's fp32 mode, fp32 warps), ``fast`` for
-the others.
+``--precision`` picks the fused-path preset of the model's family
+(ConvUNet: models/fast_unet.py:FUSED_PRECISIONS, or ``hybrid:<chains>``;
+the ConvNeXt flagship: models/fast_convnext.py:CNX_PRECISIONS, ``fast``,
+``mixed``, ``accurate``, ``wsplit`` or ``wf32``); the default ``auto``
+resolves as bench.py:152-156 does: ``hybrid:glue+A+dec2`` for
+convunet+feat+future (chains A and dec2 in the kernel's fp32 mode, fp32
+warps), ``fast`` for the others.
 
 One stream, packed GBRG raw 540x960x4 in and RGB 1080x1920x3 out.  Per
 frame: Hamilton-Adams demosaic of the current (and future) frame and the
@@ -69,6 +71,7 @@ import torch
 
 from rvdd_tpu_torch.device import resolve_device
 from rvdd_tpu_torch.models import build_network
+from rvdd_tpu_torch.models.fast_convnext import cnx_precision
 from rvdd_tpu_torch.models.fast_unet import resolve_fused_precision
 from rvdd_tpu_torch.recurrent.engine import (
     EngineConfig,
@@ -89,9 +92,14 @@ MODELS = {
 
 def resolve_precision(model: str, precision: str = "auto") -> str:
     """The fused preset ``model`` runs under ``precision`` ('auto' resolves
-    as bench.py:152-156)."""
+    as bench.py:152-156), checked against the presets of its family."""
     arch, fd = MODELS[model]
-    return resolve_fused_precision(precision, arch=arch, feature_rec=True, future=fd > 0)
+    name = resolve_fused_precision(precision, arch=arch, feature_rec=True, future=fd > 0) \
+        if precision == "auto" else precision
+    if arch.startswith("newunet"):
+        cnx_precision(name)
+        return name
+    return resolve_fused_precision(name, arch=arch, feature_rec=True, future=fd > 0)
 
 
 def make_inputs(height: int = 540, width: int = 960, seed: int = 0, device="cuda",
@@ -142,7 +150,7 @@ def make_model(net_impl: str = "fused", seed: int = 0, device="cuda",
     """(cfg, net, packed) for ``model`` with seeded kaiming weights, the
     fused path in the preset ``precision`` resolves to.  The ConvNeXt
     module path runs the exact GELU; its fused path runs the tanh GELU of
-    the 'fast' preset."""
+    'fast' in its bf16 chains and the exact one in its fp32 chains."""
     arch, fd = MODELS[model]
     cfg = EngineConfig(model_patch_depth=2, future_patch_depth=fd, feature_rec=True,
                        warp_impl="kernel" if net_impl == "fused" else "plain",
@@ -351,8 +359,10 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=960, help="raw (half-res) width")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--precision", default="auto",
-                    help="fused-path preset (fast, mixed, wsplit or hybrid:<chain>+...); auto: "
-                         "hybrid:glue+A+dec2 for convunet+feat+future, fast for the others")
+                    help="fused-path preset of the model's family (convunet: fast, mixed, wsplit "
+                         "or hybrid:<chain>+...; convnext: fast, mixed, accurate, wsplit or "
+                         "wf32); auto: hybrid:glue+A+dec2 for convunet+feat+future, fast for "
+                         "the others")
     ap.add_argument("--with_flow", action="store_true",
                     help="self-contained mode: compute TV-L1 flows on the card every frame")
     ap.add_argument("--fast_flow", action="store_true",

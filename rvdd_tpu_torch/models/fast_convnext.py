@@ -6,7 +6,7 @@ The net runs as seven ConvNeXt block chains through the CUDA
 eighth-resolution core enc_down2 -> enc_conv3 -> bottleneck, five blocks),
 then dec0, dec1, dec2 on the way up.  rvdd_tpu runs the eighth-resolution
 core in XLA (``_middle8_cnx``); here the kernel takes it too, since it tiles
-any size.  Activations are NHWC bf16 between chains; the chains pool and
+any size.  Activations are NHWC between chains; the chains pool and
 upsample (bilinear, align_corners=True) inside the kernel.  The decoder
 concatenates ``[h, skip]``, which is already the kernel's ``[block-0
 output, aux]`` order, so no weight is reordered.
@@ -19,10 +19,15 @@ row-tile feasibility test and its small-image XLA fallback
 limit, so chains C and dec0 always run) and the depthwise-engine knobs
 (``DW_KNOBS``).
 
-Numerics: rvdd_tpu's ``fast`` preset, the only one ported: bf16 bands and
-weights with fp32 accumulation and tanh GELU (:func:`check_precision`).  In
-the engine's combined-state mode the dec2 chain writes the next recurrence
-state ``[den 3 | zero 5 | feat 48]`` in fp32.
+Numerics: rvdd_tpu's five fused presets for this family
+(:data:`CNX_PRECISIONS`).  Each chain runs in one of the kernel's two modes:
+bf16 bands and weights with fp32 accumulation and tanh GELU, or fp32 bands
+and weights with fp32-faithful products and the erf GELU.  Activations
+between chains are in the dtype of the chain that made it, and a chain's
+input is rounded or widened to its own dtype where it is read
+(``.to(chain.dtype)``).  In the engine's combined-state mode the dec2 chain
+writes the next recurrence state ``[den 3 | zero 5 | feat 48]`` in fp32, in
+every preset.
 """
 
 from __future__ import annotations
@@ -59,18 +64,47 @@ def supports_fast_path_cnx(net, h: int, w: int) -> bool:
     )
 
 
-def check_precision(precision: str) -> None:
-    """Only 'fast' is ported.  rvdd_tpu's 'mixed' and 'accurate' need the
-    erf GELU and fp32 bands in convnext_chain (ROADMAP.md, Queue 2 item 2);
-    a hybrid names ConvUNet chains and is refused as rvdd_tpu refuses it
-    (rvdd_tpu/models/fast_convnext.py:298-303)."""
-    if precision.startswith("hybrid:"):
+#: the seven chains; 'mid' is the five-block eighth-res chain that stands
+#: for rvdd_tpu's XLA core _middle8_cnx
+CNX_CHAINS = ("A", "B", "C", "mid", "dec0", "dec1", "dec2")
+_FP32_ALL = dict(fp32=frozenset(CNX_CHAINS), glue=torch.float32)
+_FP32_MID = dict(fp32=frozenset({"mid"}), glue=torch.bfloat16)
+
+#: ConvNeXt fused-path presets as rvdd_tpu computes them for this family:
+#: ``fp32`` names the chains in the kernel's fp32 mode, ``glue`` is the
+#: dtype of the engine's warps and frame inputs.
+#:   fast:             every chain bf16 (tanh GELU), bf16 glue;
+#:   mixed, accurate:  every chain fp32 (erf GELU, fp32 bands and weights,
+#:                     HIGHEST products: rvdd_tpu's _chain maps 'high' to
+#:                     'highest', rvdd_tpu/models/fast_convnext.py:275-278,
+#:                     so the two are one function), fp32 glue;
+#:   wsplit, wf32:     the chains of 'fast' (_chain ignores weight_dtype;
+#:                     wf32's HIGHEST acts on bf16 operands, exact anyway)
+#:                     and an fp32 eighth-res core with the erf GELU
+#:                     (_middle8_cnx runs fp32 for any preset but 'fast',
+#:                     :212-225), bf16 glue.
+#: These are not ConvUNet's semantics (models/fast_unet.py:FUSED_PRECISIONS),
+#: so the table lives here.  A hybrid is refused as rvdd_tpu refuses it
+#: (:298-304).
+CNX_PRECISIONS = {
+    "fast": dict(fp32=frozenset(), glue=torch.bfloat16),
+    "mixed": _FP32_ALL,
+    "accurate": _FP32_ALL,
+    "wsplit": _FP32_MID,
+    "wf32": _FP32_MID,
+}
+
+
+def cnx_precision(name: str) -> dict:
+    """Resolve a ConvNeXt preset name (see :data:`CNX_PRECISIONS`);
+    ValueError for a hybrid or an unknown name."""
+    if name.startswith("hybrid:"):
         raise ValueError("per-chain hybrid presets are a ConvUNet feature; the ConvNeXt "
-                         "fused path takes 'fast'")
-    if precision != "fast":
-        raise NotImplementedError(
-            f"fused precision {precision!r} is not ported for ConvNeXt; only 'fast' is "
-            "(ROADMAP.md, Queue 2 item 2)")
+                         f"fused path takes {sorted(CNX_PRECISIONS)}")
+    if name not in CNX_PRECISIONS:
+        raise ValueError(f"unknown ConvNeXt fused precision {name!r}; pick from "
+                         f"{sorted(CNX_PRECISIONS)}")
+    return CNX_PRECISIONS[name]
 
 
 # ------------------------------------------------------------------- weights
@@ -79,30 +113,34 @@ def check_precision(precision: str) -> None:
 @torch.no_grad()
 def pack_fast_cnx(net: ConvNeXtUNet, feature_rec: bool, in_nc: int,
                   precision: str = "fast") -> dict:
-    """One-time packing of the module's weights into the seven chains."""
+    """One-time packing of the module's weights into the seven chains, each
+    in its mode under ``precision`` (a :data:`CNX_PRECISIONS` key)."""
     if in_nc != net.in_channels:
         raise ValueError(f"in_nc {in_nc} != net.in_channels {net.in_channels}")
-    check_precision(precision)
+    fp32 = cnx_precision(precision)["fp32"]
 
-    def sds(*names):
-        return [net.get_submodule(n).state_dict() for n in names]
+    def chain(name, names, cin0, **kw):
+        sds = [net.get_submodule(n).state_dict() for n in names]
+        return pack_chain(sds, cin0, band_fp32=name in fp32, **kw)
 
     packed = {}
     if feature_rec:
-        packed["A"] = pack_chain(sds("pre.block0", "enc_conv0.block0", "enc_conv0.block1"),
-                                 in_nc, aux_c=WIDTH)
+        packed["A"] = chain("A", ("pre.block0", "enc_conv0.block0", "enc_conv0.block1"),
+                            in_nc, aux_c=WIDTH)
     else:
-        packed["A"] = pack_chain(sds("enc_conv0.block0", "enc_conv0.block1"), in_nc)
-    packed["B"] = pack_chain(sds("enc_down0", "enc_conv1.block0", "enc_conv1.block1"), WIDTH)
-    packed["C"] = pack_chain(sds("enc_down1", "enc_conv2.block0", "enc_conv2.block1"), WIDTH)
+        packed["A"] = chain("A", ("enc_conv0.block0", "enc_conv0.block1"), in_nc)
+    packed["B"] = chain("B", ("enc_down0", "enc_conv1.block0", "enc_conv1.block1"), WIDTH)
+    packed["C"] = chain("C", ("enc_down1", "enc_conv2.block0", "enc_conv2.block1"), WIDTH)
     for i in range(2):
-        packed[f"dec{i}"] = pack_chain(
-            sds(f"dec_up{i}", f"dec_conv{i}.block0", f"dec_conv{i}.block1"), WIDTH, aux_c=WIDTH)
-    packed["dec2"] = pack_chain(
-        sds("dec_up2", "dec_conv2.block0", "dec_conv2.block1", "post.block0", "post.block1"),
+        packed[f"dec{i}"] = chain(
+            f"dec{i}", (f"dec_up{i}", f"dec_conv{i}.block0", f"dec_conv{i}.block1"), WIDTH,
+            aux_c=WIDTH)
+    packed["dec2"] = chain(
+        "dec2", ("dec_up2", "dec_conv2.block0", "dec_conv2.block1", "post.block0",
+                 "post.block1"),
         WIDTH, aux_c=WIDTH, head=(net.post_final.weight, net.post_final.bias))
-    packed["mid"] = pack_chain(sds("enc_down2", "enc_conv3.block0", "enc_conv3.block1",
-                                   "bottleneck.block0", "bottleneck.block1"), WIDTH)
+    packed["mid"] = chain("mid", ("enc_down2", "enc_conv3.block0", "enc_conv3.block1",
+                                  "bottleneck.block0", "bottleneck.block1"), WIDTH)
     return packed
 
 
@@ -112,27 +150,33 @@ def pack_fast_cnx(net: ConvNeXtUNet, feature_rec: bool, in_nc: int,
 def fast_forward_cnx(net: ConvNeXtUNet, packed: dict, x: torch.Tensor,
                      aux: Optional[torch.Tensor] = None, *, aux_channels=None,
                      combine_state: bool = False):
-    """Fused forward on NHWC bf16 x [B, H, W, in_nc].
+    """Fused forward on NHWC x [B, H, W, in_nc].
 
     aux: the recurrent features [B, H, W, 48], or a wider tensor with
-    ``aux_channels=(offset, 48)`` (the warped recurrence state).
-    Returns (out [B, H, W, out_nc] bf16, new_feat [B, H, W, 48] bf16 or
-    None), or with ``combine_state`` the next recurrence state
-    [B, H, W, 8 (+48)] fp32 ``[den 3 | zero 5 | feat 48]``.
+    ``aux_channels=(offset, 48)`` (the warped recurrence state).  Each
+    chain's inputs are rounded or widened to its dtype where it reads them,
+    so x and aux may come in either dtype (the engine passes its glue
+    dtype).  Returns (out [B, H, W, out_nc], new_feat [B, H, W, 48] or
+    None) in dec2's dtype, or with ``combine_state`` the next recurrence
+    state [B, H, W, 8 (+48)] fp32 ``[den 3 | zero 5 | feat 48]``.
     """
     feat_rec = net.feature_rec
-    last_a = len(packed["A"].blocks) - 1
-    skip0, d0 = convnext_chain(x, packed["A"], aux=aux if feat_rec else None,
+    ca, cb, cc, cm = packed["A"], packed["B"], packed["C"], packed["mid"]
+    c0, c1, c2 = packed["dec0"], packed["dec1"], packed["dec2"]
+    last_a = len(ca.blocks) - 1
+    skip0, d0 = convnext_chain(x.to(ca.dtype), ca, aux=aux.to(ca.dtype) if feat_rec else None,
                                aux_channels=aux_channels, emit=(last_a,), pool=(last_a,))
-    skip1, d1 = convnext_chain(d0, packed["B"], emit=(2,), pool=(2,))
-    skip2, d2 = convnext_chain(d1, packed["C"], emit=(2,), pool=(2,))
-    (m8,) = convnext_chain(d2, packed["mid"])
-    (dec0,) = convnext_chain(m8, packed["dec0"], aux=skip2, upsample_input=True)
-    (dec1,) = convnext_chain(dec0, packed["dec1"], aux=skip1, upsample_input=True)
+    skip1, d1 = convnext_chain(d0.to(cb.dtype), cb, emit=(2,), pool=(2,))
+    skip2, d2 = convnext_chain(d1.to(cc.dtype), cc, emit=(2,), pool=(2,))
+    (m8,) = convnext_chain(d2.to(cm.dtype), cm)
+    (dec0,) = convnext_chain(m8.to(c0.dtype), c0, aux=skip2.to(c0.dtype), upsample_input=True)
+    (dec1,) = convnext_chain(dec0.to(c1.dtype), c1, aux=skip1.to(c1.dtype),
+                             upsample_input=True)
     if combine_state:
-        (state,) = convnext_chain(dec1, packed["dec2"], aux=skip0, upsample_input=True,
+        (state,) = convnext_chain(dec1.to(c2.dtype), c2, aux=skip0.to(c2.dtype),
+                                  upsample_input=True,
                                   state_out=(56, 8) if feat_rec else (8, None))
         return state
-    new_feat, out = convnext_chain(dec1, packed["dec2"], aux=skip0, upsample_input=True,
-                                   emit=(4,))
+    new_feat, out = convnext_chain(dec1.to(c2.dtype), c2, aux=skip0.to(c2.dtype),
+                                   upsample_input=True, emit=(4,))
     return out, (new_feat if feat_rec else None)

@@ -14,16 +14,31 @@ state ``[head | zeros | features]`` from the last block.
 What bounds it on the H100 is operations: a 1080p frame's seven chains do
 ~0.81 TFLOP of 1x1 products and ~0.10 TFLOP of depthwise taps, all bf16
 products with fp32 sums, ~0.91 ms at the 989 TFLOP/s bf16 tensor-core
-peak, ahead of ~0.45 ms of bytes; see the kernel's source note for what
+peak, ahead of ~0.45 ms of bytes; in the fp32 mode the 1x1 products count
+six bf16 products a MAC, ~4.9 ms.  See the kernel's source note for what
 its design (wgmma with resident weights, the hidden kept in registers)
 does about it and for the floor that its CUDA-core depthwise and GELU set.
 
-Numerics are rvdd_tpu's ``fast`` preset in its production depthwise mode
-('mxu2'): bf16 depthwise taps, bf16 1x1 and head weights, fp32 biases,
-LayerNorm and layerscale, fp32 accumulation, the LN and GELU (tanh)
-outputs rounded to bf16 before their products, and bf16 bands between
-blocks.  The plain version repeats those rounding points in fp32 PyTorch
-and is what a CPU tensor runs.
+A chain runs in one of two numerics, fixed when it is packed:
+
+* bf16 (rvdd_tpu's ``fast`` preset in its production depthwise mode,
+  'mxu2'): bf16 depthwise taps, bf16 1x1 and head weights, fp32 biases,
+  LayerNorm and layerscale, fp32 accumulation, the LN and GELU (tanh)
+  outputs rounded to bf16 before their products, and bf16 bands between
+  blocks;
+* fp32 (``pack_chain(..., band_fp32=True)``; rvdd_tpu's
+  ``band_dtype=float32, mxu_precision='highest', gelu_exact=True``): fp32
+  inputs, bands, outputs, taps and weights, nothing rounded, the erf GELU,
+  and fp32-faithful 1x1 products.  The kernel splits each operand of proj,
+  pw1 and pw2 by mantissa masks into three bf16 planes (``split3``) and
+  sums six bf16 products (what HIGHEST does on the TPU); its head runs in
+  fp32 on the CUDA cores.
+
+The plain version repeats the bf16 mode's rounding points in fp32
+PyTorch, and is the plain fp32 function (exact ``F.gelu``) in the fp32
+mode; it is what a CPU tensor runs.  The wrapper takes tensors of the
+chain's dtype only (``chain.dtype``) and raises TypeError on any other:
+the caller rounds or widens in the open.
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from rvdd_tpu_torch import _build
-from rvdd_tpu_torch.ops.cuda.conv_chain import pack_kmajor, unpack_kmajor
+from rvdd_tpu_torch.ops.cuda.conv_chain import pack_kmajor, split_weight, unpack_kmajor
 from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
 
 WIDTH = 48       # the architecture's block width
@@ -57,12 +72,29 @@ _ARGTYPES = [
     _I, _I, _I,                      # B, H, W
     _P, _P, _P,                      # out, pooled, head_out
     _P, _I, _I,                      # state, stride, feat_off
-    _P,                              # stream
+    _I, _P,                          # f32, stream
 ]
 
 
 def _ceil16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def split3(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """w = hi + mid + lo exactly, as three bf16 tensors: hi keeps the top 16
+    bits of each fp32 value (mantissa mask), mid the top 16 bits of the
+    rest, lo the rest (at most 8 significant bits, so exact in bf16).  The
+    kernel splits its activations the same way in registers."""
+    wf = w.float().contiguous()
+    hi = (wf.view(torch.int32) & -65536).view(torch.float32)
+    mid, lo = split_weight(wf - hi)
+    return hi.to(BF16), mid, lo
+
+
+def _pack3(m: torch.Tensor) -> torch.Tensor:
+    """[K, N] fp32 -> [3, K/8, N, 8] bf16: the hi, mid and lo planes, each
+    in the wgmma B layout (pack_kmajor)."""
+    return torch.stack([pack_kmajor(p) for p in split3(m)]).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,47 +106,62 @@ class CnxBlock:
     cin0: int
     cin0_pad: int
     aux_c: int
-    proj_w: Optional[torch.Tensor]      # [cin0_pad + aux_c, 48] bf16, zero pad rows
+    # the weights the block multiplies by: bf16 in the bf16 mode, fp32 in
+    # the fp32 mode (band_fp32)
+    proj_w: Optional[torch.Tensor]      # [cin0_pad + aux_c, 48], zero pad rows
     proj_b: Optional[torch.Tensor]      # [48] fp32
-    dw_w: torch.Tensor                  # [49, 48] fp32 holding bf16-rounded taps
+    dw_w: torch.Tensor                  # [49, 48] fp32 (bf16-rounded taps in the bf16 mode)
     dw_b: torch.Tensor
     ln_g: torch.Tensor
     ln_b: torch.Tensor
-    pw1: torch.Tensor                   # [48, 192] bf16
+    pw1: torch.Tensor                   # [48, 192]
     pw1_b: torch.Tensor
-    pw2: torch.Tensor                   # [192, 48] bf16
+    pw2: torch.Tensor                   # [192, 48]
     pw2_b: torch.Tensor
     ls: torch.Tensor
-    # the kernel's copies, K-major for wgmma (pack_kmajor): [K/8, N, 8] bf16
+    # the kernel's copies, K-major for wgmma (pack_kmajor), [K/8, N, 8]
+    # bf16; in the fp32 mode three such planes (hi, mid, lo: _pack3),
+    # [3, K/8, N, 8]
     proj_pack: Optional[torch.Tensor]   # [(cin0_pad + aux_c)/8, 48, 8]
     pw1_pack: torch.Tensor              # [6, 192, 8]
     pw2_pack: torch.Tensor              # [24, 48, 8]
+    band_fp32: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class CnxChain:
     blocks: Tuple[CnxBlock, ...]
-    head_w: Optional[torch.Tensor] = None  # [48, n_head] bf16: a 1x1 after the last block
+    head_w: Optional[torch.Tensor] = None  # [48, n_head] (chain dtype): a 1x1 after the last block
     head_b: Optional[torch.Tensor] = None  # [n_head] fp32
+    #: the fp32 mode (fp32 bands, erf GELU, fp32-faithful products); else bf16
+    band_fp32: bool = False
 
     @property
     def n_head(self) -> int:
         return 0 if self.head_w is None else self.head_w.shape[1]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """Of the inputs the chain takes and the outputs it emits (the
+        combined state is fp32 in both modes)."""
+        return torch.float32 if self.band_fp32 else BF16
 
-def _mat1x1(w: torch.Tensor) -> torch.Tensor:
-    """[cout, cin, 1, 1] conv weight -> [cin, cout] bf16."""
-    return w.detach().float()[:, :, 0, 0].t().to(BF16).contiguous()
+
+def _mat1x1(w: torch.Tensor, dtype: torch.dtype = BF16) -> torch.Tensor:
+    """[cout, cin, 1, 1] conv weight -> [cin, cout] of ``dtype``."""
+    return w.detach().float()[:, :, 0, 0].t().to(dtype).contiguous()
 
 
-def pack_block(sd: Mapping[str, torch.Tensor], cin0: int, aux_c: int = 0) -> CnxBlock:
+def pack_block(sd: Mapping[str, torch.Tensor], cin0: int, aux_c: int = 0, *,
+               band_fp32: bool = False) -> CnxBlock:
     """Pack one ConvNeXtBlock's parameters, named as in the port's module
     (``proj.weight``, ``dw.weight``, ``ln.weight``, ``pw1.weight``, ...,
     ``layerscale.layerscale``), for an input of ``cin0`` channels plus
-    ``aux_c`` aux channels."""
+    ``aux_c`` aux channels, in the bf16 or (``band_fp32``) the fp32 mode."""
     f32 = {k: v.detach().float().contiguous() for k, v in sd.items()}
+    wdt = torch.float32 if band_fp32 else BF16
     if "proj.weight" in f32:
-        wb = _mat1x1(f32["proj.weight"])
+        wb = _mat1x1(f32["proj.weight"], wdt)
         if wb.shape != (cin0 + aux_c, WIDTH):
             raise ValueError(f"proj weight {tuple(wb.shape)} != ({cin0} + {aux_c}, {WIDTH})")
         cin0_pad = _ceil16(cin0)
@@ -129,74 +176,97 @@ def pack_block(sd: Mapping[str, torch.Tensor], cin0: int, aux_c: int = 0) -> Cnx
     dw = f32["dw.weight"]
     if tuple(dw.shape) != (WIDTH, 1, KSIZE, KSIZE):
         raise NotImplementedError(f"depthwise weight {tuple(dw.shape)}")
-    pw1, pw2 = _mat1x1(f32["pw1.weight"]), _mat1x1(f32["pw2.weight"])
+    pw1, pw2 = _mat1x1(f32["pw1.weight"], wdt), _mat1x1(f32["pw2.weight"], wdt)
+    taps = dw.reshape(WIDTH, KSIZE * KSIZE).t()
+    pack = _pack3 if band_fp32 else pack_kmajor
+    if not band_fp32:
+        taps = taps.to(BF16)
     return CnxBlock(
         cin0=cin0, cin0_pad=cin0_pad, aux_c=aux_c, proj_w=proj_w, proj_b=proj_b,
-        dw_w=dw.reshape(WIDTH, KSIZE * KSIZE).t().to(BF16).float().contiguous(),
+        dw_w=taps.float().contiguous(),
         dw_b=f32["dw.bias"], ln_g=f32["ln.weight"], ln_b=f32["ln.bias"],
         pw1=pw1, pw1_b=f32["pw1.bias"], pw2=pw2, pw2_b=f32["pw2.bias"],
         ls=f32["layerscale.layerscale"],
-        proj_pack=pack_kmajor(proj_w) if proj_w is not None else None,
-        pw1_pack=pack_kmajor(pw1), pw2_pack=pack_kmajor(pw2),
+        proj_pack=pack(proj_w) if proj_w is not None else None,
+        pw1_pack=pack(pw1), pw2_pack=pack(pw2), band_fp32=band_fp32,
     )
+
+
+def _unpack(p: torch.Tensor) -> torch.Tensor:
+    """A packed 1x1 matrix -> [K, N] fp32: one K-major plane, or the sum
+    hi + mid + lo of three (exact: the planes hold disjoint bits)."""
+    if p.dim() == 4:
+        hi, mid, lo = (unpack_kmajor(q).float() for q in p)
+        return hi + mid + lo
+    return unpack_kmajor(p).float()
 
 
 def block_mats_from_pack(blk: CnxBlock) -> dict:
     """The fp32 matrices the plain version multiplies by, rebuilt from the
     kernel's packed copies alone: ``proj`` [cin0 + aux_c, 48] (pad rows
     dropped), ``pw1`` [48, 192] and ``pw2`` [192, 48]."""
-    mats = {"pw1": unpack_kmajor(blk.pw1_pack).float(), "pw2": unpack_kmajor(blk.pw2_pack).float()}
+    mats = {"pw1": _unpack(blk.pw1_pack), "pw2": _unpack(blk.pw2_pack)}
     if blk.proj_pack is not None:
-        m = unpack_kmajor(blk.proj_pack).float()
+        m = _unpack(blk.proj_pack)
         mats["proj"] = torch.cat([m[:blk.cin0], m[blk.cin0_pad:]])
     return mats
 
 
 def pack_chain(blocks: Sequence[Mapping[str, torch.Tensor]], cin0: int, *, aux_c: int = 0,
-               head: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> CnxChain:
+               head: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               band_fp32: bool = False) -> CnxChain:
     """Pack a chain of blocks (each a block's parameters, see
     :func:`pack_block`): block 0 takes ``cin0`` channels, block 1 joins
     ``aux_c`` aux channels, ``head=(weight [n, 48, 1, 1], bias [n])`` is a
-    1x1 conv after the last block."""
-    packed = tuple(pack_block(sd, cin0 if i == 0 else WIDTH, aux_c if i == 1 else 0)
+    1x1 conv after the last block.  ``band_fp32`` packs the fp32 mode."""
+    packed = tuple(pack_block(sd, cin0 if i == 0 else WIDTH, aux_c if i == 1 else 0,
+                              band_fp32=band_fp32)
                    for i, sd in enumerate(blocks))
     if head is None:
-        return CnxChain(packed)
+        return CnxChain(packed, band_fp32=band_fp32)
     hw, hb = head
     if hw.shape[0] > MAX_HEAD:
         raise NotImplementedError(f"head of {hw.shape[0]} outputs (at most {MAX_HEAD})")
-    return CnxChain(packed, _mat1x1(hw), hb.detach().float().contiguous())
+    wdt = torch.float32 if band_fp32 else BF16
+    return CnxChain(packed, _mat1x1(hw, wdt), hb.detach().float().contiguous(),
+                    band_fp32=band_fp32)
 
 
 # ------------------------------------------------------------------- plain
 
 
 def block_plain(blk: CnxBlock, x: torch.Tensor) -> torch.Tensor:
-    """One block in fp32 PyTorch with the kernel's rounding points; x holds
-    bf16 values [B, H, W, cin0 (+aux_c)]; returns the fp32 y."""
+    """One block in fp32 PyTorch; x [B, H, W, cin0 (+aux_c)] fp32; returns
+    the fp32 y.  bf16 mode: x holds bf16 values and the kernel's rounding
+    points are repeated (proj, LN and GELU outputs to bf16, tanh GELU).
+    fp32 mode: nothing is rounded and the GELU is the exact erf one."""
+    rnd = (lambda t: t) if blk.band_fp32 else (lambda t: t.to(BF16).float())
     if blk.proj_w is not None:
         w = torch.cat([blk.proj_w[:blk.cin0], blk.proj_w[blk.cin0_pad:]]).float()
-        x = (x @ w + blk.proj_b).to(BF16).float()
+        x = rnd(x @ w + blk.proj_b)
     taps = blk.dw_w.t().reshape(WIDTH, 1, KSIZE, KSIZE)
     d = F.conv2d(x.permute(0, 3, 1, 2), taps, blk.dw_b, padding=KSIZE // 2,
                  groups=WIDTH).permute(0, 2, 3, 1)
     u = d.mean(-1, keepdim=True)
     d = d - u
     s2 = (d * d).mean(-1, keepdim=True)
-    hn = (d * torch.rsqrt(s2 + 1e-6) * blk.ln_g + blk.ln_b).to(BF16).float()
-    h1 = F.gelu(hn @ blk.pw1.float() + blk.pw1_b, approximate="tanh").to(BF16).float()
+    hn = rnd(d * torch.rsqrt(s2 + 1e-6) * blk.ln_g + blk.ln_b)
+    h1 = rnd(F.gelu(hn @ blk.pw1.float() + blk.pw1_b,
+                    approximate="none" if blk.band_fp32 else "tanh"))
     h2 = h1 @ blk.pw2.float() + blk.pw2_b
     return x + blk.ls * h2
 
 
 def convnext_chain_plain(x, chain: CnxChain, *, aux=None, aux_channels=None, emit=(),
                          pool=(), upsample_input=False, state_out=None):
-    """Plain PyTorch version of :func:`convnext_chain`, same rounding points."""
+    """Plain PyTorch version of :func:`convnext_chain`, same rounding points
+    (none in the fp32 mode)."""
     nb = len(chain.blocks)
     emit = _default_emit(emit, pool, nb, state_out)
+    bd = chain.dtype
     h = x.float()
     if upsample_input:
-        h = upsample2x_bilinear(h, align_corners=True).to(BF16).float()
+        h = upsample2x_bilinear(h, align_corners=True).to(bd).float()
     auxw = None
     if aux is not None:
         off, n = aux_channels if aux_channels else (0, aux.shape[-1])
@@ -206,7 +276,7 @@ def convnext_chain_plain(x, chain: CnxChain, *, aux=None, aux_channels=None, emi
     for i, blk in enumerate(chain.blocks):
         inp = torch.cat([h, auxw], dim=-1) if (i == 1 and blk.aux_c) else h
         y = block_plain(blk, inp)
-        band = y.to(BF16)
+        band = y.to(bd)
         if i in emit:
             outs[i] = band
         if i in pool:
@@ -222,7 +292,7 @@ def convnext_chain_plain(x, chain: CnxChain, *, aux=None, aux_channels=None, emi
         return (state,)
     res = [outs[i] for i in emit] + [pooled[i] for i in pool]
     if head is not None:
-        res.append(head.to(BF16))
+        res.append(head.to(bd))
     return tuple(res)
 
 
@@ -236,11 +306,16 @@ def _default_emit(emit, pool, nb, state_out):
     return emit
 
 
-def _check_bf16(name, t, device):
+def _check_dtype(name, t, chain: CnxChain):
+    if t.dtype != chain.dtype:
+        mode = "fp32" if chain.band_fp32 else "bf16"
+        raise TypeError(f"convnext_chain: {name} must be {chain.dtype} for a chain in the "
+                        f"{mode} mode, got {t.dtype}")
+
+
+def _check(name, t, device):
     if not t.is_cuda or t.device != device:
         raise ValueError(f"convnext_chain: {name} must be on {device}")
-    if t.dtype != BF16:
-        raise TypeError(f"convnext_chain: {name} must be bfloat16, got {t.dtype}")
     if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16 or t.numel() == 0:
         raise ValueError(f"convnext_chain: {name} must be a contiguous, 16-byte aligned, "
                          f"non-empty [B, H, W, C] tensor, got {tuple(t.shape)}")
@@ -254,30 +329,36 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
                    aux_channels: Optional[Tuple[int, int]] = None, emit: Sequence[int] = (),
                    pool: Sequence[int] = (), upsample_input: bool = False,
                    state_out: Optional[Tuple[int, Optional[int]]] = None):
-    """Run a packed ConvNeXt chain (see :func:`pack_chain`) on NHWC bf16 x.
+    """Run a packed ConvNeXt chain (see :func:`pack_chain`) on NHWC x of the
+    chain's dtype (``chain.dtype``: bf16, or fp32 for a ``band_fp32``
+    chain; x and aux of any other dtype raise TypeError).
 
     x: [B, H, W, Cx], or [B, H/2, W/2, Cx] with ``upsample_input``.
     aux: [B, H, W, Ca] joined to block 1's input after block 0's output;
     ``aux_channels=(offset, n)`` reads a channel window of it.
-    Returns, in order: the bf16 [B, H, W, 48] output of each block in
-    ``emit`` (default: the last, unless ``pool`` or ``state_out`` is given),
-    the 2x2 max pool of each block in ``pool``, and the head's bf16
-    [B, H, W, n_head] output if the chain has one.  With
+    Returns, in order, in the chain's dtype: the [B, H, W, 48] output of
+    each block in ``emit`` (default: the last, unless ``pool`` or
+    ``state_out`` is given), the 2x2 max pool of each block in ``pool``,
+    and the head's [B, H, W, n_head] output if the chain has one.  With
     ``state_out=(n_channels, feat_off)`` it returns only ``(state,)``, a
     fresh fp32 [B, H, W, n_channels] tensor: the head in channels
     [0, n_head), the last block's fp32 output in [feat_off, feat_off + 48)
     (none if feat_off is None) and zeros between.
 
     CUDA tensors launch one kernel per block (counted in
-    ``convnext_chain.launches``); CPU tensors run
+    ``convnext_chain.launches``, and those of fp32 chains also in
+    ``convnext_chain.fp32_launches``); CPU tensors run
     :func:`convnext_chain_plain`.
     """
+    _check_dtype("x", x, chain)
+    if aux is not None:
+        _check_dtype("aux", aux, chain)
     if x.device.type == "cpu":
         return convnext_chain_plain(x, chain, aux=aux, aux_channels=aux_channels, emit=emit,
                                     pool=pool, upsample_input=upsample_input,
                                     state_out=state_out)
     dev = x.device
-    _check_bf16("x", x, dev)
+    _check("x", x, dev)
     nb = len(chain.blocks)
     emit, pool = _default_emit(emit, pool, nb, state_out), tuple(pool)
     if not set(emit) | set(pool) <= set(range(nb)):
@@ -290,7 +371,7 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
     if nb > 1 and chain.blocks[1].aux_c:
         if aux is None:
             raise ValueError("convnext_chain: block 1 reads aux channels but aux is None")
-        _check_bf16("aux", aux, dev)
+        _check("aux", aux, dev)
         aux_off, n = aux_channels if aux_channels else (0, aux.shape[-1])
         aux_stride = aux.shape[-1]
         if tuple(aux.shape[:3]) != (b, hh, ww) or n != chain.blocks[1].aux_c \
@@ -317,18 +398,19 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
+    bd = chain.dtype
     cur, ch, cw = x, hx, wx
     outs, pooled = {}, {}
     head_out = None
     for i, blk in enumerate(chain.blocks):
         last = i == nb - 1
-        out = (torch.empty(b, hh, ww, WIDTH, dtype=BF16, device=dev)
+        out = (torch.empty(b, hh, ww, WIDTH, dtype=bd, device=dev)
                if (not last or i in emit) else None)
-        pl = (torch.empty(b, hh // 2, ww // 2, WIDTH, dtype=BF16, device=dev)
+        pl = (torch.empty(b, hh // 2, ww // 2, WIDTH, dtype=bd, device=dev)
               if i in pool else None)
         head = last and chain.head_w is not None
         if head and state is None:
-            head_out = torch.empty(b, hh, ww, chain.n_head, dtype=BF16, device=dev)
+            head_out = torch.empty(b, hh, ww, chain.n_head, dtype=bd, device=dev)
         use_aux = i == 1 and blk.aux_c > 0
         rc = fn(cur.data_ptr(), cur.shape[-1], ch, cw, int(i == 0 and upsample_input),
                 aux.data_ptr() if use_aux else None, blk.aux_c if use_aux else 0,
@@ -340,8 +422,10 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
                 _ptr(chain.head_w) if head else None, _ptr(chain.head_b) if head else None,
                 chain.n_head if head else 0,
                 b, hh, ww, _ptr(out), _ptr(pl), _ptr(head_out) if head else None,
-                _ptr(state) if last else None, n_state, feat_off, stream)
+                _ptr(state) if last else None, n_state, feat_off, int(chain.band_fp32),
+                stream)
         convnext_chain.launches += 1
+        convnext_chain.fp32_launches += chain.band_fp32
         _build.check(lib, rc, f"convnext_chain block {i}")
         if i in emit:
             outs[i] = out
@@ -357,3 +441,4 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
 
 
 convnext_chain.launches = 0
+convnext_chain.fp32_launches = 0

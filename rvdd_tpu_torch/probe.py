@@ -16,7 +16,7 @@ single launches at 1080p:
   (with a streamed layer's per-tap waits), the epilogue with the next
   tile's staging;
 - ``convnext_chain``: a plain block, a proj block (96 input channels) and
-  an upsample block; phases: the halo tile (staging, projection or
+  an upsample block, each in the bf16 and the fp32 mode; phases: the halo tile (staging, projection or
   interpolation), the depthwise and LayerNorm, the 1x1 products with the
   GELU and the epilogue;
 - ``warp_bicubic``: the 56-channel fp32 state to bf16 (the wide kernel),
@@ -145,15 +145,21 @@ def cnx_cases(dev, gen):
             d["proj.bias"] = rnd(48, scale=0.1)
         return d
 
-    x = torch.randn(1, H, W, 48, device=dev, generator=gen).to(torch.bfloat16)
-    x96 = torch.randn(1, H, W, 96, device=dev, generator=gen).to(torch.bfloat16)
-    xh = torch.randn(1, H // 2, W // 2, 48, device=dev, generator=gen).to(torch.bfloat16)
-    plain, proj = cx.pack_chain([sd(48)], 48), cx.pack_chain([sd(96)], 96)
-    return [
-        ("plain block", lambda: cx.convnext_chain(x, plain)),
-        ("proj block (96 -> 48)", lambda: cx.convnext_chain(x96, proj)),
-        ("upsample block", lambda: cx.convnext_chain(xh, plain, upsample_input=True)),
-    ]
+    cases = []
+    for fp32 in (False, True):
+        dt, tag = (torch.float32, ", fp32") if fp32 else (torch.bfloat16, "")
+        x = torch.randn(1, H, W, 48, device=dev, generator=gen).to(dt)
+        x96 = torch.randn(1, H, W, 96, device=dev, generator=gen).to(dt)
+        xh = torch.randn(1, H // 2, W // 2, 48, device=dev, generator=gen).to(dt)
+        plain = cx.pack_chain([sd(48)], 48, band_fp32=fp32)
+        proj = cx.pack_chain([sd(96)], 96, band_fp32=fp32)
+        cases += [
+            (f"plain block{tag}", lambda x=x, c=plain: cx.convnext_chain(x, c)),
+            (f"proj block (96 -> 48){tag}", lambda x=x96, c=proj: cx.convnext_chain(x, c)),
+            (f"upsample block{tag}",
+             lambda x=xh, c=plain: cx.convnext_chain(x, c, upsample_input=True)),
+        ]
+    return cases
 
 
 def warp_cases(dev, gen):

@@ -20,9 +20,10 @@ Two step implementations, chosen by ``EngineConfig.net_impl``:
   ConvUNet, seven ``convnext_chain`` chains for ConvNeXtUNet), whose last
   one writes the next state.  With ``future_patch_depth=1`` the future frame is warped by the
   same CUDA warp and joins the net input.  ``fused_precision`` picks the
-  chains' numerics (models/fast_unet.py:FUSED_PRECISIONS, ConvUNet; the
-  ConvNeXt path takes 'fast'); the warps and the frame inputs run in its
-  glue dtype (bf16, or fp32 where the preset names 'glue').
+  chains' numerics from the presets of the net's family
+  (models/fast_unet.py:FUSED_PRECISIONS for ConvUNet,
+  models/fast_convnext.py:CNX_PRECISIONS for ConvNeXtUNet); the warps and
+  the frame inputs run in its glue dtype (bf16, or fp32).
 
 Online flow: ``compute_window_flows`` computes a window's flows on the
 device with the TV-L1 solver (ops/tvl1.py; on CUDA tensors its warp is
@@ -45,6 +46,7 @@ import torch
 
 from rvdd_tpu_torch.models.convnext_unet import ConvNeXtUNet
 from rvdd_tpu_torch.models.fast_convnext import (
+    cnx_precision,
     fast_forward_cnx,
     pack_fast_cnx,
     supports_fast_path_cnx,
@@ -86,8 +88,9 @@ class EngineConfig:
     state_dtype: str = "float32"
     #: 'module' (the net's forward) or 'fused' (the CUDA chains)
     net_impl: str = "module"
-    #: fused-path preset (models/fast_unet.py:FUSED_PRECISIONS or
-    #: 'hybrid:<chains>'; the ConvNeXt fused path takes 'fast' only)
+    #: fused-path preset of the net's family (ConvUNet:
+    #: models/fast_unet.py:FUSED_PRECISIONS or 'hybrid:<chains>'; ConvNeXtUNet:
+    #: models/fast_convnext.py:CNX_PRECISIONS)
     fused_precision: str = "fast"
 
     @property
@@ -145,7 +148,9 @@ def _state_dtype(cfg: EngineConfig):
     return torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
 
 
-def _check_fused(cfg: EngineConfig) -> None:
+def _check_fused(cfg: EngineConfig, net=None) -> None:
+    """The fused path's knobs, and the preset against the presets of the
+    net's family (ConvUNet's where no net is given)."""
     bad = {
         "model_patch_depth != 2": cfg.d != 1,
         "no_warp": cfg.no_warp,
@@ -158,14 +163,16 @@ def _check_fused(cfg: EngineConfig) -> None:
     what = [k for k, v in bad.items() if v]
     if what:
         raise NotImplementedError(f"net_impl='fused' does not support {what} yet (ROADMAP.md)")
-    get_fused_precision(cfg.fused_precision)
+    _fused_glue_dtype(cfg, net)
 
 
 def _fused_glue_dtype(cfg: EngineConfig, net) -> torch.dtype:
     """The dtype of the warped state window, the current frame and the
-    warped future frames (rvdd_tpu/recurrent/engine.py:215-218)."""
+    warped future frames under the net family's preset
+    (rvdd_tpu/recurrent/engine.py:215-218); raises for a preset the family
+    does not have."""
     if isinstance(net, ConvNeXtUNet):
-        return torch.bfloat16  # its one preset, 'fast'
+        return cnx_precision(cfg.fused_precision)["glue"]
     return glue_dtype(get_fused_precision(cfg.fused_precision))
 
 
@@ -173,10 +180,13 @@ def _fused_state_c(cfg: EngineConfig) -> int:
     return STATE_FEAT_OFF + (STATE_FEAT if cfg.feature_rec else 0)
 
 
-def init_state(cfg: EngineConfig, frames: torch.Tensor, nil_feat=None) -> RecurrentState:
-    """Initial recurrence: the previous noisy frame(s) and zero features."""
+def init_state(cfg: EngineConfig, frames: torch.Tensor, nil_feat=None,
+               net=None) -> RecurrentState:
+    """Initial recurrence: the previous noisy frame(s) and zero features.
+    The fused path checks its preset against the family of ``net``
+    (ConvUNet's presets where no net is given)."""
     if cfg.net_impl == "fused":
-        _check_fused(cfg)
+        _check_fused(cfg, net)
         f0 = frames[:, 0].float()
         b, h, w, _ = f0.shape
         state = torch.zeros(b, h, w, _fused_state_c(cfg), dtype=torch.float32,
@@ -261,8 +271,9 @@ def _fused_step(cfg, net, state, cur, future, flows, packed):
     frame (rounded to the glue dtype, warped to it), feed
     [warped den | cur | warped future] and the warped features to the
     chains, whose dec2 chain writes the next state from its fp32 values.
-    The glue dtype is bf16, or fp32 under a preset that names 'glue'."""
-    _check_fused(cfg)
+    The glue dtype is the preset's: bf16, or fp32 (ConvUNet: where the
+    preset names 'glue'; ConvNeXtUNet: under 'mixed' and 'accurate')."""
+    _check_fused(cfg, net)
     if flows is None:
         raise NotImplementedError("net_impl='fused' needs flows")
     b, h, w, _ = cur.shape
@@ -295,7 +306,7 @@ def inference_step(cfg: EngineConfig, net, state: Optional[RecurrentState],
     from the noisy previous frames and zero features)."""
     d = cfg.d
     if state is None:
-        state = init_state(cfg, frames, nil_feat)
+        state = init_state(cfg, frames, nil_feat, net)
     cur = frames[:, d]
     future = frames[:, d + 1:] if cfg.future_patch_depth else None
     with torch.no_grad():

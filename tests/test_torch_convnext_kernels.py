@@ -4,8 +4,9 @@ version.
 
 On the CPU the wrapper runs ``convnext_chain_plain``, which is held against
 ``fused_convnext_chain`` in interpret mode, in the production depthwise
-configuration (``dw_impl='mxu2', dw_group=8``, tanh GELU, bf16 bands) at
-16x40 with 8-row tiles.  The tests marked ``gpu`` launch the CUDA kernel and
+configuration (``dw_impl='mxu2', dw_group=8``) at 16x40 with 8-row tiles,
+in both modes: bf16 (tanh GELU, bf16 bands) and fp32 (``band_dtype=float32,
+mxu_precision='highest', gelu_exact=True``).  The tests marked ``gpu`` launch the CUDA kernel and
 hold it against the plain version; they skip without a card.  Block
 parameters are drawn with numpy, given to rvdd_tpu as flax params and to the
 port through models/convert.py.
@@ -25,6 +26,7 @@ from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
     convnext_chain_plain,
     pack_block,
     pack_chain,
+    split3,
 )
 from rvdd_tpu_torch.ops.resize import upsample2x_bilinear  # noqa: E402
 
@@ -89,11 +91,14 @@ def block_params(rng, cin):
     return p
 
 
-def make_case(case, seed=0, h=H, w=W, batch=1):
+def make_case(case, seed=0, h=H, w=W, batch=1, fp32=False):
+    """(x, aux, block params, head) from numpy seed ``seed``; x and aux
+    hold bf16 values unless ``fp32``."""
     rng = np.random.default_rng(seed)
+    rnd = (lambda a: a.astype(np.float32)) if fp32 else _bf16
     hx, wx = (h // 2, w // 2) if case.get("upsample") else (h, w)
-    x = _bf16(rng.standard_normal((batch, hx, wx, case["cin"])))
-    aux = _bf16(rng.standard_normal((batch, h, w, case["aux"][0]))) if "aux" in case else None
+    x = rnd(rng.standard_normal((batch, hx, wx, case["cin"])))
+    aux = rnd(rng.standard_normal((batch, h, w, case["aux"][0]))) if "aux" in case else None
     cins = [case["cin"]] + [96 if (j == 1 and "aux" in case) else 48 for j in range(1, case["n"])]
     blocks = [block_params(rng, c) for c in cins]
     head = None
@@ -103,29 +108,33 @@ def make_case(case, seed=0, h=H, w=W, batch=1):
     return x, aux, blocks, head
 
 
-def run_port(case, x, aux, blocks, head, device, plain=False):
+def run_port(case, x, aux, blocks, head, device, plain=False, fp32=False):
+    """The port's chain (``fp32``: in the fp32 mode) on the case; x and aux
+    are given in the chain's dtype."""
     sds = [{k: v.to(device) for k, v in convnext_from_flax(p).items()} for p in blocks]
     hd = None
     if head is not None:
         hd = (torch.from_numpy(head[0])[:, :, None, None].to(device),
               torch.from_numpy(head[1]).to(device))
-    chain = pack_chain(sds, case["cin"], aux_c=case["aux"][2] if "aux" in case else 0, head=hd)
+    chain = pack_chain(sds, case["cin"], aux_c=case["aux"][2] if "aux" in case else 0, head=hd,
+                       band_fp32=fp32)
     kw = dict(emit=case.get("emit", ()), pool=case.get("pool", ()),
               upsample_input=case.get("upsample", False), state_out=case.get("state"))
     if aux is not None:
-        kw["aux"] = torch.from_numpy(aux).to(device).to(BF16)
+        kw["aux"] = torch.from_numpy(aux).to(device).to(chain.dtype)
         kw["aux_channels"] = case["aux"][1:]
     fn = convnext_chain_plain if plain else convnext_chain
-    outs = fn(torch.from_numpy(x).to(device).to(BF16), chain, **kw)
+    outs = fn(torch.from_numpy(x).to(device).to(chain.dtype), chain, **kw)
     return [o.float().cpu().numpy() for o in outs]
 
 
-def _planar(jnp, x, wl):
-    """[1, H, W, C] numpy -> [(H*C), WL] bf16 (zero lanes >= W)."""
+def _planar(jnp, x, wl, dtype=None):
+    """[1, H, W, C] numpy -> [(H*C), WL] of ``dtype`` (bf16 by default),
+    zero lanes >= W."""
     _, h, w, c = x.shape
     p = np.zeros((h, c, wl), np.float32)
     p[:, :, :w] = x[0].transpose(0, 2, 1)
-    return jnp.asarray(p.reshape(h * c, wl)).astype(jnp.bfloat16)
+    return jnp.asarray(p.reshape(h * c, wl)).astype(dtype or jnp.bfloat16)
 
 
 def _unplanar(p, h, w, c=None):
@@ -134,10 +143,13 @@ def _unplanar(p, h, w, c=None):
     return p[..., :c] if c else p
 
 
-def run_tpu(tpu, case, x, aux, blocks, head, h=H, w=W):
+def run_tpu(tpu, case, x, aux, blocks, head, h=H, w=W, fp32=False):
     """rvdd_tpu's fused_convnext_chain (interpret mode, production dw
-    engine) plus its lane upsample glue."""
+    engine) plus its lane upsample glue; ``fp32``: fp32 bands, HIGHEST
+    products and the erf GELU (its 'mixed'/'accurate' chains) on fp32
+    input."""
     jnp = tpu.jnp
+    dt = jnp.float32 if fp32 else jnp.bfloat16
     wl = -(-(w + 1) // 128) * 128
     packed, hps = [], []
     cins = [case["cin"]] + [96 if (j == 1 and "aux" in case) else 48 for j in range(1, case["n"])]
@@ -146,16 +158,19 @@ def run_tpu(tpu, case, x, aux, blocks, head, h=H, w=W):
         packed.append(tuple(arrs))
         hps.append(hp)
     if case.get("upsample"):
-        xp = tpu.fc.lane_resize2x_ac(_planar(jnp, x, wl // 2), w // 2)
+        xp = tpu.fc.lane_resize2x_ac(_planar(jnp, x, wl // 2, dt), w // 2, dt)
     else:
-        xp = _planar(jnp, x, wl)
+        xp = _planar(jnp, x, wl, dt)
     # 8-row tiles; a 3-block chain's 9-row halo needs the whole height
     tile_h = 8 if 3 * case["n"] < 8 else h
     kw = dict(h_img=h, w_img=w, tile_h=tile_h, interpret=True,
               upsample_input=case.get("upsample", False), dw_impl="mxu2", dw_rows=12,
               dw_group=8)
+    if fp32:
+        kw.update(band_dtype=jnp.float32, mxu_precision="highest", gelu_exact=True,
+                  out_dtype=jnp.float32)
     if aux is not None:
-        kw["aux"] = _planar(jnp, aux, wl)
+        kw["aux"] = _planar(jnp, aux, wl, dt)
         kw["aux_channels"] = case["aux"][1:]
     if head is not None:
         hw = np.zeros((8, 48), np.float32)
@@ -164,8 +179,9 @@ def run_tpu(tpu, case, x, aux, blocks, head, h=H, w=W):
         kw["tail"], kw["tail_couts"] = ((jnp.asarray(hw), jnp.asarray(hb)),), (8,)
     if "state" in case:
         pad_l = tpu.warp.STATE_PAD_LEFT
+        kw["out_dtype"] = jnp.float32
         (st,) = tpu.cnx.fused_convnext_chain(
-            xp, tuple(packed), tuple(hps), emit=(case["n"] - 1,), out_dtype=jnp.float32,
+            xp, tuple(packed), tuple(hps), emit=(case["n"] - 1,),
             combine=(case["state"][0], pad_l, wl + tpu.warp.STATE_LANE_EXTRA), **kw)
         return [np.asarray(st, np.float32)[:, :, pad_l:pad_l + w].transpose(0, 2, 1)[None]]
     emit = case.get("emit", (case["n"] - 1,))
@@ -205,6 +221,96 @@ def test_convnext_chain_plain_matches_fused_convnext_chain(tpu, name):
     if "state" in case:
         st = got[0]
         assert not st[..., case["head"]:8].any()
+
+
+_FP32_REF = {}
+
+
+def fp32_reference(tpu, name):
+    """(case inputs, rvdd_tpu's fp32-mode outputs) of a case, computed once
+    for the module."""
+    if name not in _FP32_REF:
+        case = CASES[name]
+        inputs = make_case(case, fp32=True)
+        _FP32_REF[name] = inputs, run_tpu(tpu, case, *inputs, fp32=True)
+    return _FP32_REF[name]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_convnext_chain_plain_fp32_matches_fused_convnext_chain(tpu, name):
+    """The fp32 mode's plain version (fp32 bands, taps and weights, exact
+    erf GELU, nothing rounded) against rvdd_tpu's fused_convnext_chain with
+    band_dtype=float32, mxu_precision='highest' and gelu_exact=True on the
+    same fp32 input: max error below 1e-5 x std, mean below 1e-6 x std
+    (measured 0.5e-6 to 1.4e-6 max and 0.4e-7 to 1.3e-7 mean: fp32 sums in
+    other orders, the Pallas kernel's polynomial erf, 1.5e-7 abs, and its
+    depthwise as dots).  Both sides upsample in fp32, so an upsampled input
+    has no exception here."""
+    case = CASES[name]
+    (x, aux, blocks, head), want = fp32_reference(tpu, name)
+    got = run_port(case, x, aux, blocks, head, "cpu", fp32=True)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape, (g.shape, wv.shape)
+        assert _norm_err(g, wv) < 1e-5, (name, _norm_err(g, wv))
+        assert np.mean(np.abs(g - wv)) < 1e-6 * np.std(wv), name
+
+
+def test_fp32_mode_far_closer_than_bf16(tpu):
+    """On the same inputs (rounded to bf16 for the bf16 chain), the fp32
+    mode is at least 1000x closer to rvdd_tpu's fp32 chain than the bf16
+    mode (measured: 8e-7 against 2.2e-2 to 2.7e-2)."""
+    case = CASES["aux_tail"]
+    (x, aux, blocks, head), want = fp32_reference(tpu, "aux_tail")
+    got = run_port(case, x, aux, blocks, head, "cpu", fp32=True)
+    bf = run_port(case, _bf16(x), _bf16(aux), blocks, head, "cpu")
+    for g, b, wv in zip(got, bf, want):
+        assert _norm_err(b, wv) > 1000 * _norm_err(g, wv), (_norm_err(b, wv), _norm_err(g, wv))
+
+
+def test_split3_is_exact():
+    """split3 gives three bf16 planes that sum back to every fp32 value bit
+    for bit (hi + mid + lo, in that order, in fp32; -0 comes back as +0):
+    random values over many binades, signs, zeros, powers of two and values
+    with all 24 mantissa bits set.  The kernel splits its activations with the same
+    masks in registers, and its weights come from this function."""
+    rng = np.random.default_rng(21)
+    vals = np.concatenate([
+        rng.standard_normal(4096) * np.exp2(rng.integers(-60, 60, 4096)),
+        [0.0, -0.0, 1.0, -2.0, 2.0 ** -100, 3.0 ** 20],
+        np.float32(1 + (2 ** 23 - 1) * 2.0 ** -23) * np.exp2(np.arange(-20, 20)),
+    ]).astype(np.float32)
+    w = torch.from_numpy(vals)
+    hi, mid, lo = split3(w)
+    assert hi.dtype == mid.dtype == lo.dtype == BF16
+    back = (hi.float() + mid.float()) + lo.float()
+    nz = w != 0
+    assert torch.equal(back[nz].view(torch.int32), w[nz].view(torch.int32))
+    assert not back[~nz].any()
+    # each plane carries at most 8 significant bits: none is rounded
+    for p in (hi, mid, lo):
+        assert torch.equal(p.float().to(BF16).float(), p.float())
+
+
+@pytest.mark.parametrize("name", ["no_proj", "proj9", "proj48_aux48"])
+def test_packed_fp32_block_gives_back_the_fp32_matrices(name):
+    """In the fp32 mode the packed hi, mid and lo planes of proj, pw1 and
+    pw2 unpack and sum to the block's fp32 matrices bit for bit, and the
+    taps are not rounded."""
+    cin0, aux_c = PACK_BLOCKS[name]
+    rng = np.random.default_rng(13)
+    sd = convnext_from_flax(block_params(rng, cin0 + aux_c))
+    blk = pack_block(sd, cin0, aux_c, band_fp32=True)
+    assert blk.band_fp32 and blk.pw1.dtype == torch.float32
+    assert tuple(blk.pw1_pack.shape) == (3, 6, 192, 8) and blk.pw1_pack.dtype == BF16
+    assert tuple(blk.pw2_pack.shape) == (3, 24, 48, 8)
+    mats = block_mats_from_pack(blk)
+    assert torch.equal(mats["pw1"], sd["pw1.weight"][:, :, 0, 0].t())
+    assert torch.equal(mats["pw2"], sd["pw2.weight"][:, :, 0, 0].t())
+    assert torch.equal(blk.dw_w, sd["dw.weight"].reshape(48, 49).t())
+    if cin0 + aux_c != 48:
+        assert tuple(blk.proj_pack.shape) == (3, (blk.cin0_pad + aux_c) // 8, 48, 8)
+        assert torch.equal(mats["proj"], sd["proj.weight"][:, :, 0, 0].t())
 
 
 def test_upsample_rounding_difference(tpu):
@@ -329,6 +435,54 @@ def test_convnext_chain_kernel_ragged_batch2(cuda, name, w):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("w", [72, 200])
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_convnext_chain_fp32_kernel_matches_plain(cuda, name, w):
+    """The fp32 mode on the card (three-plane split, six bf16 wgmma a
+    k-step, erf GELU, fp32 bands) against its plain fp32 version (TF32 off)
+    on every card case, batch 2, at ragged sizes: max error at most 2^-14
+    of max|out| and mean below 1e-5 x std.  The two differ by the products
+    the split drops (about 2^-24 relative), fp32 sums in other orders and
+    erff against torch's erf; the kernel launches once a block, counted in
+    fp32_launches."""
+    case = CARD_CASES[name]
+    h = 22 if w == 72 else 26
+    x, aux, blocks, head = make_case(case, seed=7, h=h, w=w, batch=2, fp32=True)
+    before = convnext_chain.launches, convnext_chain.fp32_launches
+    got = run_port(case, x, aux, blocks, head, cuda, fp32=True)
+    assert (convnext_chain.launches, convnext_chain.fp32_launches) == (
+        before[0] + case["n"], before[1] + case["n"])
+    want = run_port(case, x, aux, blocks, head, cuda, plain=True, fp32=True)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == 2
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -14 * float(np.max(np.abs(wv))), (name, w, err)
+        assert np.mean(np.abs(g - wv)) < 1e-5 * np.std(wv), (name, w)
+
+
+@pytest.mark.parametrize("fp32", [False, True])
+def test_convnext_chain_takes_its_own_dtype_only(fp32):
+    """A chain takes x and aux of its own dtype only: an fp32 chain given
+    bf16 raises TypeError, and a bf16 chain given fp32; nothing is cast
+    quietly, on the CPU as on the card (the check comes first)."""
+    case = CASES["aux_tail"]
+    x, aux, blocks, _ = make_case(case)
+    sds = [convnext_from_flax(p) for p in blocks]
+    chain = pack_chain(sds, 16, aux_c=48, band_fp32=fp32)
+    wrong = BF16 if fp32 else torch.float32
+    xt, auxt = torch.from_numpy(x), torch.from_numpy(aux)
+    with pytest.raises(TypeError):
+        convnext_chain(xt.to(wrong), chain, aux=auxt.to(chain.dtype), aux_channels=(8, 48))
+    with pytest.raises(TypeError):
+        convnext_chain(xt.to(chain.dtype), chain, aux=auxt.to(wrong), aux_channels=(8, 48))
+    (out,) = convnext_chain(xt.to(chain.dtype), chain, aux=auxt.to(chain.dtype),
+                            aux_channels=(8, 48))
+    assert out.dtype == chain.dtype
+
+
+@pytest.mark.gpu
 def test_convnext_chain_kernel_rejects_bad_input(cuda):
     case = CASES["aux_tail"]
     x, aux, blocks, head = make_case(case)
@@ -344,6 +498,11 @@ def test_convnext_chain_kernel_rejects_bad_input(cuda):
         convnext_chain(xt.to(BF16), chain)  # block 1 needs aux
     with pytest.raises(ValueError):
         convnext_chain(xt.to(BF16), chain, aux=auxt, aux_channels=(16, 48))  # window overruns
+    fp32_chain = pack_chain(sds, 16, aux_c=48, band_fp32=True)
+    with pytest.raises(TypeError):
+        convnext_chain(xt.to(BF16), fp32_chain, aux=auxt, aux_channels=(8, 48))  # bf16, not fp32
+    with pytest.raises(TypeError):
+        convnext_chain(xt, fp32_chain, aux=auxt, aux_channels=(8, 48))  # aux bf16
 
 
 @pytest.mark.gpu
@@ -374,3 +533,36 @@ def test_fused_flagship_steps_on_card_match_plain_versions(cuda, batch):
     for got, want, lim in zip(outs["cuda"], outs["cpu"], (0.2, 0.3)):
         assert np.isfinite(got).all()
         assert _norm_err(got, want) < lim, _norm_err(got, want)
+
+
+@pytest.mark.gpu
+def test_mixed_flagship_steps_on_card_match_plain_versions(cuda):
+    """Two fused flagship steps under 'mixed' with the CUDA kernels (every
+    chain in the fp32 mode, fp32 warps) against the same steps on the CPU,
+    where the wrappers run their plain fp32 versions: normalized max error
+    below 1e-4 at both steps (fp32 sums in other orders, the products the
+    split drops and erff against torch's erf, carried over 25 blocks and
+    two steps)."""
+    from rvdd_tpu_torch.models import build_network
+    from rvdd_tpu_torch.recurrent import engine
+
+    rng = np.random.default_rng(8)
+    h, w = 72, 80
+    frames = rng.uniform(-1, 1, (1, 3, h, w, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    fl = np.stack([2.5 + np.sin(xx / 9), -1.5 + np.cos(yy / 7)], -1)
+    flows = np.stack([fl, -fl])[None].astype(np.float32)
+    cfg = engine.EngineConfig(model_patch_depth=2, future_patch_depth=1, feature_rec=True,
+                              net_impl="fused", fused_precision="mixed")
+    outs = {}
+    for dev in ("cpu", cuda):
+        net = build_network("newunet-mode=feat", 9, 3, seed=5, device=dev)
+        fr, fl = torch.from_numpy(frames).to(dev), torch.from_numpy(flows).to(dev)
+        before = convnext_chain.fp32_launches
+        d1, s = engine.inference_step(cfg, net, None, fr, fl)
+        d2, _ = engine.inference_step(cfg, net, s, fr, fl)
+        assert convnext_chain.fp32_launches - before == (50 if dev == cuda else 0)
+        outs[str(dev)] = (d1.cpu().numpy(), d2.cpu().numpy())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert np.isfinite(got).all()
+        assert _norm_err(got, want) < 1e-4, _norm_err(got, want)

@@ -18,7 +18,7 @@ from rvdd_tpu.recurrent import engine as jengine  # noqa: E402
 from rvdd_tpu_torch.models import build_network  # noqa: E402
 from rvdd_tpu_torch.models import fast_unet as fu  # noqa: E402
 from rvdd_tpu_torch.models.convert import convunet_from_flax  # noqa: E402
-from rvdd_tpu_torch.models.fast_convnext import check_precision  # noqa: E402
+from rvdd_tpu_torch.models import fast_convnext as fcx  # noqa: E402
 from rvdd_tpu_torch.recurrent import engine  # noqa: E402
 
 H = W = 32
@@ -107,15 +107,53 @@ def test_unported_presets_raise(name):
 
 
 def test_convnext_fused_path_takes_fast_only():
-    """rvdd_tpu's ConvNeXt 'mixed' and 'accurate' need the erf GELU and
-    fp32 bands in convnext_chain (not ported: NotImplementedError); a
-    hybrid names ConvUNet chains (ValueError, as rvdd_tpu)."""
-    check_precision("fast")
-    for name in ("mixed", "accurate", "wsplit"):
-        with pytest.raises(NotImplementedError):
-            check_precision(name)
-    with pytest.raises(ValueError):
-        check_precision("hybrid:glue+A+dec2")
+    """The ConvNeXt fused path takes its own five presets, no longer 'fast'
+    alone: fast, mixed, accurate, wsplit and wf32 resolve; a hybrid names
+    ConvUNet chains and raises ValueError (as rvdd_tpu's
+    fast_forward_planar_cnx does), and so does an unknown name, at every
+    entry (the preset table, the packing, the engine)."""
+    assert set(fcx.CNX_PRECISIONS) == {"fast", "mixed", "accurate", "wsplit", "wf32"}
+    for name in fcx.CNX_PRECISIONS:
+        fcx.cnx_precision(name)
+    net = build_network("newunet-mode=feat", IN_NC, 3, device="cpu")
+    for bad in ("hybrid:glue+A+dec2", "nopreset"):
+        with pytest.raises(ValueError):
+            fcx.cnx_precision(bad)
+        with pytest.raises(ValueError):
+            fcx.pack_fast_cnx(net, True, IN_NC, bad)
+        cfg = engine.EngineConfig(feature_rec=True, future_patch_depth=FD, net_impl="fused",
+                                  fused_precision=bad)
+        with pytest.raises(ValueError):
+            engine.init_state(cfg, torch.zeros(1, 3, 64, 64, 3), net=net)
+
+
+@pytest.mark.parametrize("name", ["fast", "mixed", "accurate", "wsplit", "wf32"])
+def test_convnext_presets_match_rvdd_tpu(name):
+    """Each ConvNeXt preset runs the chains that rvdd_tpu's code paths run
+    in fp32, with its glue dtype: the six row-tiled chains follow the
+    preset's band dtype (fast_forward_planar_cnx, with 'high' mapped to
+    'highest' and the erf GELU where the bands are fp32); the eighth-res
+    core ('mid') is fp32 for every preset but 'fast' (_middle8_cnx_body);
+    the glue is glue_dtype's.  The engine's glue dtype for the ConvNeXt
+    net is the preset's."""
+    prec = jfu.get_fused_precision(name)
+    chains_fp32 = prec["band_dtype"] == jax.numpy.float32
+    assert prec["gelu_exact"] == chains_fp32
+    if chains_fp32:
+        assert prec["mxu_precision"] in ("high", "highest")  # both run 'highest' in _chain
+    want = {c for c in fcx.CNX_CHAINS if c != "mid" and chains_fp32}
+    if name != "fast":
+        want.add("mid")
+    got = fcx.cnx_precision(name)
+    assert set(got["fp32"]) == want
+    jglue = jfu.glue_dtype(prec) == jax.numpy.float32
+    assert (got["glue"] == torch.float32) == jglue
+    net = build_network("newunet-mode=feat", IN_NC, 3, device="cpu")
+    cfg = engine.EngineConfig(feature_rec=True, future_patch_depth=FD, net_impl="fused",
+                              fused_precision=name)
+    assert engine._fused_glue_dtype(cfg, net) == got["glue"]
+    packed = fcx.pack_fast_cnx(net, True, IN_NC, name)
+    assert {c for c in fcx.CNX_CHAINS if packed[c].band_fp32} == want
 
 
 def test_pack_marks_each_chain():
