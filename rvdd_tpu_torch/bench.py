@@ -359,10 +359,10 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=960, help="raw (half-res) width")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--precision", default="auto",
-                    help="fused-path preset of the model's family (convunet: fast, mixed, wsplit "
-                         "or hybrid:<chain>+...; convnext: fast, mixed, accurate, wsplit or "
-                         "wf32); auto: hybrid:glue+A+dec2 for convunet+feat+future, fast for "
-                         "the others")
+                    help="fused-path preset of the model's family (convunet: fast, mixed, "
+                         "accurate, wsplit, wf32 or hybrid:<chain>+...; convnext: fast, mixed, "
+                         "accurate, wsplit or wf32); auto: hybrid:glue+A+dec2 for "
+                         "convunet+feat+future, fast for the others")
     ap.add_argument("--with_flow", action="store_true",
                     help="self-contained mode: compute TV-L1 flows on the card every frame")
     ap.add_argument("--fast_flow", action="store_true",

@@ -21,8 +21,9 @@
 //     zero-fills the pad channels that follow it;
 //   * weight split: the layer runs a second product with the lo half of
 //     the weights (w = hi + lo, hi by mantissa masking) into the same fp32
-//     accumulator.
-// Two numerics, a launch argument each:
+//     accumulator (three planes, hi + mid + lo, for fp32 weights).
+// Four numerics, a launch argument each (the chain's, fixed when the
+// wrapper packs it):
 //   * rvdd_tpu's 'fast' bands: bf16 activations and weights, fp32
 //     accumulation, fp32 bias; every band (layer output) is stored as bf16;
 //   * fp32 bands with bf16_3x products (band_dtype=float32 with
@@ -34,11 +35,33 @@
 //     every layer's weights are split, and each k-step issues three wgmma
 //     into one accumulator, w_hi a_hi + w_hi a_lo + w_lo a_hi (the lo lo
 //     term, about 2^-16 relative, is dropped as on the TPU).  TF32 wgmma
-//     would keep 10 mantissa bits against about 16 here.
+//     would keep 10 mantissa bits against about 16 here;
+//   * fp32 bands with HIGHEST products (band_dtype=float32,
+//     mxu_precision='highest', fp32 weights: rvdd_tpu's 'accurate',
+//     conv_pallas.py:288-304): staging splits each fp32 value into three
+//     bf16 planes, hi + mid + lo = v exactly (hi and mid by mantissa masks,
+//     lo the rest, at most 8 significant bits), the weights are packed as
+//     three such planes, and each k-step issues six wgmma: hi.hi, hi.mid,
+//     mid.hi, hi.lo, mid.mid and lo.hi, the terms HIGHEST keeps (the three
+//     dropped ones are below 2^-24 of the product), as convnext_chain.cu's
+//     fp32 mode does;
+//   * bf16 bands with fp32 weights (weight_dtype=float32 at 'highest',
+//     rvdd_tpu's 'wf32', conv_pallas.py:295-296): the tile is staged as in
+//     the bf16 modes, the weights are three planes, and each k-step issues
+//     three wgmma, w_hi a + w_mid a + w_lo a, exact in the weights (a is
+//     bf16) up to the fp32 sums' order.
+// The mode is a template parameter of the kernel: a branch between wgmma
+// makes ptxas serialize them.  Why the tile is split in shared memory and
+// not in registers (wgmma's register-A form): a tap is a descriptor offset
+// into the staged planes, so the split runs once per staged value, where
+// register A fragments would be split once per tap (nine times for a 3x3);
+// and the three planes still fit beside a layer's weights (see below).
 //
 // What bounds it on the H100: operations.  The six chains of a 1080p frame
 // need about 1.07 TFLOP (with dec2's split layers): about 1.0 ms at the
-// 989 TFLOP/s bf16 dense peak, against about 0.3 ms for their bytes.  The
+// 989 TFLOP/s bf16 dense peak, against about 0.3 ms for their bytes.  With
+// fp32 weights their 0.98 TFLOP count three bf16 products each (about 3.0
+// ms) and in the HIGHEST mode six (about 5.9 ms).  The
 // layer is a GEMM of M = pixels, N = cout_pad (48, 16 for the head), K =
 // ks^2 * (cin0_pad + aux_c) (144 to 864).  The design:
 //   * a persistent CTA of two or three warpgroups keeps the layer's whole
@@ -55,12 +78,13 @@
 //     channels], so 8 consecutive pixels of one channel group are one
 //     128-byte core matrix and tap (dy, dx) of a 64-pixel output row is the
 //     same descriptor moved by (dy * (64 + 2) + dx) * 16 bytes: no im2col
-//     copy (the upsample layer, a 6-channel input and the fp32 modes build
-//     their tile with loads and arithmetic instead);
+//     copy (the upsample layer, a 6-channel input and the fp32-band modes
+//     build their tile with loads and arithmetic instead);
 //   * the warpgroup holds one m64nN accumulator per tile row and issues
-//     ks^2 * cin/16 wgmma m64nNk16 per row (twice that for a split layer,
-//     three times in the fp32 mode), the first with scale-d 0, before one
-//     wait;
+//     ks^2 * cin/16 k-steps per row, each of the mode's products (one
+//     wgmma m64nNk16; two for a split layer, three in the bf16_3x and
+//     fp32-weight modes, six in the HIGHEST mode), the first with scale-d
+//     0, before one wait;
 //   * the epilogue adds bias and relu in registers, writes the fp32 state
 //     from registers, and stages the band in the warpgroup's region for
 //     16-byte stores and the 2x2 pool (4-byte stores straight from the
@@ -71,17 +95,21 @@
 // gap to the peak is staging and the epilogue (chip_smoke.py prints each
 // chain's TFLOP/s and share of the bound).
 //
-// Shared memory in the fp32 mode: the split weights of the layers that
-// read 48 + 48 aux channels (K = 864, N = 48) take 165,888 bytes, and a
-// tile's hi and lo planes 101,376 at TRW 2 (76,032 at one row), above the
-// 232,448 a block may have.  Such a layer streams its weights instead: one
-// warpgroup per CTA, and the hi and lo weights of one tap (18,432 bytes)
-// at a time, double-buffered with cp.async, so tap t + 1 (after the last,
-// the next tile's first) loads while tap t's products run; a barrier and a
-// wgmma wait per tap.  Every tile reloads the 166 KB of weights from L2.
-// The choice is a function of the layer's shape alone: the resident form
-// where one of its configurations fits, else the streamed one, else the
-// launch fails with cudaErrorInvalidValue.
+// Shared memory in the fp32 and fp32-weight modes: the split weights of
+// the layers that read 48 + 48 aux channels (K = 864, N = 48) take 165,888
+// bytes in two planes and 248,832 in three, and a tile's planes 101,376 at
+// TRW 2 in two planes (152,064 in three), above the 232,448 a block may
+// have.  Such a layer streams its weights instead: one warpgroup per CTA,
+// and the planes of one tap (18,432 or 27,648 bytes) at a time,
+// double-buffered with cp.async, so tap t + 1 (after the last, the next
+// tile's first) loads while tap t's products run; a barrier and a wgmma
+// wait per tap.  Every tile reloads the layer's weights from L2.  In the
+// HIGHEST mode a K = 432 layer keeps its three planes (124,416 bytes)
+// resident beside one warpgroup's TRW 2 tile (76,032): 200,448 bytes; a
+// K = 864 layer streams beside a TRW 2 tile: 207,360.  The choice is a
+// function of the layer's shape and mode alone: the resident form where
+// one of its configurations fits, else the streamed one, else the launch
+// fails with cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -97,19 +125,55 @@ constexpr int TW = 64;                 // output columns per tile: one m64 produ
 constexpr int SMEM_MAX = 232448;       // per block on the H100
 
 // what a launch computes: bf16 bands with 1-pass or split (hi + lo)
-// weights; or fp32 bands with bf16_3x products, the weights resident or
-// streamed a tap at a time
-enum Mode { BF16 = 0, BF16_SPLIT = 1, F32_3X = 2, F32_3X_STREAM = 3 };
+// weights; fp32 bands with bf16_3x products; fp32 bands with HIGHEST
+// products; bf16 bands with fp32 weights; each fp32-weight mode with its
+// weights resident or streamed a tap at a time
+enum Mode {
+  BF16 = 0, BF16_SPLIT = 1,
+  F32_3X = 2, F32_3X_STREAM = 3,
+  F32_6X = 4, F32_6X_STREAM = 5,
+  W32 = 6, W32_STREAM = 7,
+};
+// a layer's numerics, as the C entry points take them: bf16 bands with
+// bf16 weights, or with hi + lo weights; fp32 bands with bf16_3x or
+// HIGHEST products; bf16 bands with fp32 weights
+enum Prec { P_BF16 = 0, P_BF16_SPLIT = 1, P_HIGH = 2, P_HIGHEST = 3, P_W32 = 4 };
 
-__host__ __device__ constexpr bool mode_split(int m) { return m != BF16; }
-__host__ __device__ constexpr bool mode_f32(int m) { return m >= F32_3X; }
+__host__ __device__ constexpr bool mode_f32(int m) { return m >= F32_3X && m <= F32_6X_STREAM; }
+__host__ __device__ constexpr bool mode_stream(int m) {
+  return m == F32_3X_STREAM || m == F32_6X_STREAM || m == W32_STREAM;
+}
+// bf16 planes of the staged tile and of the weights
+__host__ __device__ constexpr int a_planes(int m) {
+  return m == F32_3X || m == F32_3X_STREAM ? 2 : m == F32_6X || m == F32_6X_STREAM ? 3 : 1;
+}
+__host__ __device__ constexpr int w_planes(int m) { return m == BF16 ? 1 : m <= F32_3X_STREAM ? 2 : 3; }
+// the HIGHEST mode sums its five small products in a second accumulator
+// (see the kernel), so it runs 2-row tiles and at most two warpgroups
+__host__ __device__ constexpr bool mode_6x(int m) { return m == F32_6X || m == F32_6X_STREAM; }
+// the products of a k-step, and product p's (tile plane, weight plane):
+// bf16 split (0, 0) (0, 1); bf16_3x (0, 0) (1, 0) (0, 1); HIGHEST (0, 0)
+// (0, 1) (1, 0) (0, 2) (1, 1) (2, 0); fp32 weights (0, 0) (0, 1) (0, 2)
+__host__ __device__ constexpr int n_products(int m) {
+  return m == BF16 ? 1 : m == BF16_SPLIT ? 2 : m == F32_6X || m == F32_6X_STREAM ? 6 : 3;
+}
+__host__ __device__ constexpr int prod_a(int m, int p) {
+  return m == F32_3X || m == F32_3X_STREAM ? (p == 1)
+         : m == F32_6X || m == F32_6X_STREAM ? (p == 2 || p == 4 ? 1 : p == 5 ? 2 : 0)
+                                             : 0;
+}
+__host__ __device__ constexpr int prod_b(int m, int p) {
+  return m == F32_3X || m == F32_3X_STREAM ? (p == 2)
+         : m == F32_6X || m == F32_6X_STREAM ? (p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0)
+                                             : p;
+}
 
 struct LayerArgs {
   const void* in0;                // [B, h0, w0, in0_stride], channels at in0_off
   int in0_c, in0_stride, in0_off, in0_h, in0_w, upsample;
   const void* aux;                // [B, H, W, aux_stride], channels at aux_off
   int aux_c, aux_stride, aux_off;
-  const bf16* w;                  // [K/8][cout_pad][8] hi, then lo when split
+  const bf16* w;                  // [K/8][cout_pad][8] per weight plane: hi, (mid,) lo
   const float* bias;              // [cout]
   int ks, cin0_pad, cout, cout_pad, relu;
   int B, H, W;                    // output (full) resolution
@@ -118,8 +182,8 @@ struct LayerArgs {
   float* state;                   // [B, H, W, state_stride] or null
   int state_stride, state_off, state_zero;
 };
-// in0, aux, out and pooled are bf16 in the bf16 modes and fp32 in the fp32
-// modes (the band dtype); state is always fp32
+// in0, aux, out and pooled are bf16 in the bf16-band modes and fp32 in the
+// fp32-band modes (the band dtype); state is always fp32
 
 // a launch configuration: tile rows per warpgroup, warpgroups per CTA
 struct Config {
@@ -128,8 +192,8 @@ struct Config {
 
 struct Smem {
   int rows_in, cols_in, plane;    // staged tile geometry; plane = bytes per channel group
-  int lo;                         // fp32 modes: bytes from the hi planes to the lo planes
-  int w, wtap;                    // weights at w; a streamed tap's hi + lo take wtap bytes
+  int tplane;                     // bytes from one plane of the staged tile to the next
+  int w, wtap;                    // weights at w; a streamed tap's planes take wtap bytes
   int buf, buf_bytes, total;      // warpgroup g's region at buf + g * buf_bytes:
                                   // its input tile, then its band [trw][64][n]
 };
@@ -142,15 +206,12 @@ __host__ __device__ inline Smem smem_layout(int ks, int cin_tot, int n, int mode
   s.rows_in = c.trw + 2 * halo;
   s.cols_in = TW + 2 * halo;
   s.plane = s.rows_in * s.cols_in * 16;
-  s.lo = (cin_tot / 8) * s.plane;
+  s.tplane = (cin_tot / 8) * s.plane;
   s.w = 0;
-  s.wtap = cin_tot * n * 2 * 2;
-  const int wbytes = mode == F32_3X_STREAM
-                         ? 2 * s.wtap
-                         : ks * ks * cin_tot * n * 2 * (mode_split(mode) ? 2 : 1);
+  s.wtap = cin_tot * n * 2 * w_planes(mode);
+  const int wbytes = mode_stream(mode) ? 2 * s.wtap : ks * ks * s.wtap;
   s.buf = align128(wbytes);
-  const int f32 = mode_f32(mode);
-  const int tile = s.lo * (f32 ? 2 : 1), band = c.trw * TW * n * (f32 ? 4 : 2);
+  const int tile = s.tplane * a_planes(mode), band = c.trw * TW * n * (mode_f32(mode) ? 4 : 2);
   s.buf_bytes = align128(tile > band ? tile : band);
   s.total = s.buf + c.nwg * s.buf_bytes;
   return s;
@@ -215,6 +276,25 @@ __device__ __forceinline__ void split8(const float* v, uint4& hi, uint4& lo) {
   lo = l.u;
 }
 
+// v = hi + mid + lo exactly in bf16: hi keeps the top 16 bits of each fp32
+// value, mid the top 16 bits of r = v - hi, lo = r - mid (at most 8
+// significant bits, so the conversion is exact); the wrapper's split3
+__device__ __forceinline__ void split3_8(const float* v, uint4& hi, uint4& mid, uint4& lo) {
+  Pack8 h, m, l;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t bits = __float_as_uint(v[k]);
+    const float r = __fsub_rn(v[k], __uint_as_float(bits & 0xFFFF0000u));
+    const uint32_t rb = __float_as_uint(r);
+    h.s[k] = (unsigned short)(bits >> 16);
+    m.s[k] = (unsigned short)(rb >> 16);
+    l.s[k] = __bfloat16_as_ushort(__float2bfloat16_rn(__fsub_rn(r, __uint_as_float(rb & 0xFFFF0000u))));
+  }
+  hi = h.u;
+  mid = m.u;
+  lo = l.u;
+}
+
 // 8 channels of in0 at one pixel of its own grid, as floats
 template <bool F32>
 __device__ __forceinline__ void in0_f8(const LayerArgs& a, size_t pixel, int c0, bool vec,
@@ -263,19 +343,21 @@ __device__ __forceinline__ TileIdx tile_idx(const LayerArgs& a, int t, int tr) {
   return ti;
 }
 
-// stage tile t's input [cg][rows_in][cols_in][8] into buf (the fp32
-// modes: its hi planes, and its lo planes L.lo bytes on).  Items go to
+// stage tile t's input [cg][rows_in][cols_in][8] into buf (the fp32-band
+// modes: its hi plane, and its lo plane, or its mid and lo planes, each
+// L.tplane bytes after the one before).  Items go to
 // threads by octets of pixels: lane -> (channel group lane / 8, pixel lane
 // % 8), so each quarter-warp writes one 128-byte core matrix (no bank
 // conflicts) and a warp reads 4 channel groups of 8 neighbouring pixels.
 // bf16 modes: cp.async for 16-byte aligned channel groups, loads and
-// arithmetic for the upsample and for unaligned inputs.  fp32 modes: loads,
-// the upsample in fp32 and the split, through registers.  Zeros outside the
+// arithmetic for the upsample and for unaligned inputs.  fp32-band modes:
+// loads, the upsample in fp32 and the split, through registers.  Zeros outside the
 // image (the conv's zero padding) and in pad channels
 template <int MODE>
 __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
                            unsigned char* buf, int t128) {
   constexpr bool F32 = mode_f32(MODE);
+  constexpr int AP = a_planes(MODE);
   const TileIdx ti = tile_idx(a, t, tr);
   const int halo = a.ks >> 1;
   const int cg_n = (a.cin0_pad + a.aux_c) >> 3;
@@ -297,8 +379,10 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
     uint4* d = reinterpret_cast<uint4*>(buf + cg * L.plane + pix * 16);
     const int c0 = cg * 8;
     if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W || (c0 < a.cin0_pad && c0 >= a.in0_c)) {
-      *d = make_uint4(0u, 0u, 0u, 0u);
-      if constexpr (F32) *reinterpret_cast<uint4*>(buf + L.lo + cg * L.plane + pix * 16) = *d;
+#pragma unroll
+      for (int p = 0; p < AP; ++p)
+        *reinterpret_cast<uint4*>(buf + p * L.tplane + cg * L.plane + pix * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
       continue;
     }
     const size_t pixel = ((size_t)ti.b * a.H + gy) * a.W + gx;
@@ -311,10 +395,15 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
         load_up8<true>(a, ti.b, gy, gx, c0, in0_vec, v);
       else
         in0_f8<true>(a, pixel, c0, in0_vec, v);
-      uint4 hi, lo;
-      split8(v, hi, lo);
+      uint4 hi, mid, lo;
+      if constexpr (AP == 3) {
+        split3_8(v, hi, mid, lo);
+        *reinterpret_cast<uint4*>(buf + L.tplane + cg * L.plane + pix * 16) = mid;
+      } else {
+        split8(v, hi, lo);
+      }
       *d = hi;
-      *reinterpret_cast<uint4*>(buf + L.lo + cg * L.plane + pix * 16) = lo;
+      *reinterpret_cast<uint4*>(buf + (AP - 1) * L.tplane + cg * L.plane + pix * 16) = lo;
     } else if (c0 < a.cin0_pad) {
       const bf16* in0 = static_cast<const bf16*>(a.in0);
       if (a.upsample) {
@@ -336,15 +425,17 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
   }
 }
 
-// cp.async of tap `tap`'s weights, hi then lo (wtap bytes in all), from the
-// packed matrix (hi [K/8][N][8] then lo) to dst; threads [0, nthreads)
+// cp.async of tap `tap`'s weights, its part of each of the WP planes in
+// turn (wtap bytes in all), from the packed matrix (WP planes of
+// [K/8][N][8], plane_bytes each) to dst; threads [0, nthreads)
+template <int WP>
 __device__ __forceinline__ void load_tap(unsigned char* dst, const bf16* w, int tap, int wtap,
-                                         int hi_bytes, int tid, int nthreads) {
+                                         int plane_bytes, int tid, int nthreads) {
   const unsigned char* src = reinterpret_cast<const unsigned char*>(w);
-  const int part = wtap / 2;
+  const int part = wtap / WP;
   for (int i = tid * 16; i < wtap; i += nthreads * 16) {
-    const int lo = i >= part;
-    wg::cp_async16(dst + i, src + lo * hi_bytes + tap * part + (i - lo * part));
+    const int p = (i >= part) + (WP == 3 && i >= 2 * part);
+    wg::cp_async16(dst + i, src + p * plane_bytes + tap * part + (i - p * part));
   }
 }
 
@@ -470,10 +561,10 @@ __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db,
 // staging and epilogue overlap another's products; a streamed layer runs
 // one warpgroup a CTA.
 template <int N, int TRW, int MODE>
-__global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
+__global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(const LayerArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr bool SPLIT = mode_split(MODE), F32 = mode_f32(MODE);
-  constexpr bool STREAM = MODE == F32_3X_STREAM;
+  constexpr bool F32 = mode_f32(MODE), STREAM = mode_stream(MODE), SMALL = mode_6x(MODE);
+  constexpr int WP = w_planes(MODE), NP = n_products(MODE);
   constexpr int NACC = N / 2, C8 = N / 8;
   const int nwg = blockDim.x >> 7;
   const int cin_tot = a.cin0_pad + a.aux_c;  // a multiple of 16
@@ -487,14 +578,14 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
   const int ntiles = tiles_x * tiles_y * a.B;
   const int t0 = blockIdx.x * nwg + g, stride = gridDim.x * nwg;
   unsigned char* buf = smem + L.buf + g * L.buf_bytes;
-  const int hi_bytes = K * N * 2;  // bytes of w_hi (and of w_lo)
+  const int hi_bytes = K * N * 2;  // bytes of one weight plane
 
   // ---- the layer's packed weights, once per CTA (a streamed layer: its
   // first tap), and the first tile
   if constexpr (STREAM) {
-    load_tap(smem + L.w, a.w, 0, L.wtap, hi_bytes, tid, blockDim.x);
+    load_tap<WP>(smem + L.w, a.w, 0, L.wtap, hi_bytes, tid, blockDim.x);
   } else {
-    const int wbytes = hi_bytes * (SPLIT ? 2 : 1);
+    const int wbytes = hi_bytes * WP;
     for (int i = tid * 16; i < wbytes; i += blockDim.x * 16)
       wg::cp_async16(smem + L.w + i, reinterpret_cast<const unsigned char*>(a.w) + i);
   }
@@ -526,8 +617,14 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
     PHASE_CLOCK(c1 = clock64(); ph[0] += c1 - c0;)  // phase 0: waiting for the tile
 
     // ---- the products: TRW rows of 64 pixels over all taps and 16-channel
-    // steps; the first product starts each sum
-    float acc[TRW][NACC];
+    // steps; the first product starts each sum.  The tensor cores truncate
+    // what an accumulation drops below the accumulator's last bit, so each
+    // wgmma into an accumulator biases it toward zero by up to an ulp: the
+    // HIGHEST mode's five small products (2^-8 of hi.hi and below) go to
+    // acc2, whose ulp is 2^-8 of acc's, and acc takes one wgmma a k-step
+    // (one accumulator: a mean error of 1.6e-5 x std over chain A's four
+    // layers on the H100, against 1.5e-7 for the products alone)
+    float acc[TRW][NACC], acc2[TRW][NACC];
     wg::fence();
 #pragma unroll 1
     for (int dy = 0; dy < a.ks; ++dy) {
@@ -535,7 +632,7 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
       for (int dx = 0; dx < a.ks; ++dx) {
         const int tap = dy * a.ks + dx;
         const uint32_t a_tap = a_base + (dy * L.cols_in + dx) * 16;
-        uint32_t wh, wl;
+        uint32_t wh, wstride;  // weight plane 0 of this tap, and the bytes to the next plane
         if constexpr (STREAM) {
           if (tap > 0) {  // this tap's weights are in; the last tap's products are done
             wg::cp_async_wait<0>();
@@ -545,42 +642,44 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
           // the next tap (after the last: the next tile's first) into the
           // other buffer
           if (tap + 1 < taps || t + stride < ntiles)
-            load_tap(smem + L.w + (slot ^ 1) * L.wtap, a.w, tap + 1 < taps ? tap + 1 : 0,
-                     L.wtap, hi_bytes, t128, 128);
+            load_tap<WP>(smem + L.w + (slot ^ 1) * L.wtap, a.w, tap + 1 < taps ? tap + 1 : 0,
+                         L.wtap, hi_bytes, t128, 128);
           wg::cp_async_commit();
           wh = w_base + slot * L.wtap;
-          wl = wh + L.wtap / 2;
+          wstride = L.wtap / WP;
           wg::fence();
         } else {
           wh = w_base + tap * kch * N * 32;
-          wl = wh + hi_bytes;
+          wstride = hi_bytes;
         }
 #pragma unroll 1
         for (int kc = 0; kc < kch; ++kc) {
           const int accumulate = (tap + kc) > 0;
           const uint32_t wo = kc * N * 32;
           const uint32_t ak = a_tap + 2 * kc * L.plane;
-          const uint64_t dh = wg::desc(wh + wo, N * 16, 128);
+          // the mode's products (tile plane, weight plane), each over the rows
 #pragma unroll
-          for (int r = 0; r < TRW; ++r)
-            mma<N>(acc[r], wg::desc(ak + r * L.cols_in * 16, L.plane, 128), dh, accumulate);
-          if constexpr (F32) {  // w_hi a_lo
+          for (int p = 0; p < NP; ++p) {
+            const uint64_t db = wg::desc(wh + prod_b(MODE, p) * wstride + wo, N * 16, 128);
+            const uint32_t ap = ak + prod_a(MODE, p) * L.tplane;
 #pragma unroll
-            for (int r = 0; r < TRW; ++r)
-              mma<N>(acc[r], wg::desc(ak + L.lo + r * L.cols_in * 16, L.plane, 128), dh, 1);
-          }
-          if constexpr (SPLIT) {  // w_lo a_hi
-            const uint64_t dl = wg::desc(wl + wo, N * 16, 128);
-#pragma unroll
-            for (int r = 0; r < TRW; ++r)
-              mma<N>(acc[r], wg::desc(ak + r * L.cols_in * 16, L.plane, 128), dl, 1);
+            for (int r = 0; r < TRW; ++r) {
+              const uint64_t da = wg::desc(ap + r * L.cols_in * 16, L.plane, 128);
+              if (SMALL && p > 0)
+                mma<N>(acc2[r], da, db, p == 1 ? accumulate : 1);
+              else
+                mma<N>(acc[r], da, db, p == 0 ? accumulate : 1);
+            }
           }
         }
         if constexpr (STREAM) {
           wg::commit();
           wg::wait<0>();
 #pragma unroll
-          for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
+          for (int r = 0; r < TRW; ++r) {
+            wg::fence_regs(acc[r]);
+            if constexpr (SMALL) wg::fence_regs(acc2[r]);
+          }
           slot ^= 1;
         }
       }
@@ -589,7 +688,10 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
       wg::commit();
       wg::wait<0>();
 #pragma unroll
-      for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
+      for (int r = 0; r < TRW; ++r) {
+        wg::fence_regs(acc[r]);
+        if constexpr (SMALL) wg::fence_regs(acc2[r]);
+      }
     }
     PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)  // phase 1: the products
     wg::bar_warpgroup(g);  // the input tile is consumed: the region takes the band
@@ -605,8 +707,9 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = 16 * warp_in + (lane >> 2) + 8 * h;
-          float v0 = acc[r][4 * j + 2 * h] + bias[j][0];
-          float v1 = acc[r][4 * j + 2 * h + 1] + bias[j][1];
+          const int i0 = 4 * j + 2 * h;
+          float v0 = (SMALL ? acc[r][i0] + acc2[r][i0] : acc[r][i0]) + bias[j][0];
+          float v1 = (SMALL ? acc[r][i0 + 1] + acc2[r][i0 + 1] : acc[r][i0 + 1]) + bias[j][1];
           if (a.relu) {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
@@ -651,9 +754,13 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
 }
 
 // the configurations in order of preference: the first whose shared memory
-// fits is launched (a streamed layer takes one warpgroup a CTA)
+// fits is launched (a streamed layer takes one warpgroup a CTA; the HIGHEST
+// mode's two accumulators a row take 2-row tiles and at most 255 registers
+// a thread, so two warpgroups)
 constexpr Config CONFIGS[] = {{4, 3}, {2, 3}, {2, 2}, {2, 1}};
 constexpr Config STREAM_CONFIGS[] = {{4, 1}, {2, 1}};
+constexpr Config CONFIGS_6X[] = {{2, 2}, {2, 1}};
+constexpr Config STREAM_CONFIGS_6X[] = {{2, 1}};
 
 template <int N, int TRW, int MODE>
 cudaError_t launch(const LayerArgs& a, Config c, int smem, cudaStream_t s) {
@@ -676,9 +783,10 @@ cudaError_t launch(const LayerArgs& a, Config c, int smem, cudaStream_t s) {
 
 // the first configuration of `mode` whose shared memory fits, or {0, 0}
 Config pick(const LayerArgs& a, int n, int mode) {
-  const bool stream = mode == F32_3X_STREAM;
-  const Config* cs = stream ? STREAM_CONFIGS : CONFIGS;
-  const int nc = stream ? sizeof(STREAM_CONFIGS) / sizeof(Config) : sizeof(CONFIGS) / sizeof(Config);
+  const bool stream = mode_stream(mode), six = mode_6x(mode);
+  const Config* cs = six ? (stream ? STREAM_CONFIGS_6X : CONFIGS_6X)
+                         : (stream ? STREAM_CONFIGS : CONFIGS);
+  const int nc = six ? (stream ? 1 : 2) : (stream ? 2 : 4);
   for (int i = 0; i < nc; ++i)
     if (smem_layout(a.ks, a.cin0_pad + a.aux_c, n, mode, cs[i]).total <= SMEM_MAX) return cs[i];
   return Config{0, 0};
@@ -689,22 +797,26 @@ struct Plan {
   Config c;  // {0, 0}: nothing fits
 };
 
-// a layer's mode and configuration, a function of its shape alone.  fp32
-// bands: the weights stay resident where a configuration fits, and stream
-// a tap at a time otherwise (the layers with K = 864)
-Plan plan(const LayerArgs& a, int n, bool split, bool f32) {
-  if (!f32) {
-    const int m = split ? BF16_SPLIT : BF16;
+// a layer's mode and configuration, a function of its shape and its
+// numerics alone.  The bf16 numerics keep the weights resident (split ones
+// too); the fp32-band and fp32-weight numerics keep them resident where a
+// configuration fits and stream them a tap at a time otherwise (the
+// layers with K = 864)
+Plan plan(const LayerArgs& a, int n, int prec) {
+  if (prec == P_BF16 || prec == P_BF16_SPLIT) {
+    const int m = prec == P_BF16_SPLIT ? BF16_SPLIT : BF16;
     return Plan{m, pick(a, n, m)};
   }
-  const Config c = pick(a, n, F32_3X);
-  return c.nwg ? Plan{F32_3X, c} : Plan{F32_3X_STREAM, pick(a, n, F32_3X_STREAM)};
+  const int m = prec == P_HIGH ? F32_3X : prec == P_HIGHEST ? F32_6X : W32;
+  const Config c = pick(a, n, m);
+  return c.nwg ? Plan{m, c} : Plan{m + 1, pick(a, n, m + 1)};
 }
 
 template <int N, int MODE>
 cudaError_t launch_mode(const LayerArgs& a, Config c, cudaStream_t s) {
   const int smem = smem_layout(a.ks, a.cin0_pad + a.aux_c, N, MODE, c).total;
-  return c.trw == 4 ? launch<N, 4, MODE>(a, c, smem, s) : launch<N, 2, MODE>(a, c, smem, s);
+  if constexpr (mode_6x(MODE)) return launch<N, 2, MODE>(a, c, smem, s);
+  else return c.trw == 4 ? launch<N, 4, MODE>(a, c, smem, s) : launch<N, 2, MODE>(a, c, smem, s);
 }
 
 template <int N>
@@ -714,12 +826,16 @@ cudaError_t launch_plan(const LayerArgs& a, Plan p, cudaStream_t s) {
     case BF16: return launch_mode<N, BF16>(a, p.c, s);
     case BF16_SPLIT: return launch_mode<N, BF16_SPLIT>(a, p.c, s);
     case F32_3X: return launch_mode<N, F32_3X>(a, p.c, s);
-    default: return launch_mode<N, F32_3X_STREAM>(a, p.c, s);
+    case F32_3X_STREAM: return launch_mode<N, F32_3X_STREAM>(a, p.c, s);
+    case F32_6X: return launch_mode<N, F32_6X>(a, p.c, s);
+    case F32_6X_STREAM: return launch_mode<N, F32_6X_STREAM>(a, p.c, s);
+    case W32: return launch_mode<N, W32>(a, p.c, s);
+    default: return launch_mode<N, W32_STREAM>(a, p.c, s);
   }
 }
 
-bool bad_shape(int ks, int cin_tot, int split, int f32) {
-  return cin_tot % 16 || cin_tot <= 0 || (ks != 1 && ks != 3) || (f32 && !split);
+bool bad_shape(int ks, int cin_tot, int prec) {
+  return cin_tot % 16 || cin_tot <= 0 || (ks != 1 && ks != 3) || prec < P_BF16 || prec > P_W32;
 }
 
 }  // namespace
@@ -734,14 +850,16 @@ const char* rvdd_cuda_error_string(int e) {
 // cin0_pad % 16 == 0, aux_c % 16 == 0, cout_pad in {16, 32, 48},
 // cout <= cout_pad, H == 2*in0_h and W == 2*in0_w when upsample, even H
 // and W when pooled, 16-byte aligned tensors, and w packed by the wrapper's
-// pack_kmajor ([K/8][cout_pad][8], the lo half after the hi half when
-// split).  f32 = 1 selects fp32 bands with bf16_3x products: in0, aux, out
-// and pooled are then fp32 and the weights must be split.  Returns a
-// cudaError_t as int.
+// pack_kmajor, per plane, in the order of prec, the layer's numerics (enum
+// Prec): 0 bf16 bands, weights hi; 1 bf16 bands, weights hi and lo; 2 fp32
+// bands with bf16_3x products, weights hi and lo; 3 fp32 bands with
+// HIGHEST products, weights hi, mid and lo; 4 bf16 bands with fp32
+// weights, hi, mid and lo.  in0, aux, out and pooled are fp32 under 2 and
+// 3, bf16 under the others.  Returns a cudaError_t as int.
 int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
                     int in0_h, int in0_w, int upsample,
                     const void* aux, int aux_c, int aux_stride, int aux_off,
-                    const void* w, int split, int f32, const void* bias,
+                    const void* w, int prec, const void* bias,
                     int ks, int cin0_pad, int cout, int cout_pad, int relu,
                     int B, int H, int W,
                     void* out, void* pooled,
@@ -760,10 +878,10 @@ int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
 
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (bad_shape(ks, cin0_pad + aux_c, split, f32)) {
+  if (bad_shape(ks, cin0_pad + aux_c, prec)) {
     e = cudaErrorInvalidValue;
   } else {
-    const Plan p = plan(a, cout_pad, split != 0, f32 != 0);
+    const Plan p = plan(a, cout_pad, prec);
     switch (cout_pad) {
       case 16: e = launch_plan<16>(a, p, s); break;
       case 32: e = launch_plan<32>(a, p, s); break;
@@ -775,19 +893,22 @@ int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
   return (int)e;
 }
 
-// The launch plan of a layer of that shape (K = ks^2 * cin_tot), as
-// rvdd_conv_layer makes it: out[0] the mode (0 bf16, 1 bf16 with split
-// weights, 2 fp32 bands with resident weights, 3 fp32 bands with streamed
-// weights), out[1] the tile rows, out[2] the warpgroups a CTA, out[3] the
-// shared memory a CTA.  Returns a cudaError_t as int: cudaErrorInvalidValue
-// for a shape the kernel does not take or that fits no configuration.
-int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int split, int f32, int* out) {
-  if (bad_shape(ks, cin_tot, split, f32) || (cout_pad != 16 && cout_pad != 32 && cout_pad != 48))
+// The launch plan of a layer of that shape (K = ks^2 * cin_tot) in the
+// numerics prec, as rvdd_conv_layer makes it: out[0] the mode (enum Mode:
+// 0 bf16, 1 bf16 with split weights, 2 and 3 fp32 bands with bf16_3x
+// products, 4 and 5 fp32 bands with HIGHEST products, 6 and 7 bf16 bands
+// with fp32 weights, the weights resident in the first of each pair and
+// streamed in the second), out[1] the tile rows, out[2] the warpgroups a
+// CTA, out[3] the shared memory a CTA.  Returns a cudaError_t as int:
+// cudaErrorInvalidValue for a shape the kernel does not take or that fits
+// no configuration.
+int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int prec, int* out) {
+  if (bad_shape(ks, cin_tot, prec) || (cout_pad != 16 && cout_pad != 32 && cout_pad != 48))
     return (int)cudaErrorInvalidValue;
   LayerArgs a = {};
   a.ks = ks;
   a.cin0_pad = cin_tot;
-  const Plan p = plan(a, cout_pad, split != 0, f32 != 0);
+  const Plan p = plan(a, cout_pad, prec);
   if (p.c.nwg == 0) return (int)cudaErrorInvalidValue;
   out[0] = p.mode;
   out[1] = p.c.trw;

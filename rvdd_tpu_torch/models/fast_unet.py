@@ -10,11 +10,12 @@ to its own band dtype where it is read (``.to(chain.dtype)``, rvdd_tpu's
 ``x.astype(band_dtype)``).
 
 Numerics: the fused-path presets of rvdd_tpu/models/fast_unet.py:30-129.
-Each chain runs either bf16 bands with 1-pass (or split-weight) products,
-or fp32 bands with bf16_3x products (the kernel's fp32 mode); 'glue' (the
-engine's warps and frame inputs) runs bf16 or fp32, and the eighth-res
-core (``_middle8``) follows the glue or, where 'middle' is named, runs
-fp32 operands.  In the engine's combined-state mode
+Each chain runs in one of the kernel's four modes: bf16 bands with 1-pass
+(or split-weight) products, fp32 bands with bf16_3x or HIGHEST products,
+or bf16 bands with fp32 weights; 'glue' (the engine's warps and frame
+inputs) runs bf16 or fp32, and the eighth-res core (``_middle8``) follows
+the glue or runs fp32 operands (where 'middle' is named, and under the
+'highest' presets).  In the engine's combined-state mode
 the dec2 chain writes the next recurrence state ``[den 3 | zero 5 | feat
 48]`` in fp32 straight from its accumulator, in every preset.
 """
@@ -41,23 +42,31 @@ HYBRID_CHAINS = ("A", "B", "C", "middle", "dec0", "dec1", "dec2", "glue")
 _FAST_SPLIT = {"dec2": (False, False, False, True, True)}
 
 #: fused-path numerics presets, resolved: ``fp32`` names the parts that
-#: run fp32 bands (a chain: bf16_3x products, every layer split; 'middle':
-#: fp32 operands; 'glue': fp32 warps and inputs); ``weight_split`` gives
-#: the bf16 chains' per-layer hi/lo split (a tuple per chain, or True for
-#: every layer of every chain).
-#:   fast:   bf16 everywhere, dec2's post0 and head split;
-#:   mixed:  fp32 everywhere, bf16_3x products;
-#:   wsplit: bf16 bands, every layer split.
+#: run fp32 bands (a chain: the kernel's fp32-band mode; 'middle': fp32
+#: operands; 'glue': fp32 warps and inputs); ``mxu_precision`` is
+#: rvdd_tpu's: 'high' (bf16_3x) or 'highest' products for the fp32 chains,
+#: and 'highest' also runs the eighth-res core in fp32 (rvdd_tpu's
+#: ``mid_mp``); ``weight_fp32`` gives the bf16 chains fp32 weights;
+#: ``weight_split`` gives the bf16 chains' per-layer hi/lo split (a tuple
+#: per chain, or True for every layer of every chain).
+#:   fast:     bf16 everywhere, dec2's post0 and head split;
+#:   mixed:    fp32 everywhere, bf16_3x products;
+#:   accurate: fp32 everywhere, HIGHEST products (fp32 weights);
+#:   wsplit:   bf16 bands, every layer split;
+#:   wf32:     bf16 bands and glue, fp32 weights, an fp32 eighth-res core.
 #: 'hybrid:<c1>+<c2>+...' runs the named parts as 'mixed' and the rest as
-#: 'fast' (see get_fused_precision).  rvdd_tpu's 'accurate' and 'wf32' need
-#: 6-pass ('highest') products and fp32 weights, which the kernel does not
-#: have yet: they raise (ROADMAP.md, Queue 2 item 1).
+#: 'fast' (see get_fused_precision).
 FUSED_PRECISIONS = {
-    "fast": dict(fp32=frozenset(), weight_split=_FAST_SPLIT),
-    "mixed": dict(fp32=frozenset(HYBRID_CHAINS), weight_split={}),
-    "wsplit": dict(fp32=frozenset(), weight_split=True),
+    "fast": dict(fp32=frozenset(), weight_split=_FAST_SPLIT, mxu_precision="default",
+                 weight_fp32=False),
+    "mixed": dict(fp32=frozenset(HYBRID_CHAINS), weight_split={}, mxu_precision="high",
+                  weight_fp32=False),
+    "accurate": dict(fp32=frozenset(HYBRID_CHAINS), weight_split={}, mxu_precision="highest",
+                     weight_fp32=False),
+    "wsplit": dict(fp32=frozenset(), weight_split=True, mxu_precision="default",
+                   weight_fp32=False),
+    "wf32": dict(fp32=frozenset(), weight_split={}, mxu_precision="highest", weight_fp32=True),
 }
-_NOT_PORTED = ("accurate", "wf32")
 
 
 def get_fused_precision(name: str) -> dict:
@@ -72,21 +81,19 @@ def get_fused_precision(name: str) -> dict:
         if bad:
             raise ValueError(f"unknown hybrid chains {bad}; pick from {HYBRID_CHAINS}")
         return dict(fp32=frozenset(parts),
-                    weight_split={} if "dec2" in parts else _FAST_SPLIT)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fused precision {name!r} needs 6-pass products and fp32 weights in conv_chain, "
-            "not ported yet (ROADMAP.md, Queue 2 item 1)")
+                    weight_split={} if "dec2" in parts else _FAST_SPLIT,
+                    mxu_precision="high", weight_fp32=False)
     if name not in FUSED_PRECISIONS:
         raise ValueError(f"unknown fused precision {name!r}; pick from "
-                         f"{sorted(FUSED_PRECISIONS) + list(_NOT_PORTED)} or 'hybrid:<chains>'")
+                         f"{sorted(FUSED_PRECISIONS)} or 'hybrid:<chains>'")
     return FUSED_PRECISIONS[name]
 
 
 def glue_dtype(prec: dict) -> torch.dtype:
     """The dtype between chains (the engine's state and future-frame warps
     and the frame inputs) of a resolved preset: fp32 where 'glue' runs fp32
-    (every part of 'mixed', or a hybrid that names it), else bf16."""
+    (every part of 'mixed' and 'accurate', or a hybrid that names it), else
+    bf16 ('wf32' too: its bands are bf16)."""
     return torch.float32 if "glue" in prec["fp32"] else torch.bfloat16
 
 
@@ -152,8 +159,8 @@ def pack_fast_params(net: ConvUNet, feature_rec: bool, in_nc: int,
                      precision: str = "fast") -> dict:
     """One-time packing of the module's weights into the six chains, each
     in its mode under ``precision`` (a FUSED_PRECISIONS key or a hybrid):
-    ``packed[name].band_fp32`` says which chains run fp32 bands,
-    ``packed["middle_dtype"]`` and ``packed["middle_fp32"]`` how the
+    ``packed[name].mode`` is the chain's kernel mode (conv_chain.MODES),
+    ``packed["middle_dtype"]`` and ``packed["middle_fp32"]`` say how the
     eighth-res core runs (see :func:`_middle8`)."""
     if in_nc != net.in_channels:
         raise ValueError(f"in_nc {in_nc} != net.in_channels {net.in_channels}")
@@ -162,8 +169,11 @@ def pack_fast_params(net: ConvUNet, feature_rec: bool, in_nc: int,
 
     def chain(name, convs, acts, ks, ws=None):
         per_layer = (True,) * len(convs) if split is True else split.get(name)
+        fp32 = name in prec["fp32"]
+        w32 = prec["weight_fp32"] and not fp32
         return pack_chain(ws or [_hwio(c) for c in convs], [_bias(c) for c in convs],
-                          acts, ks, weight_split=per_layer, band_fp32=name in prec["fp32"])
+                          acts, ks, weight_split=per_layer, band_fp32=fp32, weight_fp32=w32,
+                          mxu_precision=prec["mxu_precision"] if fp32 or w32 else None)
 
     e = [getattr(net, f"enc_conv{i}") for i in range(4)]
     packed = {}
@@ -192,8 +202,10 @@ def pack_fast_params(net: ConvUNet, feature_rec: bool, in_nc: int,
         packed[f"dec{i}"] = chain(f"dec{i}", convs, acts, (3,) * 3 + ((3, 1) if i == 2 else ()),
                                   ws=ws)
     # the eighth-res core (_middle8): fp32 arrays where the glue is fp32 or
-    # 'middle' is named, fp32 operands where 'middle' is named
-    packed["middle_fp32"] = "middle" in prec["fp32"]
+    # it runs fp32 operands, which it does where 'middle' is named and under
+    # 'highest' products (rvdd_tpu's mid_mp != 'default',
+    # rvdd_tpu/models/fast_unet.py:496-523)
+    packed["middle_fp32"] = "middle" in prec["fp32"] or prec["mxu_precision"] == "highest"
     packed["middle_dtype"] = torch.float32 if packed["middle_fp32"] else glue_dtype(prec)
     packed["params_mid"] = {
         name: (conv.weight.detach().float(), conv.bias.detach().float())
@@ -209,8 +221,8 @@ def pack_fast_params(net: ConvUNet, feature_rec: bool, in_nc: int,
 @contextlib.contextmanager
 def _cudnn_fp32():
     """cuDNN's convs in full fp32 for the scope: its default TF32 keeps 10
-    mantissa bits, against about 16 for rvdd_tpu's 'high' (bf16_3x) that
-    an fp32 middle stands for.  Outside the scope the flag is as the caller
+    mantissa bits, against about 16 for rvdd_tpu's 'high' (bf16_3x) and 24
+    for its 'highest', which an fp32 middle stands for.  Outside the scope the flag is as the caller
     left it (TF32 off slows the bf16-valued convs of the other modes and
     buys them nothing: bf16 values are exact in TF32)."""
     saved = torch.backends.cudnn.allow_tf32
@@ -227,8 +239,9 @@ def _middle8(params, d2: torch.Tensor, store: torch.dtype = torch.bfloat16,
     NHWC [B, H/8, W/8, 48] in and out (``store``).  Plain PyTorch, as it is
     XLA in rvdd_tpu: too small for the chain kernels and cheap.  rvdd_tpu
     runs it on arrays of its glue dtype with 1-pass dots, or on fp32 arrays
-    with 'high' dots where the preset names 'middle'
-    (rvdd_tpu/models/fast_unet.py:257-267 and :519-523), so three modes:
+    with 'high' dots where the preset names 'middle' and 'highest' dots
+    under 'accurate' and 'wf32' (rvdd_tpu/models/fast_unet.py:257-267 and
+    :519-523), so three modes:
 
     * ``store`` bf16: bf16 operands, each conv's result and the residual
       sum rounded to bf16 (bf16 XLA convs);

@@ -11,27 +11,42 @@ conv; the kernel reads an aux channel window as the second half of layer
 combined fp32 recurrence state straight from its accumulator.
 
 What bounds it on the H100 is operations (~1.07 TFLOP a 1080p frame,
-~1.0 ms at the bf16 tensor-core peak); see the kernel's source note for
-what its design (wgmma with the packed weights resident in shared memory)
-does about it.
+~1.0 ms at the bf16 tensor-core peak; ~3.0 ms with fp32 weights and ~5.9
+ms in the HIGHEST mode, which count three and six bf16 products a MAC);
+see the kernel's source note for what its design (wgmma with the packed
+weights resident in shared memory, or streamed a tap at a time) does about
+it.
 
-A chain runs in one of two numerics, fixed when it is packed:
+A chain runs in one of four numerics (``Chain.mode``), fixed when it is
+packed:
 
-* bf16 bands (rvdd_tpu's ``fast`` preset): bf16 activations and weights,
+* ``bf16`` bands (rvdd_tpu's ``fast`` preset): bf16 activations and weights,
   fp32 accumulation and bias, bf16 bands between layers, and for the
   layers marked split, weights split by mantissa masking into w_hi + w_lo
   (conv_pallas.py:654-669) and accumulated as two products;
-* fp32 bands (``pack_chain(..., band_fp32=True)``; rvdd_tpu's
+* ``high``, fp32 bands (``pack_chain(..., band_fp32=True)``; rvdd_tpu's
   ``band_dtype=float32, mxu_precision='high'``): inputs, bands and outputs
   are fp32, every layer's weights are split, and each layer's input is
   split the same way (hi by the mantissa mask, lo = bf16(a - hi)), so a
   product is w_hi a_hi + w_hi a_lo + w_lo a_hi summed in fp32 (the manual
-  bf16_3x of conv_pallas.py:306-327).
+  bf16_3x of conv_pallas.py:306-327);
+* ``highest``, fp32 bands and fp32 weights (``band_fp32=True,
+  mxu_precision='highest'``; rvdd_tpu's 'accurate', conv_pallas.py:288-304):
+  the kernel splits the weights and each layer's input into three bf16
+  planes (:func:`split3`, exact) and sums the six products HIGHEST keeps;
+  the dropped ones are below 2^-24 of each product, so the plain version is
+  the plain fp32 conv;
+* ``w32``, bf16 bands and fp32 weights (``mxu_precision='highest',
+  weight_fp32=True``; rvdd_tpu's 'wf32', conv_pallas.py:295-296): the
+  weights in three planes, three products a k-step, exact in the weights;
+  the plain version convolves the bf16-valued bands with the fp32 weights
+  in fp32.
 
 The plain version repeats those rounding points with F.conv2d in fp32 and
 is what a CPU tensor runs.  The wrapper takes tensors of the chain's band
 dtype only and raises TypeError on any other; the caller rounds (as
-rvdd_tpu's ``x.astype(band_dtype)``, conv_pallas.py:610-612).
+rvdd_tpu's ``x.astype(band_dtype)``, conv_pallas.py:610-612).  A chain
+runs in the mode it was packed in and in no other.
 """
 
 from __future__ import annotations
@@ -50,7 +65,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [
     _P, _I, _I, _I, _I, _I, _I,      # in0, c, stride, off, h, w, upsample
     _P, _I, _I, _I,                  # aux, c, stride, off
-    _P, _I, _I, _P,                  # w_pack, split, f32, bias
+    _P, _I, _P,                      # w_pack, prec, bias
     _I, _I, _I, _I, _I,              # ks, cin0_pad, cout, cout_pad, relu
     _I, _I, _I,                      # B, H, W
     _P, _P,                          # out, pooled
@@ -58,6 +73,11 @@ _ARGTYPES = [
     _P,                              # stream
 ]
 MAX_COUT = 48  # the kernel holds at most three 16-channel output fragments
+#: a chain's numerics
+MODES = ("bf16", "high", "highest", "w32")
+#: a layer's numerics, as the C entry points number them (enum Prec): a
+#: chain's mode, where a bf16 chain's split layers run 'bf16 split'
+PRECS = ("bf16", "bf16 split", "high", "highest", "w32")
 
 
 def _ceil16(n: int) -> int:
@@ -89,6 +109,26 @@ def split_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi.to(torch.bfloat16), (wf - hi).to(torch.bfloat16)
 
 
+def split3(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """w = hi + mid + lo exactly, as three bf16 tensors: hi keeps the top 16
+    bits of each fp32 value (mantissa mask), mid the top 16 bits of the
+    rest, lo the rest (at most 8 significant bits, so exact in bf16).  The
+    kernels split their activations the same way in registers."""
+    wf = w.float().contiguous()
+    hi = (wf.view(torch.int32) & -65536).view(torch.float32)
+    mid, lo = split_weight(wf - hi)
+    return hi.to(torch.bfloat16), mid, lo
+
+
+def sum_planes(planes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The fp32 value of split planes (hi first), summed so that it is
+    exact: (hi + mid) + lo, or hi + lo."""
+    out = planes[0].float()
+    for p in planes[1:]:
+        out = out + p.float()
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ChainLayer:
     """One packed conv layer.  Kernel matrix row k = (dy, dx, ci) over
@@ -102,43 +142,77 @@ class ChainLayer:
     cout: int
     cout_pad: int
     relu: bool
-    split: bool
+    split: bool            # weights as a hi + lo pair (the split bf16 layers, 'high')
     w_plain: torch.Tensor  # OIHW fp32 holding the weights the kernel multiplies by
     w_hi: torch.Tensor     # [ks*ks*(cin0_pad+aux_c), cout_pad] bf16
+    w_mid: Optional[torch.Tensor]  # the middle plane of fp32 weights ('highest', 'w32')
     w_lo: Optional[torch.Tensor]
     bias: torch.Tensor     # [cout] fp32
-    w_pack: torch.Tensor   # the kernel's copy: pack_kmajor(w_hi), then pack_kmajor(w_lo) if split
+    w_pack: torch.Tensor   # the kernel's copy: pack_kmajor of each plane, hi, (mid,) lo
+
+    @property
+    def planes(self) -> Tuple[torch.Tensor, ...]:
+        """The weight planes, hi first, that sum to the weights."""
+        return tuple(p for p in (self.w_hi, self.w_mid, self.w_lo) if p is not None)
 
 
 @dataclasses.dataclass(frozen=True)
 class Chain:
     layers: Tuple[ChainLayer, ...]
-    #: fp32 bands with bf16_3x products (every layer split); else bf16 bands
-    band_fp32: bool = False
+    #: the numerics (MODES): 'bf16' bands; fp32 bands with bf16_3x ('high')
+    #: or HIGHEST ('highest') products; bf16 bands with fp32 weights ('w32')
+    mode: str = "bf16"
+
+    @property
+    def band_fp32(self) -> bool:
+        return self.mode in ("high", "highest")
 
     @property
     def dtype(self) -> torch.dtype:
         """The band dtype: of the inputs the chain takes and the outputs it
-        emits (the combined state is fp32 in both modes)."""
+        emits (the combined state is fp32 in every mode)."""
         return torch.float32 if self.band_fp32 else torch.bfloat16
+
+
+def chain_mode(band_fp32: bool = False, mxu_precision: Optional[str] = None,
+               weight_fp32: bool = False) -> str:
+    """The kernel mode (MODES) of rvdd_tpu's fused_conv_chain options:
+    bf16 bands at 'default' ('bf16'); fp32 bands at 'high' ('high', the
+    default for fp32 bands); fp32 bands at 'highest', whose weights are the
+    band dtype, fp32 ('highest'); bf16 bands with fp32 weights at 'highest'
+    ('w32').  Other combinations have no kernel mode and raise."""
+    mp = mxu_precision or ("high" if band_fp32 else "default")
+    modes = {(False, "default", False): "bf16", (True, "high", False): "high",
+             (True, "highest", False): "highest", (False, "highest", True): "w32"}
+    key = (bool(band_fp32), mp, bool(weight_fp32))
+    if key not in modes:
+        raise NotImplementedError(f"conv_chain: no kernel mode for band_fp32={band_fp32}, "
+                                  f"mxu_precision={mxu_precision!r}, weight_fp32={weight_fp32}")
+    return modes[key]
 
 
 def pack_chain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
                acts: Sequence[str], ks: Sequence[int], *,
                weight_split: Optional[Sequence[bool]] = None,
-               band_fp32: bool = False) -> Chain:
+               band_fp32: bool = False, mxu_precision: Optional[str] = None,
+               weight_fp32: bool = False) -> Chain:
     """Pack HWIO fp32 weights ``ws[l]`` [k, k, cin, cout] and biases for
     :func:`conv_chain`, once per set of weights.  Layer 1's cin may exceed
     layer 0's cout: the excess is the aux channels concatenated after the
-    conv output.  ``weight_split[l]`` marks layers with hi/lo weights;
-    ``band_fp32`` makes the chain run fp32 bands with bf16_3x products,
-    which splits every layer (as ``mxu_precision='high'`` forces
-    ``weight_dtype='split'``, conv_pallas.py:574-580)."""
+    conv output.  ``band_fp32``, ``mxu_precision`` and ``weight_fp32`` are
+    rvdd_tpu's band dtype, MXU precision and weight dtype, and pick the
+    chain's mode (:func:`chain_mode`).  ``weight_split[l]`` marks the layers
+    of a bf16 chain with hi/lo weights; the other modes fix every layer's
+    weights: the 'high' mode splits them into hi + lo (as
+    ``mxu_precision='high'`` forces ``weight_dtype='split'``,
+    conv_pallas.py:574-580), 'highest' and 'w32' keep them fp32, as three
+    bf16 planes (:func:`split3`)."""
+    mode = chain_mode(band_fp32, mxu_precision, weight_fp32)
     nl = len(ws)
-    if band_fp32:
-        split = (True,) * nl
-    else:
+    if mode == "bf16":
         split = tuple(weight_split) if weight_split is not None else (False,) * nl
+    else:
+        split = (mode == "high",) * nl
     if not (len(bs) == len(acts) == len(ks) == len(split) == nl):
         raise ValueError("pack_chain: ws, bs, acts, ks and weight_split differ in length")
     layers = []
@@ -159,12 +233,12 @@ def pack_chain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
         if aux_c < 0 or aux_c % 16:
             raise NotImplementedError(f"layer {l}: aux channels {aux_c} (want a multiple of 16)")
         cin0_pad, cout_pad = _ceil16(cin0), _ceil16(cout)
-        if split[l]:
-            hi, lo = split_weight(w)
-            w_used = hi.float() + lo.float()
+        if mode in ("highest", "w32"):
+            planes = split3(w)
+        elif split[l]:
+            planes = split_weight(w)
         else:
-            hi, lo = w.to(torch.bfloat16), None
-            w_used = hi.float()
+            planes = (w.to(torch.bfloat16),)
 
         def kmat(m):
             m0 = F.pad(m[:, :, :cin0], (0, 0, 0, cin0_pad - cin0))
@@ -172,16 +246,18 @@ def pack_chain(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
             m = F.pad(m, (0, cout_pad - cout))
             return m.reshape(k * k * (cin0_pad + aux_c), cout_pad).contiguous()
 
-        w_hi, w_lo = kmat(hi), kmat(lo) if lo is not None else None
-        halves = [pack_kmajor(w_hi)] + ([pack_kmajor(w_lo)] if w_lo is not None else [])
+        mats = [kmat(p) for p in planes]
+        w_mid = mats[1] if len(mats) == 3 else None
+        w_lo = mats[-1] if len(mats) > 1 else None
         layers.append(ChainLayer(
             ks=k, cin0=cin0, cin0_pad=cin0_pad, aux_c=aux_c, cout=cout,
             cout_pad=cout_pad, relu=acts[l] == "relu", split=bool(split[l]),
-            w_plain=w_used.permute(3, 2, 0, 1).contiguous(), w_hi=w_hi, w_lo=w_lo,
-            bias=bs[l].float().contiguous(), w_pack=torch.cat(halves).contiguous(),
+            w_plain=sum_planes(planes).permute(3, 2, 0, 1).contiguous(), w_hi=mats[0],
+            w_mid=w_mid, w_lo=w_lo, bias=bs[l].float().contiguous(),
+            w_pack=torch.cat([pack_kmajor(m) for m in mats]).contiguous(),
         ))
         prev = cout
-    return Chain(tuple(layers), band_fp32=band_fp32)
+    return Chain(tuple(layers), mode=mode)
 
 
 def _oihw(layer: ChainLayer, m: torch.Tensor) -> torch.Tensor:
@@ -195,11 +271,10 @@ def _oihw(layer: ChainLayer, m: torch.Tensor) -> torch.Tensor:
 
 def layer_weight_from_pack(layer: ChainLayer) -> torch.Tensor:
     """The OIHW fp32 weights the kernel multiplies by, rebuilt from
-    ``layer.w_pack`` alone (hi + lo for a split layer, pad rows and
-    columns dropped): equals ``layer.w_plain``."""
-    halves = unpack_kmajor(layer.w_pack.float()).reshape(
-        2 if layer.split else 1, -1, layer.cout_pad)
-    return _oihw(layer, halves.sum(0) if layer.split else halves[0])
+    ``layer.w_pack`` alone (the sum of its planes, pad rows and columns
+    dropped): equals ``layer.w_plain``."""
+    planes = unpack_kmajor(layer.w_pack.float()).reshape(len(layer.planes), -1, layer.cout_pad)
+    return _oihw(layer, sum_planes(planes))
 
 
 def _state_plan(state_out, chain: Chain):
@@ -226,12 +301,13 @@ def _conv_nhwc(x, w_oihw, bias, ks):
     return y.permute(0, 2, 3, 1)
 
 
-def _layer_plain(inp, layer: ChainLayer, band_fp32: bool):
-    """One layer: bias, act.  bf16 bands: one conv of the bf16-valued
-    input with the weights the kernel multiplies by.  fp32 bands: the three
-    bf16_3x convs, w_hi a_hi + w_hi a_lo + w_lo a_hi, summed in fp32 as
-    rvdd_tpu sums its three dots."""
-    if band_fp32:
+def _layer_plain(inp, layer: ChainLayer, mode: str):
+    """One layer: bias, act.  'high': the three bf16_3x convs, w_hi a_hi +
+    w_hi a_lo + w_lo a_hi, summed in fp32 as rvdd_tpu sums its three dots.
+    The other modes: one fp32 conv of the input (bf16-valued in 'bf16' and
+    'w32', fp32 in 'highest') with the weights the kernel multiplies by
+    (fp32 in 'highest' and 'w32')."""
+    if mode == "high":
         a_hi, a_lo = (t.float() for t in split_weight(inp))  # as the kernel splits its tile
         k = layer.ks
         w_hi, w_lo = _oihw(layer, layer.w_hi), _oihw(layer, layer.w_lo)
@@ -263,7 +339,7 @@ def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
     outs = {}
     for l, layer in enumerate(chain.layers):
         inp = torch.cat([h, auxw], dim=-1) if (l == 1 and layer.aux_c) else h
-        y = _layer_plain(inp, layer, chain.band_fp32)
+        y = _layer_plain(inp, layer, chain.mode)
         band = y.to(bd)
         if plan is not None and l in plan:
             off = plan[l][0]
@@ -274,24 +350,30 @@ def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
     return (state,) if state_out is not None else tuple(outs[l] for l in emit)
 
 
-#: the kernel's modes, as rvdd_conv_layer_plan numbers them
-PLAN_MODES = ("bf16", "bf16 split", "fp32 resident", "fp32 streamed")
+#: the kernel's launch modes, as rvdd_conv_layer_plan numbers them (enum
+#: Mode): the 'high', 'highest' and 'w32' chains keep a layer's weights
+#: resident where they fit beside its tile, and stream them otherwise
+PLAN_MODES = ("bf16", "bf16 split", "fp32 resident", "fp32 streamed",
+              "highest resident", "highest streamed", "w32 resident", "w32 streamed")
 
 
-def layer_plan(layer: ChainLayer, band_fp32: bool) -> dict:
-    """How the kernel runs ``layer`` in a chain of that band mode: the mode
-    (PLAN_MODES: an fp32 layer whose split weights do not fit shared memory
-    with its tile streams them a tap at a time), tile rows, warpgroups a
-    CTA and shared memory a CTA.  The rule lives in the CUDA source, so this
-    builds and loads the library (a machine with the CUDA toolkit); raises
-    for a layer no configuration fits."""
+def _prec(layer: ChainLayer, mode: str) -> int:
+    """The layer's numerics (PRECS) in a chain of that mode."""
+    return PRECS.index("bf16 split" if mode == "bf16" and layer.split else mode)
+
+
+def layer_plan(layer: ChainLayer, mode: str) -> dict:
+    """How the kernel runs ``layer`` in a chain of that mode (MODES): the
+    launch mode (PLAN_MODES), tile rows, warpgroups a CTA and shared memory
+    a CTA.  The rule lives in the CUDA source, so this builds and loads the
+    library (a machine with the CUDA toolkit); raises for a layer no
+    configuration fits."""
     lib = _build.load_library("conv_chain")
     fn = lib.rvdd_conv_layer_plan
-    fn.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    rc = fn(layer.ks, layer.cin0_pad + layer.aux_c, layer.cout_pad, int(layer.split),
-            int(band_fp32), out)
+    rc = fn(layer.ks, layer.cin0_pad + layer.aux_c, layer.cout_pad, _prec(layer, mode), out)
     _build.check(lib, rc, "conv_chain plan")
     return dict(mode=PLAN_MODES[out[0]], trw=out[1], nwg=out[2], smem=out[3])
 
@@ -302,9 +384,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _check_dtype(name, t, chain: Chain):
     if t.dtype != chain.dtype:
-        mode = "fp32" if chain.band_fp32 else "bf16"
-        raise TypeError(f"conv_chain: {name} must be {chain.dtype} for a chain with {mode} "
-                        f"bands, got {t.dtype}")
+        raise TypeError(f"conv_chain: {name} must be {chain.dtype} for a chain in the "
+                        f"{chain.mode!r} mode, got {t.dtype}")
 
 
 def _check(name, t, device):
@@ -320,8 +401,8 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
                emit: Sequence[int] = (), pool: Sequence[int] = (),
                upsample_input: bool = False, state_out=None):
     """Run a packed conv chain (see :func:`pack_chain`) on NHWC input of
-    the chain's band dtype (``chain.dtype``: bf16, or fp32 for a
-    ``band_fp32`` chain; any other dtype raises TypeError).
+    the chain's band dtype (``chain.dtype``: fp32 for the 'high' and
+    'highest' modes, else bf16; any other dtype raises TypeError).
 
     x: [B, H, W, Cx], or [B, H/2, W/2, Cx] with ``upsample_input``.
     aux: [B, H, W, Ca] joined to layer 1's input after layer 0's output;
@@ -333,9 +414,10 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
     named layers write from their fp32 accumulators (channels no layer
     writes must follow one that does and are zero).
 
-    CUDA tensors launch one kernel per layer (counted in
-    ``conv_chain.launches``, and those of fp32-band chains also in
-    ``conv_chain.fp32_launches``); CPU tensors run :func:`conv_chain_plain`.
+    CUDA tensors launch one kernel per layer in the chain's mode, counted
+    in ``conv_chain.launches`` and by mode in
+    ``conv_chain.mode_launches[chain.mode]``; CPU tensors run
+    :func:`conv_chain_plain`.
     """
     _check_dtype("x", x, chain)
     if aux is not None:
@@ -396,14 +478,13 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
                 int(l == 0 and upsample_input),
                 aux.data_ptr() if use_aux else None, layer.aux_c if use_aux else 0,
                 aux_stride, aux_off,
-                layer.w_pack.data_ptr(), int(layer.split), int(chain.band_fp32),
-                layer.bias.data_ptr(),
+                layer.w_pack.data_ptr(), _prec(layer, chain.mode), layer.bias.data_ptr(),
                 layer.ks, layer.cin0_pad, layer.cout, layer.cout_pad, int(layer.relu),
                 b, hh, ww, _ptr(out), _ptr(pooled),
                 state.data_ptr() if l in plan else None, n_state, st_off, st_zero,
                 stream)
         conv_chain.launches += 1
-        conv_chain.fp32_launches += chain.band_fp32
+        conv_chain.mode_launches[chain.mode] += 1
         _build.check(lib, rc, f"conv_chain layer {l}")
         if emitted:
             outs[l] = pooled if l in pool else out
@@ -412,4 +493,4 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
 
 
 conv_chain.launches = 0
-conv_chain.fp32_launches = 0
+conv_chain.mode_launches = dict.fromkeys(MODES, 0)

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from rvdd_tpu_torch import _build
-from rvdd_tpu_torch.ops.cuda.conv_chain import pack_kmajor, split_weight, unpack_kmajor
+from rvdd_tpu_torch.ops.cuda.conv_chain import pack_kmajor, split3, unpack_kmajor
 from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
 
 WIDTH = 48       # the architecture's block width
@@ -78,17 +78,6 @@ _ARGTYPES = [
 
 def _ceil16(n: int) -> int:
     return -(-n // 16) * 16
-
-
-def split3(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """w = hi + mid + lo exactly, as three bf16 tensors: hi keeps the top 16
-    bits of each fp32 value (mantissa mask), mid the top 16 bits of the
-    rest, lo the rest (at most 8 significant bits, so exact in bf16).  The
-    kernel splits its activations the same way in registers."""
-    wf = w.float().contiguous()
-    hi = (wf.view(torch.int32) & -65536).view(torch.float32)
-    mid, lo = split_weight(wf - hi)
-    return hi.to(BF16), mid, lo
 
 
 def _pack3(m: torch.Tensor) -> torch.Tensor:

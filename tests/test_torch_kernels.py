@@ -17,12 +17,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
+    MODES,
+    chain_mode,
     conv_chain,
     conv_chain_plain,
     layer_plan,
     layer_weight_from_pack,
     pack_chain,
     pack_kmajor,
+    split3,
     unpack_kmajor,
 )
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import (  # noqa: E402
@@ -106,13 +109,24 @@ def make_case(case, seed=0, h=None, w=None, batch=1, fp32=False):
     return x, aux, ws, bs
 
 
-def run_port(case, x, aux, ws, bs, device, plain=False, fp32=False):
-    """The port's chain on numpy inputs; ``fp32``: the fp32-band mode, the
-    inputs passed as fp32 (else rounded to bf16)."""
+#: the mean error over std the 'w32' kernel is held to against its plain
+#: version on the card (chip_smoke.py holds the 1080p chains to the same)
+W32_MEAN = 8e-4
+
+#: pack_chain's options for each kernel mode (rvdd_tpu's names)
+MODE_KW = {"bf16": {}, "high": dict(band_fp32=True),
+           "highest": dict(band_fp32=True, mxu_precision="highest"),
+           "w32": dict(mxu_precision="highest", weight_fp32=True)}
+
+
+def run_port(case, x, aux, ws, bs, device, plain=False, mode="bf16"):
+    """The port's chain on numpy inputs, packed in ``mode`` (MODE_KW), the
+    inputs passed in the chain's band dtype (fp32 in 'high' and 'highest',
+    else rounded to bf16)."""
     chain = pack_chain([torch.from_numpy(a).to(device) for a in ws],
                        [torch.from_numpy(b).to(device) for b in bs],
                        case["acts"], case["ks"], weight_split=case.get("split"),
-                       band_fp32=fp32)
+                       **MODE_KW[mode])
     fn = conv_chain_plain if plain else conv_chain
     kw = dict(emit=case.get("emit", ()), pool=case.get("pool", ()),
               upsample_input=case.get("upsample", False), state_out=case.get("state"))
@@ -136,12 +150,15 @@ def _unplanar(p, h, w):
     return p.reshape(h, p.shape[0] // h, -1)[:, :, :w].transpose(0, 2, 1)[None]
 
 
-def run_tpu(tpu, case, x, aux, ws, bs, fp32=False):
+def run_tpu(tpu, case, x, aux, ws, bs, mode="bf16"):
     """rvdd_tpu's fused_conv_chain (interpret mode) plus the planar glue the
-    port folds into its kernel (lane pool, lane upsample); ``fp32``: fp32
-    bands and outputs with mxu_precision='high' (the manual bf16_3x)."""
+    port folds into its kernel (lane pool, lane upsample), with the options
+    of the port's ``mode``: 'high', fp32 bands and outputs with
+    mxu_precision='high' (the manual bf16_3x); 'highest', fp32 bands and
+    weights at 'highest'; 'w32', bf16 bands with weight_dtype=float32 at
+    'highest'.  The case's weight split applies to the bf16 modes."""
     jnp = tpu.jnp
-    dt = jnp.float32 if fp32 else jnp.bfloat16
+    dt = jnp.float32 if mode in ("high", "highest") else jnp.bfloat16
     h, w = case["h"], case["w"]
     wl = tpu.conv.lane_width(w)
     packed, biases = [], []
@@ -157,12 +174,14 @@ def run_tpu(tpu, case, x, aux, ws, bs, fp32=False):
         xp = _planar(jnp, x, wl, dt)
     kw = dict(h_img=h, w_img=w, tile_h=8, interpret=True,
               upsample_input=case.get("upsample", False))
-    if fp32:
-        kw.update(band_dtype=jnp.float32, mxu_precision="high")
+    if mode in ("high", "highest"):
+        kw.update(band_dtype=jnp.float32, mxu_precision=mode)
+    elif mode == "w32":
+        kw.update(mxu_precision="highest", weight_dtype=jnp.float32)
     if aux is not None:
         kw["aux"] = _planar(jnp, aux, wl, dt)
         kw["aux_channels"] = case["aux"][1:]
-    if case.get("split"):
+    if case.get("split") and mode in ("bf16", "high"):
         kw["weight_dtype"] = tuple("split" if s else None for s in case["split"])
     if "state" in case:
         outs = tpu.conv.fused_conv_chain(
@@ -227,8 +246,8 @@ def test_conv_chain_plain_fp32_matches_fused_conv_chain_high(tpu, name):
     seen)."""
     case = CASES[name]
     x, aux, ws, bs = make_case(case, seed=4, fp32=True)
-    got = run_port(case, x, aux, ws, bs, "cpu", fp32=True)
-    want = run_tpu(tpu, case, x, aux, ws, bs, fp32=True)
+    got = run_port(case, x, aux, ws, bs, "cpu", mode="high")
+    want = run_tpu(tpu, case, x, aux, ws, bs, mode="high")
     assert len(got) == len(want)
     for g, wv in zip(got, want):
         assert g.shape == wv.shape, (g.shape, wv.shape)
@@ -274,7 +293,7 @@ def test_conv_chain_fp32_mode_is_closer_to_fp32(name):
     case = CASES[name]
     x, aux, ws, bs = make_case(case, seed=5, fp32=True)
     want = fp32_reference(case, x, aux, ws, bs)
-    f32 = run_port(case, x, aux, ws, bs, "cpu", fp32=True)
+    f32 = run_port(case, x, aux, ws, bs, "cpu", mode="high")
     b16 = run_port(case, x, aux, ws, bs, "cpu")
     for a, b, wv in zip(f32, b16, want):
         e32, e16 = float(np.max(np.abs(a - wv))), float(np.max(np.abs(b - wv)))
@@ -305,6 +324,85 @@ def test_conv_chain_fp32_mode_packing_and_dtypes():
     assert bf.dtype == BF16
     with pytest.raises(TypeError):
         conv_chain(xt, bf, aux=at.to(BF16), **kw)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_conv_chain_plain_highest_matches_fused_conv_chain_highest(tpu, name):
+    """The 'highest' mode (rvdd_tpu's 'accurate' chains) against
+    fused_conv_chain with band_dtype=float32 and mxu_precision='highest',
+    fp32 inputs: on the CPU both are the plain fp32 chain (the interpreter's
+    HIGHEST dots are exact fp32), in different summation orders, and the
+    upsample runs lanes then rows in rvdd_tpu, rows then lanes here.  Max
+    error 1e-4 x std, mean 5e-6 x std (seen: max 0 to 2.3e-6, mean 0 to
+    1.8e-7)."""
+    case = CASES[name]
+    x, aux, ws, bs = make_case(case, seed=9, fp32=True)
+    got = run_port(case, x, aux, ws, bs, "cpu", mode="highest")
+    want = run_tpu(tpu, case, x, aux, ws, bs, mode="highest")
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape, (g.shape, wv.shape)
+        assert _norm_err(g, wv) < 1e-4, (name, _norm_err(g, wv))
+        assert np.mean(np.abs(g - wv)) < 5e-6 * np.std(wv), name
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_conv_chain_plain_w32_matches_fused_conv_chain_wf32(tpu, name):
+    """The 'w32' mode (rvdd_tpu's 'wf32' chains) against fused_conv_chain
+    with bf16 bands and weight_dtype=float32 at 'highest', bf16 inputs: both
+    convolve bf16 bands with the fp32 weights exactly and round each band to
+    bf16.  Without the upsample the two differ only in fp32 summation order
+    and are held to a max error of 1e-5 x std (seen: 0), which the same
+    chain with bf16 weights (the 'bf16' mode on the same inputs) fails
+    (seen: 0.029 to 0.038).  With the upsample, whose lane half rvdd_tpu
+    computes in bf16 arithmetic, a band can round one ulp the other way and
+    the next layers carry it: max 6e-2 x std and mean 5e-3 x std, the bf16
+    chains' bounds (seen: 3.0e-2 and 3.2e-2, means 1.7e-3 and 2.3e-3)."""
+    case = CASES[name]
+    x, aux, ws, bs = make_case(case, seed=10)
+    got = run_port(case, x, aux, ws, bs, "cpu", mode="w32")
+    want = run_tpu(tpu, case, x, aux, ws, bs, mode="w32")
+    assert len(got) == len(want)
+    tol = 6e-2 if case.get("upsample") else 1e-5
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape, (g.shape, wv.shape)
+        assert _norm_err(g, wv) < tol, (name, _norm_err(g, wv))
+        assert np.mean(np.abs(g - wv)) < 5e-3 * np.std(wv), name
+    if not case.get("upsample"):
+        bf = run_port(case, x, aux, ws, bs, "cpu", mode="bf16")
+        assert max(_norm_err(g, wv) for g, wv in zip(bf, want)) >= tol, name
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_pack_chain_modes_mark_every_layer(mode):
+    """Each mode packs every layer as the kernel reads it: 'bf16' one plane
+    (two where the layer is split), 'high' two (every layer split), 'highest'
+    and 'w32' three (split3), whatever weight_split says; the kernel's copy
+    unpacks to the weights the plain version convolves with, which in the
+    fp32-weight modes are the fp32 weights bit for bit (split3's planes sum
+    back exactly).  The chain's dtype is its bands'.  Combinations with no
+    kernel mode raise."""
+    case = CASES["state_split"]
+    _, _, ws, bs = make_case(case, seed=12)
+    tw = [torch.from_numpy(a) for a in ws]
+    chain = pack_chain(tw, [torch.from_numpy(b) for b in bs], case["acts"], case["ks"],
+                       weight_split=case["split"], **MODE_KW[mode])
+    assert chain.mode == mode == chain_mode(**MODE_KW[mode])
+    assert chain.dtype == (torch.float32 if mode in ("high", "highest") else BF16)
+    for l, (layer, w) in enumerate(zip(chain.layers, tw)):
+        want = {"bf16": 2 if case["split"][l] else 1, "high": 2}.get(mode, 3)
+        k = layer.ks ** 2 * (layer.cin0_pad + layer.aux_c)
+        assert len(layer.planes) == want and layer.split == (want == 2)
+        assert tuple(layer.w_pack.shape) == (want * k // 8, layer.cout_pad, 8)
+        assert torch.equal(layer_weight_from_pack(layer), layer.w_plain)
+        if want == 3:
+            assert torch.equal(layer.w_plain, w.permute(3, 2, 0, 1))
+            hi, mid, lo = split3(w)
+            assert torch.equal((hi.float() + mid.float()) + lo.float(), w)
+    for bad in (dict(band_fp32=True, mxu_precision="default"), dict(mxu_precision="high"),
+                dict(weight_fp32=True), dict(mxu_precision="highest")):
+        with pytest.raises(NotImplementedError):
+            chain_mode(**bad)
 
 
 def test_conv_chain_wrapper_runs_plain_on_cpu():
@@ -373,9 +471,9 @@ def test_conv_chain_fp32_kernel_matches_plain(cuda, name, shape):
     h, w, batch = shape
     x, aux, ws, bs = make_case(case, seed=8, h=h, w=w, batch=batch, fp32=True)
     before = conv_chain.launches
-    got = run_port(case, x, aux, ws, bs, cuda, fp32=True)
+    got = run_port(case, x, aux, ws, bs, cuda, mode="high")
     assert conv_chain.launches == before + len(case["ks"])
-    want = run_port(case, x, aux, ws, bs, cuda, plain=True, fp32=True)
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True, mode="high")
     for g, wv in zip(got, want):
         assert g.shape == wv.shape and g.shape[0] == batch
         assert np.isfinite(g).all()
@@ -396,14 +494,14 @@ def test_conv_chain_fp32_k864_layer_streams_its_weights(cuda):
     _, _, ws, bs = make_case(case)
     chain = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
                        case["acts"], case["ks"], band_fp32=True)
-    plans = [layer_plan(layer, True) for layer in chain.layers]
+    plans = [layer_plan(layer, "high") for layer in chain.layers]
     assert [p["mode"] for p in plans] == ["fp32 resident", "fp32 streamed",
                                           "fp32 resident", "fp32 resident"], plans
     assert plans[1]["nwg"] == 1 and all(p["smem"] <= 232448 for p in plans)
-    assert layer_plan(chain.layers[1], False)["mode"] == "bf16 split"
+    assert layer_plan(chain.layers[1], "bf16")["mode"] == "bf16 split"
     bf = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
                     case["acts"], case["ks"])
-    assert layer_plan(bf.layers[1], False)["mode"] == "bf16"
+    assert layer_plan(bf.layers[1], "bf16")["mode"] == "bf16"
 
 
 @pytest.mark.gpu
@@ -419,6 +517,119 @@ def test_conv_chain_fp32_kernel_rejects_bf16(cuda):
         conv_chain(xt.to(BF16), chain, aux=at, aux_channels=(8, 48))
     with pytest.raises(TypeError):
         conv_chain(xt, chain, aux=at.to(BF16), aux_channels=(8, 48))
+    assert conv_chain.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(20, 72, 1), (22, 72, 2), (26, 200, 2)],
+                         ids=["20x72", "22x72_b2", "26x200_b2"])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_highest_kernel_matches_plain(cuda, name, shape):
+    """The 'highest' kernel (three-plane tile and weights, six wgmma a
+    k-step) against its plain version, the fp32 chain, with TF32 off, fp32
+    inputs, at ragged sizes, batch 1 and 2.  The kernel drops the products
+    below 2^-24 of each product (mid lo, lo mid, lo lo) and both sum in
+    fp32 in different orders; no band is rounded.  Max error 2^-14 of
+    max|out| and mean 1e-5 x std (convnext_chain's fp32 bounds; a lost mid
+    or lo plane gives 2^-9 or 2^-17 of the value, the 'high' mode about
+    2^-17)."""
+    case = FP32_CARD_CASES[name]
+    h, w, batch = shape
+    x, aux, ws, bs = make_case(case, seed=13, h=h, w=w, batch=batch, fp32=True)
+    before, hb = conv_chain.launches, conv_chain.mode_launches["highest"]
+    got = run_port(case, x, aux, ws, bs, cuda, mode="highest")
+    assert (conv_chain.launches - before == conv_chain.mode_launches["highest"] - hb
+            == len(case["ks"]))
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True, mode="highest")
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == batch
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -14 * float(np.max(np.abs(wv))), (name, shape, err)
+        assert np.mean(np.abs(g - wv)) < 1e-5 * np.std(wv), (name, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(20, 72, 1), (22, 72, 2), (26, 200, 2)],
+                         ids=["20x72", "22x72_b2", "26x200_b2"])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_w32_kernel_matches_plain(cuda, name, shape):
+    """The 'w32' kernel (bf16 tile, three weight planes, three wgmma a
+    k-step) against its plain version, the bf16-valued bands convolved with
+    the fp32 weights in fp32 (TF32 off), at ragged sizes, batch 1 and 2.
+    Both round every band to bf16 after sums in different orders: within 4
+    bf16 ulps of max|out| (2^-6, the bf16 chains' bound) and a mean of
+    W32_MEAN x std (seen on an H100: 1.6e-7 to 4.0e-4), which the same
+    chain with bf16 weights fails
+    (test_conv_chain_w32_mean_bound_fails_bf16_weights)."""
+    case = FP32_CARD_CASES[name]
+    h, w, batch = shape
+    x, aux, ws, bs = make_case(case, seed=14, h=h, w=w, batch=batch)
+    before, wb = conv_chain.launches, conv_chain.mode_launches["w32"]
+    got = run_port(case, x, aux, ws, bs, cuda, mode="w32")
+    assert conv_chain.launches - before == conv_chain.mode_launches["w32"] - wb == len(case["ks"])
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True, mode="w32")
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == batch
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -6 * float(np.max(np.abs(wv))), (name, shape, err)
+        assert np.mean(np.abs(g - wv)) < W32_MEAN * np.std(wv), (name, shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_w32_mean_bound_fails_bf16_weights(cuda, name):
+    """The control of the 'w32' kernel's mean bound: the same chain with its
+    weights rounded to bf16 (the 'bf16' mode's packing, through the kernel),
+    which a kernel that lost the mid and lo weight planes would come close
+    to, held against the 'w32' plain version on the same inputs, reads a
+    mean error of at least W32_MEAN x std on some output (seen on an H100:
+    1.1e-3 to 5.0e-3)."""
+    case = FP32_CARD_CASES[name]
+    x, aux, ws, bs = make_case(case, seed=14, h=22, w=72, batch=2)
+    got = run_port(dict(case, split=None), x, aux, ws, bs, cuda)
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True, mode="w32")
+    means = [float(np.mean(np.abs(g - wv)) / np.std(wv)) for g, wv in zip(got, want)]
+    assert max(means) >= W32_MEAN, (name, means)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["highest", "w32"])
+def test_conv_chain_fp32_weight_modes_stream_k864(cuda, mode):
+    """With three weight planes a K = 864 layer's weights (248,832 bytes)
+    exceed shared memory, so chain A's layer 1 streams them a tap at a time
+    in both fp32-weight modes; its K = 144 and K = 432 layers keep them
+    resident (a 'highest' K = 432 layer beside one warpgroup's 2-row
+    tile).  Every plan fits the 232,448 bytes a block may have."""
+    case = FP32_CARD_CASES["chain_A"]
+    _, _, ws, bs = make_case(case)
+    chain = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
+                       case["acts"], case["ks"], **MODE_KW[mode])
+    plans = [layer_plan(layer, mode) for layer in chain.layers]
+    assert [p["mode"] for p in plans] == [f"{mode} resident", f"{mode} streamed",
+                                          f"{mode} resident", f"{mode} resident"], plans
+    assert plans[1]["nwg"] == 1 and all(p["smem"] <= 232448 for p in plans)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["highest", "w32"])
+def test_conv_chain_fp32_weight_modes_reject_wrong_dtype(cuda, mode):
+    """A 'highest' chain takes fp32 only and a 'w32' chain bf16 only: the
+    wrapper raises TypeError on the other dtype, for x and for aux, before
+    any launch."""
+    case = FP32_CARD_CASES["chain_A"]
+    x, aux, ws, bs = make_case(case, fp32=True)
+    chain = pack_chain([torch.from_numpy(a).to(cuda) for a in ws],
+                       [torch.from_numpy(b).to(cuda) for b in bs],
+                       case["acts"], case["ks"], **MODE_KW[mode])
+    other = BF16 if chain.dtype == torch.float32 else torch.float32
+    xt, at = torch.from_numpy(x).to(cuda), torch.from_numpy(aux).to(cuda)
+    before = conv_chain.launches
+    with pytest.raises(TypeError):
+        conv_chain(xt.to(other), chain, aux=at.to(chain.dtype), aux_channels=(8, 48))
+    with pytest.raises(TypeError):
+        conv_chain(xt.to(chain.dtype), chain, aux=at.to(other), aux_channels=(8, 48))
     assert conv_chain.launches == before
 
 

@@ -123,9 +123,11 @@ def test_unsupported_knobs_raise():
                                    future=False) == "mixed"
     assert resolve_fused_precision("auto", arch="convunet", feature_rec=True,
                                    future=True) == "hybrid:glue+A+dec2"
-    for name in ("accurate", "wf32"):
-        with pytest.raises(NotImplementedError):
-            resolve_fused_precision(name, arch="convunet", feature_rec=True, future=True)
+    for name in ("accurate", "wf32"):  # ported: they resolve to themselves
+        assert resolve_fused_precision(name, arch="convunet", feature_rec=True,
+                                       future=True) == name
+    with pytest.raises(ValueError):
+        resolve_fused_precision("nopreset", arch="convunet", feature_rec=True, future=True)
     assert resolve_fused_precision("auto", arch="convunet", feature_rec=True,
                                    future=False) == "fast"
 

@@ -32,28 +32,37 @@ FAST_DEC2 = (False, False, False, True, True)
 
 
 def _jax_parts(prec):
-    """(fp32 parts, dec2's weight split or None) of a resolved rvdd_tpu
-    preset, in the port's terms."""
-    bd, wd = prec["band_dtype"], prec.get("weight_dtype")
+    """(fp32 parts, dec2's weight split or None, fp32 weights, the fp32
+    chains' MXU precision) of a resolved rvdd_tpu preset, in the port's
+    terms."""
+    bd, wd, mp = prec["band_dtype"], prec.get("weight_dtype"), prec["mxu_precision"]
     if isinstance(bd, dict):
         fp32 = {c for c, d in bd.items() if d == jax.numpy.float32}
     else:
         fp32 = set(fu.HYBRID_CHAINS) if bd == jax.numpy.float32 else set()
+    if isinstance(mp, dict):  # a hybrid: 'high' for every named chain
+        assert set(mp.values()) == {"high"}
+        mp = "high"
+    w32 = not isinstance(wd, (dict, str)) and wd is not None and wd == jax.numpy.float32
     if isinstance(wd, dict):
         wd = tuple(v == "split" for v in wd["dec2"])
-    return fp32, wd
+    return fp32, None if w32 else wd, w32, mp
 
 
-@pytest.mark.parametrize("name", ["fast", "mixed", "wsplit", "hybrid:A+dec2", "hybrid:B+C",
-                                  "hybrid:glue+A+dec2", "hybrid:middle+dec0+dec1"])
+@pytest.mark.parametrize("name", ["fast", "mixed", "accurate", "wsplit", "wf32",
+                                  "hybrid:A+dec2", "hybrid:B+C", "hybrid:glue+A+dec2",
+                                  "hybrid:middle+dec0+dec1"])
 def test_presets_match_rvdd_tpu(name):
-    """Each ported preset names the same fp32 parts as rvdd_tpu's, and the
-    same weight split: fast's (post0, head) split of dec2 stays in a hybrid
-    that does not name dec2 and goes where it does (the 3-pass products
-    split every layer); wsplit splits every layer of every chain."""
+    """Each ported preset names the same fp32 parts as rvdd_tpu's, the same
+    MXU precision and weight dtype, and the same weight split: fast's
+    (post0, head) split of dec2 stays in a hybrid that does not name dec2
+    and goes where it does (the 3-pass products split every layer); wsplit
+    splits every layer of every chain; accurate and wf32 split none (fp32
+    weights)."""
     got, want = fu.get_fused_precision(name), jfu.get_fused_precision(name)
-    fp32, wd = _jax_parts(want)
+    fp32, wd, w32, mp = _jax_parts(want)
     assert set(got["fp32"]) == fp32
+    assert got["weight_fp32"] == w32 and got["mxu_precision"] == mp
     if wd == "split":
         assert got["weight_split"] is True
     elif wd is None:
@@ -86,24 +95,6 @@ def test_auto_resolves_as_rvdd_tpu(arch, feat, future):
     assert got == ("hybrid:glue+A+dec2" if arch.startswith("convunet") and feat and future
                    else "fast")
     assert fu.resolve_fused_precision("mixed", **kw) == "mixed"
-
-
-@pytest.mark.parametrize("name", ["accurate", "wf32"])
-def test_unported_presets_raise(name):
-    """'accurate' and 'wf32' need 6-pass products and fp32 weights, which
-    conv_chain lacks: they raise, at every entry, and never run as another
-    preset."""
-    with pytest.raises(NotImplementedError):
-        fu.get_fused_precision(name)
-    with pytest.raises(NotImplementedError):
-        fu.resolve_fused_precision(name, arch="convunet", feature_rec=True, future=True)
-    net = build_network(ARCH, IN_NC, 3, True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        fu.pack_fast_params(net, True, IN_NC, name)
-    cfg = engine.EngineConfig(feature_rec=True, future_patch_depth=FD, net_impl="fused",
-                              fused_precision=name)
-    with pytest.raises(NotImplementedError):
-        engine.init_state(cfg, torch.zeros(1, 3, H, W, 3))
 
 
 def test_convnext_fused_path_takes_fast_only():
@@ -157,18 +148,29 @@ def test_convnext_presets_match_rvdd_tpu(name):
 
 
 def test_pack_marks_each_chain():
-    """pack_fast_params packs each chain in its preset's mode."""
+    """pack_fast_params packs each chain in its preset's mode: the hybrid's
+    named chains and every chain of 'mixed' in the 'high' mode; every chain
+    of 'accurate' in the 'highest' mode and of 'wf32' in the 'w32' mode,
+    each layer's weights as three planes, with an fp32 eighth-res core."""
     net = build_network(ARCH, IN_NC, 3, True, device="cpu")
     packed = fu.pack_fast_params(net, True, IN_NC, "hybrid:glue+A+dec2")
+    assert [packed[c].mode for c in fu.CHAINS] == ["high", "bf16", "bf16", "bf16", "bf16", "high"]
     assert [packed[c].band_fp32 for c in fu.CHAINS] == [True, False, False, False, False, True]
     assert all(layer.split for c in ("A", "dec2") for layer in packed[c].layers)
     assert not any(layer.split for c in ("B", "C", "dec0", "dec1") for layer in packed[c].layers)
     assert not packed["middle_fp32"] and packed["middle_dtype"] == torch.float32
     assert fu.pack_fast_params(net, True, IN_NC, "hybrid:A+dec2")["middle_dtype"] == torch.bfloat16
     mixed = fu.pack_fast_params(net, True, IN_NC, "mixed")
-    assert all(mixed[c].band_fp32 for c in fu.CHAINS) and mixed["middle_fp32"]
+    assert all(mixed[c].mode == "high" for c in fu.CHAINS) and mixed["middle_fp32"]
     ws = fu.pack_fast_params(net, True, IN_NC, "wsplit")
     assert all(layer.split and not ws[c].band_fp32 for c in fu.CHAINS for layer in ws[c].layers)
+    for name, mode, band in (("accurate", "highest", torch.float32), ("wf32", "w32", torch.bfloat16)):
+        p = fu.pack_fast_params(net, True, IN_NC, name)
+        assert all(p[c].mode == mode and p[c].dtype == band for c in fu.CHAINS), name
+        assert all(len(layer.planes) == 3 and not layer.split
+                   for c in fu.CHAINS for layer in p[c].layers), name
+        assert p["middle_fp32"] and p["middle_dtype"] == torch.float32, name
+        assert fu.glue_dtype(fu.get_fused_precision(name)) == band, name
 
 
 # ------------------------------------------------------- the fused step
@@ -232,6 +234,20 @@ def test_mixed_step_near_exact(stream):
     assert norm_err(got2, want2) < 3e-3, norm_err(got2, want2)
 
 
+def test_accurate_step_near_exact(stream):
+    """The fused step under 'accurate' (every chain in the 'highest' mode,
+    fp32 bands and weights; the fp32 middle, warps and carry) against
+    rvdd_tpu's exact XLA step: normalized max error below 2e-4 at step 1
+    and 3e-4 at step 2, a tenth of 'mixed''s limits (seen: 8.0e-6 and
+    1.1e-5; rvdd_tpu's own 'accurate' in interpret mode 6.6e-6 and
+    8.7e-6)."""
+    _, _, net, frames, flows, (want1, want2) = stream
+    got1, got2 = port_steps(net, frames, flows, "accurate")
+    assert got1.shape == want1.shape == (1, H, W, 3)
+    assert norm_err(got1, want1) < 2e-4, norm_err(got1, want1)
+    assert norm_err(got2, want2) < 3e-4, norm_err(got2, want2)
+
+
 @pytest.fixture(scope="module")
 def jax_fused(stream):
     """rvdd_tpu's fused steps by preset (Pallas in interpret mode), each
@@ -279,9 +295,41 @@ def test_auto_step_between_fast_and_exact(stream, jax_fused):
         assert got[auto][step][1] < 1.1 * ref[step][1], (got, ref)
 
 
-@pytest.mark.parametrize("preset,lims", [("hybrid:glue+A+dec2", (0.1, 0.15)),
-                                         ("wsplit", (0.2, 0.3)), ("mixed", (1e-3, 2e-3))])
-def test_fused_step_matches_rvdd_tpu_fused(stream, jax_fused, preset, lims):
+def test_wf32_step_keeps_fp32_weights(stream, jax_fused, monkeypatch):
+    """'wf32' rounds the bands to bf16 but not the chains' weights, so its
+    mean error against the exact step is rvdd_tpu's 'wf32''s: within 1.2x
+    of it at both steps (seen 0.87x and 0.91x).  The control, the same step
+    with every chain's weights rounded to bf16 (split3 giving the bf16
+    weights as the hi plane and zero mid and lo planes, which is what a
+    kernel that dropped them would compute), reads 1.42x and 1.34x and must
+    fail that bound: test_fused_step_matches_rvdd_tpu_fused's 1.5x cannot
+    tell the two apart."""
+    from rvdd_tpu_torch.ops.cuda import conv_chain as cc
+
+    _, _, net, frames, flows, exact = stream
+    ref = jax_fused("wf32")
+
+    def ratios(outs):
+        return [float(np.mean(np.abs(g - e)) / np.mean(np.abs(w - e)))
+                for g, w, e in zip(outs, ref, exact)]
+
+    got = ratios(port_steps(net, frames, flows, "wf32"))
+
+    def bf16_weights(w):
+        b = w.float().to(torch.bfloat16)
+        return b, torch.zeros_like(b), torch.zeros_like(b)
+
+    monkeypatch.setattr(cc, "split3", bf16_weights)
+    control = ratios(port_steps(net, frames, flows, "wf32"))
+    assert all(r < 1.2 for r in got), got
+    assert all(r >= 1.2 for r in control), control
+
+
+@pytest.mark.parametrize("preset,lims,mutual", [
+    ("hybrid:glue+A+dec2", (0.1, 0.15), "max"), ("wsplit", (0.2, 0.3), "max"),
+    ("mixed", (1e-3, 2e-3), "max"), ("accurate", (1e-4, 1.5e-4), "max"),
+    ("wf32", (0.2, 0.3), "mean")])
+def test_fused_step_matches_rvdd_tpu_fused(stream, jax_fused, preset, lims, mutual):
     """The port's fused step against rvdd_tpu's fused step in the same
     preset (Pallas kernels in interpret mode), two steps with the state
     carried.  Chain by chain the two agree to fp32 summation order
@@ -293,13 +341,26 @@ def test_fused_step_matches_rvdd_tpu_fused(stream, jax_fused, preset, lims):
     bounds are the bf16 presets' envelope against the exact step (0.2 /
     0.3, tests/test_fast_step.py), halved for the hybrid, whose full-res
     cycle is fp32, and for 'mixed' half its own bound against the exact
-    step (test_mixed_step_near_exact); and each side's error against the
-    exact step must be within 1.5x of the other's."""
+    step (test_mixed_step_near_exact), and for 'accurate' half of its own
+    (test_accurate_step_near_exact; seen 7.9e-6 / 1.1e-5, and 0.057 / 0.081
+    for 'wf32').  Each side's error against the exact step must be within
+    1.5x of the other's: the max error, or for 'wf32' the mean, where the
+    port's max error must in addition stay within 1.5x of rvdd_tpu's.  (Its
+    max errors are 0.032 / 0.070 against rvdd_tpu's 0.073 / 0.064, its
+    means 0.0073 / 0.0100 against 0.0084 / 0.0109: the max of bf16 noise
+    moves with each rounding choice, so the port's lower max at step 1
+    says no more than the means, which agree within 15%.)"""
     _, _, net, frames, flows, exact = stream
     want = jax_fused(preset)
     got = port_steps(net, frames, flows, preset)
+
+    def mean_err(a, b):
+        return float(np.mean(np.abs(a - b)) / np.std(b))
+
+    stat = norm_err if mutual == "max" else mean_err
     for step, (g, w, e, lim) in enumerate(zip(got, want, exact, lims)):
         assert np.isfinite(g).all()
         assert norm_err(g, w) < lim, (preset, step, norm_err(g, w))
         assert norm_err(g, e) < 1.5 * norm_err(w, e), (preset, step)
-        assert norm_err(w, e) < 1.5 * norm_err(g, e), (preset, step)
+        assert stat(g, e) < 1.5 * stat(w, e), (preset, step)
+        assert stat(w, e) < 1.5 * stat(g, e), (preset, step)
