@@ -1,6 +1,6 @@
 """Smoke run of rvdd_tpu_torch on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py [--warp-source DIR]
+    python3 chip_smoke.py [--warp-source DIR] [--cnx-source DIR]
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
@@ -31,7 +31,9 @@
    source window in shared memory, gathered directly or were all zeroed
    (the kernel's counter, held equal to ``tile_paths``).  With
    ``--warp-source DIR`` it also times the warp kernel of another checkout
-   (e.g. the parent commit's tree) against this one, in turns.
+   (e.g. the parent commit's tree) against this one, in turns; with
+   ``--cnx-source DIR`` the other checkout's convnext_chain kernel against
+   this one's on the flagship's seven chains at 1080p, in both modes.
 4. Runs the TV-L1 solver on a 540x960 pair with a known flow, once per
    preset, through the kernel route and the plain route: the two agree
    within tests/test_tvl1.py's limits and both find the known flow.
@@ -892,6 +894,55 @@ def compare_warp_source(src_dir: str) -> None:
     log(json.dumps({"warp_source_comparison": rec}))
 
 
+def compare_cnx_source(src_dir: str, gen) -> None:
+    """The convnext_chain kernel of another checkout (``src_dir``, e.g. the
+    parent commit's tree) against this one on the flagship's seven chains
+    at 1080p, in both modes (the 'fast' and the 'mixed' packings), in one
+    process: both built with _build's nvcc flags and launched by the
+    wrapper through the C entry ``rvdd_convnext_block`` (35 arguments, the
+    same in both), timed in turns (other, this, this, other) as
+    check_cnx_chains times them.  The wrapper counts these launches; the
+    main paths reset the counts before they run."""
+    so = _build.BUILD_DIR / "libconvnext_chain_other.so"
+    src = Path(src_dir) / "rvdd_tpu_torch" / "csrc" / "convnext_chain.cu"
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                         check=True, capture_output=True, text=True)
+    for line in (out.stdout + out.stderr).splitlines():
+        if "Used" in line or "spill" in line:
+            log(f"  other convnext_chain.cu: {line.strip().replace('ptxas info    : ', '')}")
+    libs = {"other": ctypes.CDLL(str(so)), "this": _build.load_library("convnext_chain")}
+    rec = {"other": src_dir}
+    try:
+        for precision, key in (("fast", "bf16"), ("mixed", "fp32")):
+            _, _, packed = make_model("fused", seed=0, device=DEV, model="convnext+feat+future",
+                                      precision=precision)
+            total = [0.0] * 4
+            for name, x, kw in cnx_chain_specs(packed, gen, packed["A"].dtype):
+                chain = packed[name]
+                times = []
+                for k, which in enumerate(("other", "this", "this", "other")):
+                    _build._LIBS["convnext_chain"] = libs[which]
+                    times.append(time_ms(lambda: convnext_chain(x, chain, **kw), reps=5))
+                    total[k] += times[-1]
+                outs = {}
+                for which in ("other", "this"):
+                    _build._LIBS["convnext_chain"] = libs[which]
+                    outs[which] = convnext_chain(x, chain, **kw)
+                diff = max(float((o.float() - t.float()).abs().max())
+                           for o, t in zip(outs["other"], outs["this"]))
+                log(f"cnx source comparison [{key} {name}] other, this, this, other: "
+                    f"{', '.join(f'{t:.3f}' for t in times)} ms; max |other - this| {diff:.3e}, "
+                    f"card {CARD}")
+                del outs
+            rec[f"{key}_ms"] = total
+            log(f"cnx source comparison [{key}] seven chains a frame, other, this, this, other: "
+                f"{', '.join(f'{t:.3f}' for t in total)} ms, card {CARD}")
+            del packed
+    finally:
+        _build._LIBS["convnext_chain"] = libs["this"]
+    log(json.dumps({"cnx_source_comparison": rec}))
+
+
 def check_tvl1() -> None:
     """One 540x960 flow per preset through the kernel route and the plain
     route: the two agree within tests/test_tvl1.py's limits (median |d| <
@@ -1036,6 +1087,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of rvdd_tpu_torch on one CUDA card.")
     ap.add_argument("--warp-source", metavar="DIR",
                     help="also time the warp kernel of the checkout at DIR against this one")
+    ap.add_argument("--cnx-source", metavar="DIR",
+                    help="also time the convnext_chain kernel of the checkout at DIR against "
+                         "this one")
     args = ap.parse_args(argv)
     global CARD
     card = CARD = card_info()
@@ -1050,8 +1104,11 @@ def main(argv=None):
         kernel = ""  # conv_chain's instantiations by name: N, tile rows, mode (enum Mode)
         for line in rec["ptxas"]:
             m = re.search(r"conv_layer_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            mc = re.search(r"convnext_block_kernelILb([01])E", line)
             if "Compiling entry" in line:
-                kernel = f"conv_layer_kernel<{m[1]}, {m[2]}, {m[3]}>: " if m else ""
+                kernel = (f"conv_layer_kernel<{m[1]}, {m[2]}, {m[3]}>: " if m else
+                          f"convnext_block_kernel<{'fp32' if mc[1] == '1' else 'bf16'}>: " if mc
+                          else "")
             elif "Used" in line or "spill" in line:
                 log(f"    {kernel}{line.replace('ptxas info    : ', '')}")
 
@@ -1076,6 +1133,8 @@ def main(argv=None):
         catmull_rec = check_catmull_warp()
         if args.warp_source:
             compare_warp_source(args.warp_source)
+        if args.cnx_source:
+            compare_cnx_source(args.cnx_source, gen)
         check_tvl1()
     del packed
     torch.cuda.empty_cache()

@@ -919,12 +919,3 @@ int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int prec, int* out) 
 
 }  // extern "C"
 
-#ifdef RVDD_PHASE_CLOCKS
-// copies the phase clocks to host[0..3] and zeroes them; returns a cudaError_t
-extern "C" int rvdd_phase_clocks(void* host) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, wg::g_phase_clocks, sizeof(wg::g_phase_clocks));
-  const unsigned long long zero[4] = {0, 0, 0, 0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wg::g_phase_clocks, zero, sizeof(zero));
-  return (int)e;
-}
-#endif

@@ -31,9 +31,9 @@
 //     the chains of rvdd_tpu's 'mixed' and 'accurate' presets and its fp32
 //     eighth-res core): fp32 input, aux, bands, pool, head and emits, fp32
 //     taps and weights, LayerNorm in fp32, nothing rounded, the erf GELU
-//     with the exact erff (rvdd_tpu's kernel uses the Abramowitz-Stegun
-//     polynomial, 1.5e-7 abs; its module path and the port's plain version
-//     the exact erf).  pw1 and pw2 are fp32-faithful: each operand is split
+//     with the erf of rvdd_tpu's kernel (the Abramowitz-Stegun polynomial,
+//     1.5e-7 abs; its module path and the port's plain version use the
+//     exact erf).  pw1 and pw2 are fp32-faithful: each operand is split
 //     by mantissa masks into hi, mid and lo bf16 planes that sum back to it
 //     exactly (the weights on the host, the LN and GELU outputs in
 //     registers), and each k-step issues six bf16 wgmma into one fp32
@@ -96,41 +96,79 @@
 // The fp32 mode.  What bounds it: operations, about 4.9 ms a frame: its
 // 0.81 TFLOP of 1x1 work at six bf16 products a MAC on the tensor cores,
 // against 0.10 TFLOP of fp32 depthwise taps on the CUDA cores (1.5 ms at
-// 67 TFLOP/s) and about 3 GB of fp32 chain traffic (0.9 ms).  Its design
-// answers to shared memory and registers:
-//   * shared memory: the bf16 mode's 12x32 tile stages an 18x38 halo of 48
-//     bf16 channels (65.7 KB); in fp32 that halo is 131 KB, pw1 + pw2 in
-//     three planes are 110.6 KB (36.9 KB in bf16), the LN output as three
-//     A planes another 110 KB: far past the 227 KB a block may have.  So
-//     the fp32 tile is 4x32 (two 64-pixel segments): a 10x38 fp32 halo
-//     (73 KB), the LN output kept once in fp32 (24.6 KB, split into planes
-//     only in registers), the three-plane pw1 and pw2 resident (110.6 KB),
-//     227,328 B in all.  The proj's three planes (27.6 KB at 96 channels)
-//     do not fit beside them: a proj block copies them from L2 at each
-//     tile into the LN and sum regions, free until the depthwise, and
-//     projects its halo from there (a first form that ran the proj in fp32
-//     on the CUDA cores, one halo pixel a thread with the weights read
-//     through L1, took 80,876 cycles a tile against 5,200 for a plain
-//     block's staging: 8.2 ms a full-res block, probe, H100).  The halo is
-//     3x the tile's outputs (1.8x in bf16), and without room for a second
-//     halo the next tile is not prefetched;
-//   * registers: the bf16 mode keeps a 96-wide half of the hidden in
-//     registers, rounded and packed as pw2's A fragments, at 168 registers
-//     a thread with 384 threads; three planes would triple that fragment.
-//     The fp32 mode takes the hidden a quarter (48) at a time: per quarter
-//     it loads the LN output's fragments from shared memory and splits them
-//     (36 registers), runs pw1 (18 wgmma m64n48k16), applies bias and GELU
-//     and splits the result into pw2's A fragments (36 registers), and runs
-//     that quarter's pw2 (18 wgmma) into the segment's accumulator;
-//   * two warpgroups run the products, one segment each, and the third is
-//     idle through them; the depthwise and LayerNorm use all 384 threads,
-//     12 groups of 4 channels x 32 columns, each thread all 4 rows, and the
-//     fp32 halo is laid out [group of 4][pixel][4] so that a warp's reads
-//     of one tap row are 512 contiguous bytes (with 8-channel groups, 32
-//     bytes a lane, the same reads took two shared-memory wavefronts each
-//     and the phase 15,400 cycles a tile, probe, H100);
-//   * BlockArgsT<float>: every band pointer is fp32 and the upsample
-//     prologue does not round.
+// 67 TFLOP/s) and about 3 GB of fp32 chain traffic (0.9 ms).  A 4x32 tile
+// (two 64-pixel segments) needs 6,900 cycles of products on an SM, and its
+// CUDA cores must also issue the depthwise (2,352 FMA a thread of one
+// warpgroup), the 24,576 GELUs and the splits of the hidden into hi, mid
+// and lo planes: about 10,000 issue cycles on each of the four schedulers,
+// so the CUDA-core stream, not the tensor cores, sets the pace once the
+// phases overlap.  The design (warp-specialized, one persistent CTA of
+// three warpgroups an SM):
+//   * a rolling halo: a CTA walks a run of consecutive 4-row tiles down
+//     one 32-column strip (the schedule, Sched, is contiguous ranges of
+//     the tiles in (image, strip, row) order, so no CTA takes more than
+//     ceil(tiles / CTAs); 1.002x the mean at 1080p).  The 10x38 fp32 halo
+//     lives in a ring of 11 rows ([group of 4 channels][slot][38][4]);
+//     after a run's first tile only the 4 new rows are staged (152 pixels,
+//     not 380): copied with cp.async, interpolated by an upsample block
+//     (the halo's source taps once a tile), projected by a proj block
+//     (six-product wgmma on operands split in registers, the weight planes
+//     copied into the LN region, free until the depthwise).  The ring's
+//     11th row lets the next tile's new rows land in slots that the
+//     current tile's epilogue does not read, so staging never waits for
+//     the consumers' epilogue, except before a run's first tile (BAR_DONE);
+//   * warpgroup 2, the producer (setmaxnreg to 152 registers), stages the
+//     tile, runs the depthwise (lane = column and quarter of the channels,
+//     all 4 rows, a pixel's 48 channels in 4 lanes of one warp, so the
+//     LayerNorm sums are shuffles) and writes the LN output, then hands it
+//     over (named barriers BAR_FULL / BAR_EMPTY): it works a tile ahead of
+//     the consumers;
+//   * warpgroups 0 and 1, the consumers (176 registers), take one segment
+//     each: the LN output's A fragments split once a tile and held in
+//     registers (36), so the LN region is the producer's again at once;
+//     pw1 a quarter (48) of the hidden at a time, two quarters ahead in two
+//     accumulators; bias, GELU and split; pw2 from registers (the
+//     FlashAttention-3 P.V pattern).  The two take turns to issue their
+//     batches of products (BAR_TURN, the FlashAttention-3 ping-pong), so
+//     that one's GELU runs under the other's wgmma;
+//   * the epilogue from registers: residual x from the ring's centre rows,
+//     band and state stored as float2, the head by quad shuffles; the LN
+//     rows are ordered so that a thread holds a pixel and the one below it,
+//     and the 2x2 pool is one shuffle (no shared scratch);
+//   * the GELU uses rvdd_tpu's kernel's erf (Abramowitz-Stegun, 1.5e-7 abs)
+//     with the MUFU's approximate reciprocal and exp2: 15 instructions a
+//     value where erff takes 32.  With erff a plain full-res block took
+//     2.69 ms, with it 2.34 (probe, H100, the other parts as then): the
+//     consumers' stream sets the pace (without any GELU the block took
+//     1.42 ms).
+// Budgets: shared memory 232,192 of 232,448 bytes (pw1 + pw2 in three
+// planes 110,592; taps 9,408; vectors and head 3,488; ring 80,256; the LN
+// output, or a proj block's weight planes, 27,648; upsample taps 576; 224
+// of alignment);
+// registers 168 a thread at launch, shifted by setmaxnreg to 152 for the
+// producer (a proj chunk keeps 72 registers of split input and its
+// accumulator) and 176 for the consumers (two pw1 accumulators, pw2's, and
+// the LN's and the hidden's fragments, 144), with 12-16 bytes of spill.
+// What bounds it now (probe, cycles a tile on the H100): a plain full-res
+// block is balanced at about 20,000 (the producer's staging 7,200 and
+// depthwise 12,100; the consumers' products 16,400 and epilogue 1,700), 1.40
+// ms; a proj block (96 channels) is the producer's (projection 23,000: one
+// warpgroup's chains of 36 dependent wgmma a chunk and its loads), 2.5 ms;
+// an upsample block the producer's too (staging 13,300), 1.7 ms.  Tried and
+// dropped (probe on variants of this source, H100): prefetching the next
+// tile's input rows into L2 (plain 1.38 -> 1.66 ms: even code a block does
+// not run moves the producer's register allocation); a depthwise in two
+// passes, so that the new rows' copy overlaps the old rows' taps (3 KB of
+// spill, 3.1 ms); the consumers projecting the next tile's first two
+// chunks (940 bytes of spill, proj 3.3 ms); two accumulators for the
+// projection (430 bytes of spill, slower); pw2 and the next pw1 interleaved
+// in one batch (1.45 against 1.39 ms); register splits 136/184 (288 bytes
+// of spill), 120/192 and 160/168 (1.95 and 2.10 ms).  The first form of
+// the projection, with a wait a k-step and branchy scalar loads, staged
+// for 45,000 cycles a tile; the kept one loads a chunk's inputs with no
+// branch between them (float2 where the channel counts allow) and waits
+// once a chunk: 23,000.  BlockArgsT<float>: every band pointer is fp32 and
+// the upsample does not round.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -202,7 +240,7 @@ struct Smem {
   int pw1, pw2, proj, dw, vec, head, tile, ln, res, sum1, sum2, total;
 };
 
-__host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
+__host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
 // byte offsets of the shared-memory regions.  ln holds the LN output (the
 // pw1 A operand, [segment][cg][64][8]), and then each segment's bf16 band
@@ -775,44 +813,90 @@ __device__ __forceinline__ void block_bf16(const BlockArgs& a, unsigned char* sm
 }
 
 // ------------------------------------------------------------- fp32 mode
-// rvdd_tpu's band_dtype=float32, mxu_precision='highest', gelu_exact=True.
-// The geometry differs from the bf16 mode's: a 4x32 tile (two 64-pixel
-// segments, one per product warpgroup), an fp32 halo and fp32 LN output,
-// and the pw1 and pw2 weights resident as three bf16 planes each.
+// rvdd_tpu's band_dtype=float32, mxu_precision='highest', gelu_exact=True,
+// warp-specialized (see the source note): warpgroup 2, the producer,
+// stages each tile's new halo rows into a ring and runs the depthwise and
+// LayerNorm a tile ahead; warpgroups 0 and 1, the consumers, run one
+// 64-pixel segment each through pw1, GELU, pw2 and the epilogue.
 
 namespace f32m {
 
 constexpr int TH = 4;                 // output tile rows (TW = 32 columns as in the bf16 mode)
-constexpr int HT = TH + 2 * R;
-constexpr int NPIX = HT * WT;         // 380 halo-tile pixels
+constexpr int HT = TH + 2 * R;        // halo rows of a tile
+constexpr int RING = HT + 1;          // ring rows: a halo and one (see the source note)
 constexpr int NSEG = TH * TW / 64;    // 2 segments: tile rows 2s, 2s+1
 constexpr int CG4 = F / 4;            // channel groups of 4 (16 bytes of fp32)
 constexpr int PLANE = F * HID * 2;    // bytes of one bf16 plane of pw1 or pw2
-constexpr int SEG_FLOATS = 64 * F;    // one segment of LN output or band, [64][F] fp32
-static_assert(CG4 * 32 == NTHREADS && NSEG <= NWG, "tile, threads and segments must match");
-static_assert(3 * MAX_CIN * F * 2 <= NSEG * SEG_FLOATS * 4 + CG4 * TH * TW * 4,
-              "the proj's three planes fit the LN and sum regions (adjacent)");
+constexpr int RING_PX = RING * WT;    // pixels of one channel-group plane of the ring
+constexpr int SEG_LN = CG4 * 64 * 4;  // floats of one segment's LN output, [CG4][64][4]
+constexpr int NCONS = NSEG * 128;     // consumer threads: warpgroups 0 and 1
+constexpr int KMAX = MAX_CIN / 16;    // proj k16 steps
+// registers a thread after setmaxnreg (168 at launch): the producer's
+// projection keeps a chunk's split input (72) and its accumulator; a
+// consumer two pw1 accumulators, pw2's, and the LN's and the hidden's
+// three-plane fragments (144)
+constexpr int PROD_REGS = 152, CONS_REGS = 176;
+// named barriers (0 is __syncthreads, 1-3 the bf16 mode's warpgroups)
+constexpr int BAR_PROD = 4;   // the producer's 128 threads
+constexpr int BAR_FULL = 5;   // a tile's LN output is written: the producer arrives
+constexpr int BAR_EMPTY = 6;  // the consumers hold it in registers: they arrive
+constexpr int BAR_DONE = 7;   // their epilogue has read the ring: before a run's first tile
+constexpr int BAR_TURN = 8;   // 8 + g: consumer g's turn to issue products (the two alternate)
+static_assert(NSEG == 2 && NCONS + 128 == NTHREADS, "two consumer warpgroups and a producer");
+static_assert(PROD_REGS * 128 + CONS_REGS * NCONS <= 168 * NTHREADS, "the launch's registers");
 
 struct Smem {
-  int pw1, pw2, dw, vec, head, tile, ln, sum, total;
+  int pw1, pw2, dw, vec, head, ring, ln, up, total;
 };
 
-// pw1 and pw2 (three planes each), the fp32 taps and vectors, the fp32
-// halo tile [CG4][NPIX][4], the LN output (then the band) [NSEG][64][F] and
-// the LN partial sums: 227,328 bytes of the 232,448 a block may have
-__host__ __device__ inline Smem smem_layout() {
-  Smem s;
+// pw1 and pw2 (three planes each), the fp32 taps and vectors, the ring
+// [CG4][RING][WT][4], the LN output [NSEG][CG4][64][4] (a proj block
+// copies the proj's three weight planes there while it stages) and an
+// upsample block's source taps of the halo's rows and columns
+__host__ __device__ constexpr Smem smem_layout() {
+  constexpr int ln_bytes = NSEG * SEG_LN * 4, proj_bytes = 3 * MAX_CIN * F * 2;
+  Smem s{};
   int o = 0;
   s.pw1 = o;  o = align128(o + 3 * PLANE);
   s.pw2 = o;  o = align128(o + 3 * PLANE);
   s.dw = o;   o = align128(o + TAPS * F * 4);
   s.vec = o;  o = align128(o + V_TOTAL * 4);
   s.head = o; o = align128(o + MAX_HEAD * F * 4);
-  s.tile = o; o = align128(o + CG4 * NPIX * 16);
-  s.ln = o;   o = align128(o + NSEG * SEG_FLOATS * 4);
-  s.sum = o;  o = align128(o + CG4 * TH * TW * 4);
+  s.ring = o; o = align128(o + CG4 * RING_PX * 16);
+  s.ln = o;   o = align128(o + (ln_bytes > proj_bytes ? ln_bytes : proj_bytes));
+  s.up = o;   o = align128(o + (HT + WT) * 12);
   s.total = o;
   return s;
+}
+static_assert(smem_layout().total <= 232448, "the shared memory a block may have");
+
+// The schedule, mirrored by ops/cuda/convnext_chain.py:tile_runs.  Tile i
+// is tile row i % R of strip (i / R) % S (32 columns) of image i / (S R);
+// CTA c of n takes tiles [c T / n, (c + 1) T / n) of the T, so none takes
+// more than ceil(T / n).  Its consecutive tiles of one strip form a run,
+// down which the ring carries the halo.
+struct Sched {
+  int S, R, lo, hi;
+  __device__ Sched(int B, int H, int W) {
+    S = (W + TW - 1) / TW;
+    R = (H + TH - 1) / TH;
+    const long long T = (long long)B * S * R;
+    lo = (int)(T * blockIdx.x / gridDim.x);
+    hi = (int)(T * (blockIdx.x + 1) / gridDim.x);
+  }
+  __device__ bool run_start(int i) const { return i == lo || i % R == 0; }
+  __device__ void tile(int i, int& b, int& y0, int& x0) const {
+    b = i / (S * R);
+    const int rem = i - b * S * R, s = rem / R;
+    x0 = s * TW;
+    y0 = (rem - s * R) * TH;
+  }
+};
+
+// float offset of channel c of ring pixel (slot, col): image row gy lives
+// in slot (gy + R) % RING, halo column col at image column x0 - R + col
+__device__ __forceinline__ int ring_at(int slot, int col, int c) {
+  return (((c >> 2) * RING + slot) * WT + col) * 4 + (c & 3);
 }
 
 // the six products of a k-step: (A plane, B plane) with planes hi 0, mid 1,
@@ -837,10 +921,31 @@ __device__ __forceinline__ void split3x2(float x, float y, uint32_t& hi, uint32_
                        __fsub_rn(ry, __uint_as_float(rby & 0xffff0000u)));
 }
 
+// torch's F.gelu(approximate='none'), x * 0.5 * (1 + erf(x / sqrt(2))),
+// with the erf of rvdd_tpu's kernel (convnext_pallas.py:_erf,
+// Abramowitz-Stegun 7.1.26, 1.5e-7 abs) and the MUFU's reciprocal and
+// exp2 (about 2^-22 relative): 15 instructions where erff takes 32 (it
+// selects between two polynomials); the GELU is most of the consumers'
+// instruction stream, which sets the tile's pace (see the source note)
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 __device__ __forceinline__ float gelu_erf(float x) {
-  // torch's F.gelu(approximate='none'), x * 0.5 * (1 + erf(x / sqrt(2))),
-  // with the exact erff (rvdd_tpu's kernel uses a polynomial, 1.5e-7 abs)
-  return x * 0.5f * (1.f + erff(x * 0.7071067811865476f));
+  const float z = x * 0.7071067811865476f, az = fabsf(z);
+  const float t = rcp_approx(fmaf(0.3275911f, az, 1.f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f), 0.254829592f);
+  const float e = ex2_approx(az * -1.4426950408889634f * az);  // exp(-z^2)
+  const float hx = 0.5f * x;
+  return fmaf(hx, copysignf(fmaf(-poly, e, 1.f), z), hx);
 }
 
 // 8 channels [c0, c0+8) of pixel `pixel` of the fp32 in0 (48 channels:
@@ -850,25 +955,6 @@ __device__ __forceinline__ void load_f8(const float* in0, size_t pixel, int c0, 
   const float4 u0 = __ldg(p), u1 = __ldg(p + 1);
   v[0] = u0.x; v[1] = u0.y; v[2] = u0.z; v[3] = u0.w;
   v[4] = u1.x; v[5] = u1.y; v[6] = u1.z; v[7] = u1.w;
-}
-
-// 8 channels of the 2x bilinear (align_corners=True) upsample of the
-// half-res in0 at full-res (gy, gx), rows first, in fp32 (not rounded)
-__device__ __forceinline__ void load_up8(const BlockArgsT<float>& a, int b, int gy, int gx,
-                                         int c0, float* v) {
-  int j0, j1, i0, i1;
-  float ty, tx;
-  ac_taps(gy, a.in0_h, j0, j1, ty);
-  ac_taps(gx, a.in0_w, i0, i1, tx);
-  const size_t r0 = (size_t)b * a.in0_h + j0, r1 = (size_t)b * a.in0_h + j1;
-  float v00[8], v01[8], v10[8], v11[8];
-  load_f8(a.in0, r0 * a.in0_w + i0, c0, v00);
-  load_f8(a.in0, r0 * a.in0_w + i1, c0, v01);
-  load_f8(a.in0, r1 * a.in0_w + i0, c0, v10);
-  load_f8(a.in0, r1 * a.in0_w + i1, c0, v11);
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    v[k] = lerp_rn(lerp_rn(v00[k], v10[k], ty), lerp_rn(v01[k], v11[k], ty), tx);
 }
 
 // proj-input channels (c, c+1), c even, of image pixel (gy, gx) inside the
@@ -908,113 +994,211 @@ __device__ __forceinline__ float2 load_in2(const BlockArgsT<float>& a, int b, in
   return make_float2(v[0], v[1]);
 }
 
-// float offset of channel c of halo pixel pix in the tile [CG4][NPIX][4]
-__device__ __forceinline__ int tile_at(int pix, int c) {
-  return ((c >> 2) * NPIX + pix) * 4 + (c & 3);
-}
-
-// the fp32 halo tile [CG4][NPIX][4]; zeros outside the image (the
-// depthwise conv's zero padding).  A plain block copies it with cp.async
-// (by pixel, so neighbouring threads read neighbouring 16 bytes); an
-// upsample block interpolates it from the half-res input.  A proj block
-// projects its input with the six-product wgmma: the proj's three weight
-// planes ([cin/8][F][8] each, 27,648 bytes at 96 channels) are copied into
-// wbuf, the LN and sum regions, which are free until the depthwise; each
-// warpgroup takes 64-pixel chunks of the halo, loads all of a chunk's
-// input channels from global memory as A fragments (the loads overlap),
-// splits them in registers and runs the k16 steps; bias, zeros outside the
-// image, then the tile.
-__device__ void stage_tile(const BlockArgsT<float>& a, int b, int y0, int x0, float* tile,
-                           unsigned char* wbuf, int cin) {
-  const int tid = threadIdx.x;
-  if (a.proj_w != nullptr) {
-    constexpr int KMAX = MAX_CIN / 16;
-    const int pbytes = cin * F * 2, ksteps = cin / 16;  // bytes of one plane; k16 steps
-    for (int i = tid * 16; i < 3 * pbytes; i += NTHREADS * 16)
-      wg::cp_async16(wbuf + i, reinterpret_cast<const unsigned char*>(a.proj_w) + i);
-    wg::cp_async_commit();
-    const uint32_t wb = wg::smem_addr(wbuf);
-    const int g = tid >> 7, lane = tid & 31, q = lane & 3;
-    const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);
-    static_assert((NPIX + 63) / 64 % NWG == 0, "every warpgroup takes as many chunks");
-#pragma unroll 1
-    for (int ch = g; ch * 64 < NPIX; ch += NWG) {
-      int gy[2], gx[2];
-      bool in[2];
+// One 64-pixel chunk of a proj block's halo rows, KS k16 steps of input:
+// the pixels' input channels loaded from global memory as the A fragments
+// of thread (lane quad q; rows h = 0, 1 at (gy, gx)), all loads first and
+// with no branch between them, so that they are in flight together (a
+// pixel outside the image reads one inside, then zeros); split into hi,
+// mid and lo planes in registers; six wgmma m64n48k16 a k16 step on the
+// weight planes at shared address wb (pbytes each) into acc.  Channel c is
+// in0's below cin0_pad (zero from in0_c on) and the aux window's above.
+// bar >= 0: after its loads the chunk waits for the weights' copy (this
+// thread's cp.async, then the producer's named barrier bar).
+template <int KS>
+__device__ __forceinline__ void proj_chunk(const BlockArgsT<float>& a, int b, const int (&gy)[2],
+                                           const int (&gx)[2], const bool (&in)[2], int q,
+                                           uint32_t wb, int pbytes, int bar, float (&acc)[F / 2]) {
+  float2 v[KS][4];
+  if (a.upsample) {  // an upsampled proj input (no chain has one): load_in2
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int pix = ch * 64 + r0 + 8 * h;
-        gy[h] = y0 - R + pix / WT;
-        gx[h] = x0 - R + pix % WT;
-        in[h] = pix < NPIX && gy[h] >= 0 && gy[h] < a.H && gx[h] >= 0 && gx[h] < a.W;
-      }
-      // every input value of the chunk first, so that their loads overlap
-      // (and, in the first chunk, the weights' copy)
-      float2 v[KMAX][4];
+    for (int kc = 0; kc < KS; ++kc)
 #pragma unroll
-      for (int kc = 0; kc < KMAX; ++kc)
+      for (int r = 0; r < 4; ++r)
+        v[kc][r] = in[r & 1] ? load_in2(a, b, gy[r & 1], gx[r & 1], 16 * kc + 8 * (r >> 1) + 2 * q)
+                             : make_float2(0.f, 0.f);
+  } else {
+    const float* src0[2];
+    const float* src1[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t pix = ((size_t)b * a.H + min(max(gy[h], 0), a.H - 1)) * a.W +
+                         min(max(gx[h], 0), a.W - 1);
+      src0[h] = a.in0 + pix * a.in0_c;
+      src1[h] = a.aux != nullptr ? a.aux + pix * a.aux_stride + a.aux_off - a.cin0_pad : src0[h];
+    }
+    if ((a.in0_c & 1) == 0 && ((a.aux_stride | a.aux_off) & 1) == 0) {  // pairs: float2 loads
+#pragma unroll
+      for (int kc = 0; kc < KS; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int h = r & 1, c = 16 * kc + 8 * (r >> 1) + 2 * q;
+          const bool lo = c < a.cin0_pad, ok = in[h] && (!lo || c < a.in0_c);
+          const float2 x = __ldg(reinterpret_cast<const float2*>(
+              lo ? src0[h] + (c < a.in0_c ? c : 0) : src1[h] + c));
+          v[kc][r] = ok ? x : make_float2(0.f, 0.f);
+        }
+    } else {  // an odd channel count (the flagship's 9-channel chain input)
+#pragma unroll
+      for (int kc = 0; kc < KS; ++kc)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int h = r & 1;
-          v[kc][r] = kc < ksteps && in[h]
-                         ? load_in2(a, b, gy[h], gx[h], 16 * kc + 8 * (r >> 1) + 2 * q)
-                         : make_float2(0.f, 0.f);
+          float e2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 16 * kc + 8 * (r >> 1) + 2 * q + e;
+            const bool lo = c < a.cin0_pad, ok = in[h] && (!lo || c < a.in0_c);
+            const float x = __ldg(lo ? src0[h] + (c < a.in0_c ? c : 0) : src1[h] + c);
+            e2[e] = ok ? x : 0.f;
+          }
+          v[kc][r] = make_float2(e2[0], e2[1]);
         }
-      if (ch == g) {  // every thread's first chunk: the weights are in
-        wg::cp_async_wait<0>();
-        wg::fence_async_smem();
-        __syncthreads();
-      }
-      float acc[F / 2];
+    }
+  }
+  if (bar >= 0) {  // the weights are in
+    wg::cp_async_wait<0>();
+    wg::fence_async_smem();
+    wg::bar_sync(bar, 128);
+  }
+  uint32_t fa[KS][3][4];  // [k step][plane][register]
 #pragma unroll
-      for (int kc = 0; kc < KMAX; ++kc) {
-        if (kc >= ksteps) break;
-        uint32_t fa[3][4];  // [plane][register]
+  for (int kc = 0; kc < KS; ++kc)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) split3x2(v[kc][r].x, v[kc][r].y, fa[0][r], fa[1][r], fa[2][r]);
-        wg::fence();
+    for (int r = 0; r < 4; ++r)
+      split3x2(v[kc][r].x, v[kc][r].y, fa[kc][0][r], fa[kc][1][r], fa[kc][2][r]);
+  wg::fence();
 #pragma unroll
-        for (int p = 0; p < 6; ++p)
-          wg::wgmma_rs_n48(acc, fa[plane_a(p)],
-                           wg::desc(wb + plane_b(p) * pbytes + kc * 1536, 768, 128), kc + p > 0);
-        wg::commit();
-        wg::wait<0>();
-        wg::fence_regs(acc);
+  for (int kc = 0; kc < KS; ++kc)
 #pragma unroll
-        for (int i = 0; i < 3; ++i) wg::fence_regs(fa[i]);
-      }
+    for (int p = 0; p < 6; ++p)
+      wg::wgmma_rs_n48(acc, fa[kc][plane_a(p)],
+                       wg::desc(wb + plane_b(p) * pbytes + kc * 1536, 768, 128), kc + p > 0);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_regs(acc);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int pix = ch * 64 + r0 + 8 * h;
-        if (pix >= NPIX) continue;
+  for (int kc = 0; kc < KS; ++kc)
 #pragma unroll
-        for (int j = 0; j < CG; ++j) {
-          const int c = 8 * j + 2 * q;
-          *reinterpret_cast<float2*>(tile + tile_at(pix, c)) =
-              in[h] ? make_float2(acc[4 * j + 2 * h] + __ldg(a.proj_b + c),
-                                  acc[4 * j + 2 * h + 1] + __ldg(a.proj_b + c + 1))
-                    : make_float2(0.f, 0.f);
-        }
+    for (int pl = 0; pl < 3; ++pl) wg::fence_regs(fa[kc][pl]);
+}
+
+// Halo rows [ir0, HT) of a proj block's tile at (b, y0, x0), projected
+// into the ring 64 pixels at a time by the producer (pt: its thread's
+// index): proj_chunk, bias, zeros outside the image.  The weight planes are
+// at shared address wb; the first chunk waits for their copy with named
+// barrier bar.
+__device__ __forceinline__ void proj_rows(const BlockArgsT<float>& a, int b, int y0, int x0,
+                                          int ir0, float* ring, uint32_t wb, int cin, int pt,
+                                          int bar) {
+  const int npx = (HT - ir0) * WT;
+  const int s0 = (y0 + ir0) % RING;  // the slot of halo row ir0
+  const int pbytes = cin * F * 2, ksteps = cin / 16;  // bytes of one plane; k16 steps
+  const int lane = pt & 31, q = lane & 3, r0 = 16 * (pt >> 5) + (lane >> 2);
+#pragma unroll 1
+  for (int ch = 0; ch * 64 < npx; ++ch) {
+    int gy[2], gx[2], at[2];
+    bool in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = ch * 64 + r0 + 8 * h, k = p / WT, col = p - k * WT;
+      gy[h] = y0 - R + ir0 + k;
+      gx[h] = x0 - R + col;
+      at[h] = p < npx ? ring_at(s0 + k >= RING ? s0 + k - RING : s0 + k, col, 0) : -1;
+      in[h] = p < npx && gy[h] >= 0 && gy[h] < a.H && gx[h] >= 0 && gx[h] < a.W;
+    }
+    const int cbar = ch == 0 ? bar : -1;
+    float acc[F / 2];
+    switch (ksteps) {  // whole pipeline stages: no branch between the wgmma
+      case 1: proj_chunk<1>(a, b, gy, gx, in, q, wb, pbytes, cbar, acc); break;
+      case 2: proj_chunk<2>(a, b, gy, gx, in, q, wb, pbytes, cbar, acc); break;
+      case 3: proj_chunk<3>(a, b, gy, gx, in, q, wb, pbytes, cbar, acc); break;
+      case 4: proj_chunk<4>(a, b, gy, gx, in, q, wb, pbytes, cbar, acc); break;
+      case 5: proj_chunk<5>(a, b, gy, gx, in, q, wb, pbytes, cbar, acc); break;
+      default: proj_chunk<KMAX>(a, b, gy, gx, in, q, wb, pbytes, cbar, acc); break;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (at[h] < 0) continue;
+#pragma unroll
+      for (int j = 0; j < CG; ++j) {
+        const int c = 8 * j + 2 * q;
+        *reinterpret_cast<float2*>(ring + at[h] + (c >> 2) * RING_PX * 4 + (c & 3)) =
+            in[h] ? make_float2(acc[4 * j + 2 * h] + __ldg(a.proj_b + c),
+                                acc[4 * j + 2 * h + 1] + __ldg(a.proj_b + c + 1))
+                  : make_float2(0.f, 0.f);
       }
     }
+  }
+}
+
+// The producer stages halo rows [ir0, HT) of the tile at (b, y0, x0) into
+// the ring, zeros outside the image (the depthwise conv's zero padding).  A
+// plain block copies them with cp.async (by pixel, so neighbouring threads
+// read neighbouring 16 bytes); an upsample block interpolates them from the
+// half-res input, with the source taps of the halo's rows and columns
+// computed once a tile into `up`.  A proj block copies the proj's three
+// weight planes ([cin/8][F][8] each, 27,648 bytes at 96 channels) into
+// wbuf, the LN region (free until the depthwise), and projects them
+// (proj_rows).  pt: the thread's index in the producer.
+__device__ __forceinline__ void stage_rows(const BlockArgsT<float>& a, int b, int y0, int x0,
+                                           int ir0, float* ring, unsigned char* wbuf,
+                                           unsigned char* up, int cin, int pt) {
+  const int npx = (HT - ir0) * WT;
+  const int s0 = (y0 + ir0) % RING;  // the slot of halo row ir0; row ir0 + k in slot_of(k)
+  auto slot_of = [s0](int k) { return s0 + k >= RING ? s0 + k - RING : s0 + k; };
+  if (a.proj_w != nullptr) {
+    for (int i = pt * 16; i < 3 * cin * F * 2; i += 128 * 16)
+      wg::cp_async16(wbuf + i, reinterpret_cast<const unsigned char*>(a.proj_w) + i);
+    wg::cp_async_commit();
+    proj_rows(a, b, y0, x0, ir0, ring, wg::smem_addr(wbuf), cin, pt, BAR_PROD);
     return;
   }
   if (a.upsample) {
-    for (int it = tid; it < NPIX * CG; it += NTHREADS) {
-      const int pix = it / CG, cg = it - pix * CG;
-      const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
+    // the source rows and columns (and weights) of the halo's rows and
+    // columns, once a tile (float64 positions, as ops/resize.py), then
+    // every pixel's 8-channel groups from them
+    int* tap_i = reinterpret_cast<int*>(up);             // [HT + WT][2]
+    float* tap_t = reinterpret_cast<float*>(up) + 2 * (HT + WT);
+    for (int t = pt; t < HT + WT; t += 128) {
+      int i0, i1;
+      float tt;
+      if (t < HT)
+        ac_taps(min(max(y0 - R + t, 0), a.H - 1), a.in0_h, i0, i1, tt);
+      else
+        ac_taps(min(max(x0 - R + t - HT, 0), a.W - 1), a.in0_w, i0, i1, tt);
+      tap_i[2 * t] = i0;
+      tap_i[2 * t + 1] = i1;
+      tap_t[t] = tt;
+    }
+    wg::bar_sync(BAR_PROD, 128);
+    for (int it = pt; it < npx * CG; it += 128) {
+      const int p = it / CG, cg = it - p * CG, k = p / WT, col = p - k * WT;
+      const int gy = y0 - R + ir0 + k, gx = x0 - R + col;
       float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) load_up8(a, b, gy, gx, cg * 8, v);
-      *reinterpret_cast<float4*>(tile + tile_at(pix, cg * 8)) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(tile + tile_at(pix, cg * 8 + 4)) =
-          make_float4(v[4], v[5], v[6], v[7]);
+      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
+        const int r = ir0 + k, c = HT + col;
+        const float ty = tap_t[r], tx = tap_t[c];
+        const size_t r0 = (size_t)b * a.in0_h + tap_i[2 * r], r1 = (size_t)b * a.in0_h + tap_i[2 * r + 1];
+        const int i0 = tap_i[2 * c], i1 = tap_i[2 * c + 1];
+        float v00[8], v01[8], v10[8], v11[8];
+        load_f8(a.in0, r0 * a.in0_w + i0, cg * 8, v00);
+        load_f8(a.in0, r0 * a.in0_w + i1, cg * 8, v01);
+        load_f8(a.in0, r1 * a.in0_w + i0, cg * 8, v10);
+        load_f8(a.in0, r1 * a.in0_w + i1, cg * 8, v11);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = lerp_rn(lerp_rn(v00[e], v10[e], ty), lerp_rn(v01[e], v11[e], ty), tx);
+      }
+      float* dst = ring + ring_at(slot_of(k), col, cg * 8);
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(dst + RING_PX * 4) = make_float4(v[4], v[5], v[6], v[7]);
     }
     return;
   }
-  for (int it = tid; it < NPIX * CG4; it += NTHREADS) {
-    const int pix = it / CG4, c4 = it - pix * CG4;
-    const int gy = y0 - R + pix / WT, gx = x0 - R + pix % WT;
-    float* dst = tile + tile_at(pix, c4 * 4);
+  for (int it = pt; it < npx * CG4; it += 128) {
+    const int p = it / CG4, c4 = it - p * CG4, k = p / WT, col = p - k * WT;
+    const int gy = y0 - R + ir0 + k, gx = x0 - R + col;
+    float* dst = ring + ring_at(slot_of(k), col, c4 * 4);
     if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W)
       wg::cp_async16(dst, a.in0 + (((size_t)b * a.H + gy) * a.W + gx) * F + c4 * 4);
     else
@@ -1022,23 +1206,351 @@ __device__ void stage_tile(const BlockArgsT<float>& a, int b, int y0, int x0, fl
   }
 }
 
-// the fp32 mode's block: the bf16 mode's phases with fp32 bands, taps and
-// LN, fp32-faithful pw1 and pw2 (operands split into three bf16 planes,
-// six wgmma a k-step into fp32 accumulators) and the erf GELU
-__device__ __forceinline__ void block_f32(const BlockArgsT<float>& a, unsigned char* smem) {
-  const bool proj = a.proj_w != nullptr;
-  const int cin = proj ? a.cin0_pad + a.aux_c : 0;
-  const Smem L = smem_layout();
+// The producer's depthwise 7x7 and LayerNorm of the tile at row y0, from
+// the ring to the LN region, in fp32.  Lane 8 cq + xi of warp w takes
+// column x = 8 w + xi and the channel groups cq, cq + 4, cq + 8, all TH
+// rows, sliding down the HT halo rows of each tap column (a quarter-warp
+// reads 8 neighbouring pixels of one 16-byte plane: 128 contiguous bytes).
+// A pixel's 48 channels lie in lanes xi, xi + 8, xi + 16 and xi + 24 of one
+// warp, so each LN sum takes two shuffles.  Output pixel (row o, column x)
+// becomes row m = 16 (x / 8) + 8 (o % 2) + x % 8 of segment o / 2, so that
+// the consumer thread holding row m also holds the pixel below it (the 2x2
+// pool stays in registers).
+__device__ __forceinline__ void depthwise_ln(const float* ring, const float* s_dw,
+                                             const float* s_vec, float* ln, int y0, int pt) {
+  const int w = pt >> 5, lane = pt & 31, cq = lane >> 3, xi = lane & 7, x = 8 * w + xi;
+  int roff[HT];  // float offset of halo row ir, column x in a plane
+  const int s0 = y0 % RING;
+#pragma unroll
+  for (int ir = 0; ir < HT; ++ir)
+    roff[ir] = ((s0 + ir >= RING ? s0 + ir - RING : s0 + ir) * WT + x) * 4;
+  float acc[3][TH][4];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int c4 = cq + 4 * k;
+    const float* plane = ring + c4 * RING_PX * 4;
+#pragma unroll
+    for (int o = 0; o < TH; ++o)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][o][e] = 0.f;
+#pragma unroll
+    for (int dx = 0; dx < KS; ++dx) {
+      float wt[KS][4];
+#pragma unroll
+      for (int dy = 0; dy < KS; ++dy) {
+        const float4 w0 = *reinterpret_cast<const float4*>(s_dw + (dy * KS + dx) * F + c4 * 4);
+        wt[dy][0] = w0.x; wt[dy][1] = w0.y; wt[dy][2] = w0.z; wt[dy][3] = w0.w;
+      }
+#pragma unroll
+      for (int ir = 0; ir < HT; ++ir) {
+        const float4 u = *reinterpret_cast<const float4*>(plane + roff[ir] + dx * 4);
+        const float v[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int o = 0; o < TH; ++o) {
+          const int dy = ir - o;
+          if (dy >= 0 && dy < KS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[k][o][e] = fmaf(v[e], wt[dy][e], acc[k][o][e]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < TH; ++o) {
+    float sm = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[k][o][e] += s_vec[V_DW_B + (cq + 4 * k) * 4 + e];
+        sm += acc[k][o][e];
+      }
+    sm += __shfl_xor_sync(0xffffffffu, sm, 8);
+    sm += __shfl_xor_sync(0xffffffffu, sm, 16);
+    const float u = sm / F;
+    float qs = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[k][o][e] -= u;
+        qs += acc[k][o][e] * acc[k][o][e];
+      }
+    qs += __shfl_xor_sync(0xffffffffu, qs, 8);
+    qs += __shfl_xor_sync(0xffffffffu, qs, 16);
+    const float rstd = rsqrtf(qs / F + 1e-6f);
+    float* dst = ln + (o >> 1) * SEG_LN + (16 * w + 8 * (o & 1) + xi) * 4;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int c4 = cq + 4 * k;
+      float hn[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        hn[e] = __fadd_rn(__fmul_rn(__fmul_rn(acc[k][o][e], rstd), s_vec[V_LN_G + c4 * 4 + e]),
+                          s_vec[V_LN_B + c4 * 4 + e]);
+      *reinterpret_cast<float4*>(dst + c4 * 64 * 4) = make_float4(hn[0], hn[1], hn[2], hn[3]);
+    }
+  }
+}
+
+// The producer's tiles: stage (a run's first tile: its whole halo; the
+// others: their TH new rows), depthwise and LayerNorm into the LN region,
+// hand it over, wait until the consumers hold it.  Phase clocks (slots 0-2):
+// waiting for the consumers' release, staging or projection, depthwise + LN.
+__device__ __forceinline__ void produce(const BlockArgsT<float>& a, unsigned char* smem,
+                                        const Sched& sc) {
+  constexpr Smem L = smem_layout();
+  const int pt = threadIdx.x - NCONS;
+  const int cin = a.proj_w != nullptr ? a.cin0_pad + a.aux_c : 0;
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  float* ln = reinterpret_cast<float*>(smem + L.ln);
   const float* s_dw = reinterpret_cast<const float*>(smem + L.dw);
+  const float* s_vec = reinterpret_cast<const float*>(smem + L.vec);
+  PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long c0 = 0, c1 = 0;)
+#pragma unroll 1
+  for (int i = sc.lo; i < sc.hi; ++i) {
+    int b, y0, x0;
+    sc.tile(i, b, y0, x0);
+    const bool first = sc.run_start(i);
+    PHASE_CLOCK(c0 = clock64();)
+    // a new run's halo covers every slot the last tile's epilogue reads
+    if (first && i != sc.lo) wg::bar_sync(BAR_DONE, NTHREADS);
+    PHASE_CLOCK(c1 = clock64(); ph[0] += c1 - c0;)
+    stage_rows(a, b, y0, x0, first ? 0 : HT - TH, ring, smem + L.ln, smem + L.up, cin, pt);
+    wg::cp_async_commit();
+    wg::cp_async_wait<0>();
+    wg::bar_sync(BAR_PROD, 128);
+    PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)
+    depthwise_ln(ring, s_dw, s_vec, ln, y0, pt);
+    wg::bar_arrive(BAR_FULL, NTHREADS);
+    PHASE_CLOCK(c1 = clock64(); ph[2] += c1 - c0;)
+    wg::bar_sync(BAR_EMPTY, NTHREADS);
+    PHASE_CLOCK(ph[0] += clock64() - c1;)
+  }
+  PHASE_CLOCK(if (pt == 0) wg::phase_clocks_add_at(ph, 0, 0);)
+}
+
+// A consumer's tiles: its segment (tile rows 2g, 2g + 1) through pw1 ->
+// GELU -> pw2 a quarter (48) of the hidden at a time, six wgmma m64n48k16 a
+// k16 step on hi, mid and lo planes, then the epilogue.  The LN output is
+// loaded and split once a tile; pw1 runs two quarters ahead of the GELU, in
+// two accumulators, and the two consumers take turns to issue products.
+// Phase clocks (slots 3-5): waiting for the LN, products with GELU,
+// epilogue.
+__device__ __forceinline__ void consume(const BlockArgsT<float>& a, unsigned char* smem,
+                                        const Sched& sc) {
+  constexpr Smem L = smem_layout();
+  const float* s_vec = reinterpret_cast<const float*>(smem + L.vec);
+  const float* s_head = reinterpret_cast<const float*>(smem + L.head);  // [n_head][F]
+  const float* ring = reinterpret_cast<const float*>(smem + L.ring);
+  const int tid = threadIdx.x, g = tid >> 7, lane = tid & 31, q = lane & 3;
+  const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);   // accumulator rows r0 and r0 + 8
+  const int col = 8 * ((tid >> 5) & 3) + (lane >> 2);  // their pixels: (2g, col), (2g + 1, col)
+  const float* lns = reinterpret_cast<const float*>(smem + L.ln) + g * SEG_LN;
+  const uint32_t pw1_base = wg::smem_addr(smem + L.pw1);
+  const uint32_t pw2_base = wg::smem_addr(smem + L.pw2);
+  PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long c0 = 0, c1 = 0; int nt = 0;)
+  if (g == 1) wg::bar_arrive(BAR_TURN, NCONS);  // consumer 0 issues first
+#pragma unroll 1
+  for (int i = sc.lo; i < sc.hi; ++i) {
+    int b, y0, x0;
+    sc.tile(i, b, y0, x0);
+    PHASE_CLOCK(c0 = clock64();)
+    wg::bar_sync(BAR_FULL, NTHREADS);
+    PHASE_CLOCK(c1 = clock64(); ph[0] += c1 - c0;)
+    // the LN output's A fragments (rows r0, r0 + 8; k16 steps kc), split
+    // once; then the LN region is the producer's again
+    uint32_t la[3][3][4];  // [plane][k step][register]
+#pragma unroll
+    for (int kc = 0; kc < F / 16; ++kc)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int c = 16 * kc + 8 * (r >> 1) + 2 * q;
+        const float2 v = *reinterpret_cast<const float2*>(
+            lns + ((c >> 2) * 64 + r0 + 8 * (r & 1)) * 4 + (c & 3));
+        split3x2(v.x, v.y, la[0][kc][r], la[1][kc][r], la[2][kc][r]);
+      }
+    wg::bar_arrive(BAR_EMPTY, NTHREADS);
+
+    float acc1[2][F / 2], acc2[F / 2];
+    uint32_t ha[3][3][4];
+    auto issue_pw1 = [&](int qt, float(&acc)[F / 2]) {  // acc = LN @ pw1[:, quarter qt]
+      wg::fence();
+#pragma unroll
+      for (int kc = 0; kc < F / 16; ++kc)
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+          wg::wgmma_rs_n48(acc, la[plane_a(p)][kc],
+                           wg::desc(pw1_base + plane_b(p) * PLANE + kc * 6144 + qt * 768, 3072, 128),
+                           kc + p > 0);
+      wg::commit();
+    };
+    auto gelu_split = [&](int qt, const float(&acc)[F / 2]) {  // ha = split(GELU(acc + b1))
+      // bias and erf GELU in fp32, split: column pairs of the accumulator
+      // are the A fragments of pw2's k16 steps over this quarter
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const int c = qt * F + 8 * j + 2 * q;
+        const float b0 = s_vec[V_PW1_B + c], b1 = s_vec[V_PW1_B + c + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (j & 1) * 2 + h;
+          split3x2(gelu_erf(acc[4 * j + 2 * h] + b0), gelu_erf(acc[4 * j + 2 * h + 1] + b1),
+                   ha[0][j >> 1][r], ha[1][j >> 1][r], ha[2][j >> 1][r]);
+        }
+      }
+    };
+    auto issue_pw2 = [&](int qt) {  // acc2 (+)= ha @ pw2[quarter qt]
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 3; ++kk)
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+          wg::wgmma_rs_n48(acc2, ha[plane_a(p)][kk],
+                           wg::desc(pw2_base + plane_b(p) * PLANE + (qt * 3 + kk) * 1536, 768, 128),
+                           qt + kk + p > 0);
+      wg::commit();
+    };
+    auto fence_hidden = [&]() {
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl)
+#pragma unroll
+        for (int kk = 0; kk < 3; ++kk) wg::fence_regs(ha[pl][kk]);
+    };
+    // pw1 runs two quarters ahead, in two accumulators: quarter qt's GELU
+    // overlaps the products of qt + 1 (and pw2 of qt - 1).  The two
+    // consumers take turns to issue a batch of products (named barriers
+    // BAR_TURN + g, the FlashAttention-3 ping-pong), so that one's GELU
+    // runs under the other's wgmma.
+    wg::bar_sync(BAR_TURN + g, NCONS);
+    issue_pw1(0, acc1[0]);
+    issue_pw1(1, acc1[1]);
+    wg::bar_arrive(BAR_TURN + (g ^ 1), NCONS);
+#pragma unroll
+    for (int qt = 0; qt < HID / F; ++qt) {
+      if (qt + 1 < HID / F)
+        wg::wait<1>();  // all but pw1 of qt + 1: pw1 of qt and pw2 of qt - 1 are done
+      else
+        wg::wait<0>();
+      wg::fence_regs(acc1[qt & 1]);
+      wg::fence_regs(acc2);
+      fence_hidden();
+      gelu_split(qt, acc1[qt & 1]);
+      wg::bar_sync(BAR_TURN + g, NCONS);
+      issue_pw2(qt);
+      if (qt + 2 < HID / F) issue_pw1(qt + 2, acc1[qt & 1]);
+      wg::bar_arrive(BAR_TURN + (g ^ 1), NCONS);
+    }
+    wg::wait<0>();
+    wg::fence_regs(acc2);
+    fence_hidden();
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl)
+#pragma unroll
+      for (int kc = 0; kc < 3; ++kc) wg::fence_regs(la[pl][kc]);
+    PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)
+
+    // epilogue: y = x + ls * (h2 + b2) in place of acc2 (x from the
+    // ring's centre rows); the band and the state from registers, the 2x2
+    // pool from the two rows this thread holds and the neighbouring
+    // column's (lane ^ 4), the head on y summed over the quad's lanes
+    int slot[2];
+    bool valid[2];
+    size_t px[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gy = y0 + 2 * g + h, gx = x0 + col;
+      slot[h] = (gy + R) % RING;
+      valid[h] = gy < a.H && gx < a.W;
+      px[h] = ((size_t)b * a.H + gy) * a.W + gx;
+    }
+#pragma unroll
+    for (int j = 0; j < CG; ++j) {
+      const int c = 8 * j + 2 * q;
+      const float ls0 = s_vec[V_LS + c], ls1 = s_vec[V_LS + c + 1];
+      const float b0 = s_vec[V_PW2_B + c], b1 = s_vec[V_PW2_B + c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 xv = *reinterpret_cast<const float2*>(ring + ring_at(slot[h], col + R, c));
+        acc2[4 * j + 2 * h] = __fadd_rn(xv.x, __fmul_rn(ls0, acc2[4 * j + 2 * h] + b0));
+        acc2[4 * j + 2 * h + 1] = __fadd_rn(xv.y, __fmul_rn(ls1, acc2[4 * j + 2 * h + 1] + b1));
+      }
+    }
+    const auto store = [&](float* base, int stride) {  // y of both pixels at base[px * stride + c]
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (valid[h]) {
+          float* dst = base + px[h] * stride + 2 * q;
+#pragma unroll
+          for (int j = 0; j < CG; ++j)
+            __stcg(reinterpret_cast<float2*>(dst + 8 * j),
+                   make_float2(acc2[4 * j + 2 * h], acc2[4 * j + 2 * h + 1]));
+        }
+    };
+    if (a.out != nullptr) store(a.out, F);
+    if (a.state != nullptr && a.feat_off >= 0) store(a.state + a.feat_off, a.state_stride);
+    if (a.pooled != nullptr) {  // uniform
+      const int h2 = a.H >> 1, w2 = a.W >> 1;
+      const bool here = (lane & 4) == 0 && (y0 >> 1) + g < h2 && ((x0 + col) >> 1) < w2;
+      float* dst = a.pooled + (((size_t)b * h2 + (y0 >> 1) + g) * w2 + ((x0 + col) >> 1)) * F + 2 * q;
+#pragma unroll
+      for (int j = 0; j < CG; ++j) {
+        float mx = fmaxf(acc2[4 * j], acc2[4 * j + 2]), my = fmaxf(acc2[4 * j + 1], acc2[4 * j + 3]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        my = fmaxf(my, __shfl_xor_sync(0xffffffffu, my, 4));
+        if (here) __stcg(reinterpret_cast<float2*>(dst + 8 * j), make_float2(mx, my));
+      }
+    }
+    if (a.n_head > 0) {  // uniform: the chain's last block
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float part[MAX_HEAD];
+#pragma unroll
+        for (int k = 0; k < MAX_HEAD; ++k) {
+          part[k] = 0.f;
+          if (k < a.n_head) {
+#pragma unroll
+            for (int j = 0; j < CG; ++j) {
+              const int c = 8 * j + 2 * q;
+              part[k] = fmaf(acc2[4 * j + 2 * h + 1], s_head[k * F + c + 1],
+                             fmaf(acc2[4 * j + 2 * h], s_head[k * F + c], part[k]));
+            }
+            part[k] += __shfl_xor_sync(0xffffffffu, part[k], 1);
+            part[k] += __shfl_xor_sync(0xffffffffu, part[k], 2);
+          }
+        }
+        if (valid[h] && q == 0) {
+          if (a.state != nullptr) {
+            float* st = a.state + px[h] * a.state_stride;
+#pragma unroll
+            for (int k = 0; k < MAX_HEAD; ++k)
+              if (k < a.n_head) st[k] = part[k] + s_vec[V_HEAD_B + k];
+            const int zend = a.feat_off >= 0 ? a.feat_off : a.state_stride;
+            for (int ch = a.n_head; ch < zend; ++ch) st[ch] = 0.f;
+          } else if (a.head_out != nullptr) {
+#pragma unroll
+            for (int k = 0; k < MAX_HEAD; ++k)
+              if (k < a.n_head) a.head_out[px[h] * a.n_head + k] = part[k] + s_vec[V_HEAD_B + k];
+          }
+        }
+      }
+    }
+    PHASE_CLOCK(ph[2] += clock64() - c0; ++nt;)
+    // the next tile starts a run: its halo takes the slots read above
+    if (i + 1 < sc.hi && sc.run_start(i + 1)) wg::bar_arrive(BAR_DONE, NTHREADS);
+  }
+  if (g == 0) wg::bar_sync(BAR_TURN, NCONS);  // consumer 1's last turn
+  PHASE_CLOCK(if (tid == 0) wg::phase_clocks_add_at(ph, 3, nt);)
+}
+
+// the fp32 mode's block: the weights once per CTA, then the producer and
+// the two consumers, each in its own branch to the end (setmaxnreg)
+__device__ __forceinline__ void block_f32(const BlockArgsT<float>& a, unsigned char* smem) {
+  constexpr Smem L = smem_layout();
   float* s_vec = reinterpret_cast<float*>(smem + L.vec);
   float* s_head = reinterpret_cast<float*>(smem + L.head);  // [n_head][F]
-  float* s_tile = reinterpret_cast<float*>(smem + L.tile);  // [CG4][NPIX][4]
-  float* s_ln = reinterpret_cast<float*>(smem + L.ln);      // [NSEG][64][F]
-  float* s_sum = reinterpret_cast<float*>(smem + L.sum);    // [CG4][TH*TW]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = tid >> 7, warp_in = warp & 3, q = lane & 3;
-
-  // ---- the block's weights, once per CTA
+  const int tid = threadIdx.x;
   for (int i = tid * 16; i < 3 * PLANE; i += NTHREADS * 16) {
     wg::cp_async16(smem + L.pw1 + i, reinterpret_cast<const unsigned char*>(a.pw1) + i);
     wg::cp_async16(smem + L.pw2 + i, reinterpret_cast<const unsigned char*>(a.pw2) + i);
@@ -1063,266 +1575,14 @@ __device__ __forceinline__ void block_f32(const BlockArgsT<float>& a, unsigned c
   wg::fence_async_smem();
   __syncthreads();
 
-  const int tiles_x = (a.W + TW - 1) / TW, tiles_y = (a.H + TH - 1) / TH;
-  const int ntiles = tiles_x * tiles_y * a.B;
-  const uint32_t pw1_base = wg::smem_addr(smem + L.pw1);
-  const uint32_t pw2_base = wg::smem_addr(smem + L.pw2);
-
-  PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long c0 = 0, c1 = 0; int nt = 0;)
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    PHASE_CLOCK(c0 = clock64();)
-    const int b = t / (tiles_x * tiles_y);
-    const int y0 = (t / tiles_x) % tiles_y * TH;
-    const int x0 = t % tiles_x * TW;
-
-    // ---- 1. the fp32 halo tile: copied, interpolated or projected
-    stage_tile(a, b, y0, x0, s_tile, smem + L.ln, cin);
-    wg::cp_async_commit();
-    wg::cp_async_wait<0>();
-    __syncthreads();
-
-    PHASE_CLOCK(c1 = clock64(); ph[0] += c1 - c0;)  // phase 0: the halo tile
-    // ---- 2. depthwise 7x7 and LayerNorm in fp32: warp -> channel group
-    // c4 of 4 (one 16-byte read a staged pixel, neighbouring lanes on
-    // neighbouring 16 bytes), lane -> column, all TH rows
-    {
-      const int c4 = warp, x = lane;
-      float acc[TH][4];
-#pragma unroll
-      for (int o = 0; o < TH; ++o)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[o][e] = 0.f;
-      const float* col = s_tile + ((size_t)c4 * NPIX + x) * 4;
-#pragma unroll
-      for (int dx = 0; dx < KS; ++dx) {
-        float w[KS][4];
-#pragma unroll
-        for (int dy = 0; dy < KS; ++dy) {
-          const float4 w0 = *reinterpret_cast<const float4*>(s_dw + (dy * KS + dx) * F + c4 * 4);
-          w[dy][0] = w0.x; w[dy][1] = w0.y; w[dy][2] = w0.z; w[dy][3] = w0.w;
-        }
-#pragma unroll
-        for (int ir = 0; ir < HT; ++ir) {
-          const float4 u = *reinterpret_cast<const float4*>(col + (ir * WT + dx) * 4);
-          const float v[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-          for (int o = 0; o < TH; ++o) {
-            const int dy = ir - o;
-            if (dy >= 0 && dy < KS) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[o][e] = fmaf(v[e], w[dy][e], acc[o][e]);
-            }
-          }
-        }
-      }
-      // LN over the 48 channels of each pixel: partial sums per group of 4
-      // through s_sum [CG4][TH*TW], first of the values, then of the
-      // squared deviations
-#pragma unroll
-      for (int o = 0; o < TH; ++o) {
-        float sm = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[o][e] += s_vec[V_DW_B + c4 * 4 + e];
-          sm += acc[o][e];
-        }
-        s_sum[c4 * TH * TW + o * TW + x] = sm;
-      }
-      __syncthreads();
-      float qs[TH];
-#pragma unroll
-      for (int o = 0; o < TH; ++o) {
-        float sm = 0.f;
-#pragma unroll
-        for (int k = 0; k < CG4; ++k) sm += s_sum[k * TH * TW + o * TW + x];
-        const float u = sm / F;
-        qs[o] = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[o][e] -= u;
-          qs[o] += acc[o][e] * acc[o][e];
-        }
-      }
-      __syncthreads();  // every thread has read the sums
-#pragma unroll
-      for (int o = 0; o < TH; ++o) s_sum[c4 * TH * TW + o * TW + x] = qs[o];
-      __syncthreads();
-#pragma unroll
-      for (int o = 0; o < TH; ++o) {
-        float sq = 0.f;
-#pragma unroll
-        for (int k = 0; k < CG4; ++k) sq += s_sum[k * TH * TW + o * TW + x];
-        const float rstd = rsqrtf(sq / F + 1e-6f);
-        float hn[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          hn[e] = __fadd_rn(__fmul_rn(__fmul_rn(acc[o][e], rstd), s_vec[V_LN_G + c4 * 4 + e]),
-                            s_vec[V_LN_B + c4 * 4 + e]);
-        *reinterpret_cast<float4*>(s_ln + ((o >> 1) * 64 + (o & 1) * 32 + x) * F + c4 * 4) =
-            make_float4(hn[0], hn[1], hn[2], hn[3]);
-      }
-    }
-    wg::fence_async_smem();
-    __syncthreads();
-
-    PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)  // phase 1: depthwise and LN
-    // ---- 3. warpgroup g < NSEG: its segment's pw1 -> GELU -> pw2 a
-    // quarter (48) of the hidden at a time, operands split into hi, mid
-    // and lo in registers, six wgmma m64n48k16 a k-step; then the epilogue
-    if (g < NSEG) {
-      const int s = g;
-      float* lns = s_ln + s * SEG_FLOATS;
-      const int r0 = 16 * warp_in + (lane >> 2);
-      float acc2[F / 2];
-#pragma unroll 1
-      for (int qt = 0; qt < HID / F; ++qt) {
-        // the LN output's A fragments (rows r0, r0 + 8; k16 steps kc)
-        uint32_t la[3][3][4];  // [plane][k step][register]
-#pragma unroll
-        for (int kc = 0; kc < F / 16; ++kc)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float2 v = *reinterpret_cast<const float2*>(
-                lns + (r0 + 8 * (r & 1)) * F + 16 * kc + 8 * (r >> 1) + 2 * q);
-            split3x2(v.x, v.y, la[0][kc][r], la[1][kc][r], la[2][kc][r]);
-          }
-        float acc1[F / 2];
-        wg::fence();
-#pragma unroll
-        for (int kc = 0; kc < F / 16; ++kc)
-#pragma unroll
-          for (int p = 0; p < 6; ++p)
-            wg::wgmma_rs_n48(acc1, la[plane_a(p)][kc],
-                             wg::desc(pw1_base + plane_b(p) * PLANE + kc * 6144 + qt * 768, 3072, 128),
-                             kc + p > 0);
-        wg::commit();
-        wg::wait<0>();
-        wg::fence_regs(acc1);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int kc = 0; kc < 3; ++kc) wg::fence_regs(la[i][kc]);
-        // bias and erf GELU in fp32, split: column pairs of the accumulator
-        // are the A fragments of pw2's k16 steps over this quarter
-        uint32_t ha[3][3][4];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-          const int c = qt * F + 8 * j + 2 * q;
-          const float b0 = s_vec[V_PW1_B + c], b1 = s_vec[V_PW1_B + c + 1];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = (j & 1) * 2 + h;
-            split3x2(gelu_erf(acc1[4 * j + 2 * h] + b0), gelu_erf(acc1[4 * j + 2 * h + 1] + b1),
-                     ha[0][j >> 1][r], ha[1][j >> 1][r], ha[2][j >> 1][r]);
-          }
-        }
-        wg::fence();
-#pragma unroll
-        for (int kk = 0; kk < 3; ++kk)
-#pragma unroll
-          for (int p = 0; p < 6; ++p)
-            wg::wgmma_rs_n48(acc2, ha[plane_a(p)][kk],
-                             wg::desc(pw2_base + plane_b(p) * PLANE + (qt * 3 + kk) * 1536, 768, 128),
-                             qt + kk + p > 0);
-        wg::commit();
-        wg::wait<0>();
-        wg::fence_regs(acc2);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int kk = 0; kk < 3; ++kk) wg::fence_regs(ha[i][kk]);
-      }
-
-      // epilogue: y = x + ls * (h2 + b2) in registers (x from the halo
-      // tile's center); the fp32 band goes to the segment's LN region
-      // (free now) as [64][F], y and the head on y to the state
-      float* band = lns;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = r0 + 8 * h;
-        const int row = 2 * s + (m >> 5), cx = m & 31;
-        const int gy = y0 + row, gx = x0 + cx;
-        const bool valid = gy < a.H && gx < a.W;
-        const size_t px = ((size_t)b * a.H + gy) * a.W + gx;
-        float part[MAX_HEAD];
-#pragma unroll
-        for (int k = 0; k < MAX_HEAD; ++k) part[k] = 0.f;
-#pragma unroll
-        for (int j = 0; j < CG; ++j) {
-          const int c = 8 * j + 2 * q;
-          const float2 xv = *reinterpret_cast<const float2*>(
-              s_tile + tile_at((row + R) * WT + cx + R, c));
-          const float y0v = __fadd_rn(xv.x, __fmul_rn(s_vec[V_LS + c],
-                                      acc2[4 * j + 2 * h] + s_vec[V_PW2_B + c]));
-          const float y1v = __fadd_rn(xv.y, __fmul_rn(s_vec[V_LS + c + 1],
-                                      acc2[4 * j + 2 * h + 1] + s_vec[V_PW2_B + c + 1]));
-          *reinterpret_cast<float2*>(band + m * F + c) = make_float2(y0v, y1v);
-#pragma unroll
-          for (int k = 0; k < MAX_HEAD; ++k)
-            if (k < a.n_head)
-              part[k] = fmaf(y1v, s_head[k * F + c + 1], fmaf(y0v, s_head[k * F + c], part[k]));
-          if (valid && a.state != nullptr && a.feat_off >= 0)
-            *reinterpret_cast<float2*>(a.state + px * a.state_stride + a.feat_off + c) =
-                make_float2(y0v, y1v);
-        }
-#pragma unroll
-        for (int k = 0; k < MAX_HEAD; ++k) {
-          if (k < a.n_head) {  // uniform
-            part[k] += __shfl_xor_sync(0xffffffffu, part[k], 1);
-            part[k] += __shfl_xor_sync(0xffffffffu, part[k], 2);
-          }
-        }
-        if (valid && q == 0) {
-          if (a.state != nullptr) {
-            float* st = a.state + px * a.state_stride;
-#pragma unroll
-            for (int k = 0; k < MAX_HEAD; ++k)
-              if (k < a.n_head) st[k] = part[k] + s_vec[V_HEAD_B + k];
-            const int zend = a.feat_off >= 0 ? a.feat_off : a.state_stride;
-            for (int ch = a.n_head; ch < zend; ++ch) st[ch] = 0.f;
-          } else if (a.head_out != nullptr) {
-#pragma unroll
-            for (int k = 0; k < MAX_HEAD; ++k)
-              if (k < a.n_head) a.head_out[px * a.n_head + k] = part[k] + s_vec[V_HEAD_B + k];
-          }
-        }
-      }
-      wg::bar_warpgroup(g);
-
-      // band and pool of the segment, 16-byte vectors (4 channels each)
-      const int t128 = tid & 127;
-      constexpr int C4 = F / 4;
-      if (a.out != nullptr) {
-        for (int it = t128; it < 64 * C4; it += 128) {
-          const int m = it / C4, c4 = it % C4;
-          const int gy = y0 + 2 * s + (m >> 5), gx = x0 + (m & 31);
-          if (gy >= a.H || gx >= a.W) continue;
-          *reinterpret_cast<float4*>(a.out + (((size_t)b * a.H + gy) * a.W + gx) * F + c4 * 4) =
-              *reinterpret_cast<const float4*>(band + m * F + c4 * 4);
-        }
-      }
-      if (a.pooled != nullptr) {
-        const int h2 = a.H >> 1, w2 = a.W >> 1;
-        for (int it = t128; it < 16 * C4; it += 128) {
-          const int pxl = it / C4, c4 = it % C4;
-          const int gy2 = (y0 >> 1) + s, gx2 = (x0 >> 1) + pxl;
-          if (gy2 >= h2 || gx2 >= w2) continue;
-          const float4 v0 = *reinterpret_cast<const float4*>(band + (2 * pxl) * F + c4 * 4);
-          const float4 v1 = *reinterpret_cast<const float4*>(band + (2 * pxl + 1) * F + c4 * 4);
-          const float4 v2 = *reinterpret_cast<const float4*>(band + (32 + 2 * pxl) * F + c4 * 4);
-          const float4 v3 = *reinterpret_cast<const float4*>(band + (33 + 2 * pxl) * F + c4 * 4);
-          *reinterpret_cast<float4*>(a.pooled + (((size_t)b * h2 + gy2) * w2 + gx2) * F + c4 * 4) =
-              make_float4(fmaxf(fmaxf(v0.x, v1.x), fmaxf(v2.x, v3.x)),
-                          fmaxf(fmaxf(v0.y, v1.y), fmaxf(v2.y, v3.y)),
-                          fmaxf(fmaxf(v0.z, v1.z), fmaxf(v2.z, v3.z)),
-                          fmaxf(fmaxf(v0.w, v1.w), fmaxf(v2.w, v3.w)));
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites the shared tiles
-    PHASE_CLOCK(ph[2] += clock64() - c0; ++nt;)  // phase 2: 1x1 products, GELU, epilogue
+  const Sched sc(a.B, a.H, a.W);
+  if (tid >= NCONS) {
+    wg::setmaxnreg_dec<PROD_REGS>();
+    produce(a, smem, sc);
+  } else {
+    wg::setmaxnreg_inc<CONS_REGS>();
+    consume(a, smem, sc);
   }
-  PHASE_CLOCK(wg::phase_clocks_add(ph, nt);)
 }
 
 }  // namespace f32m
@@ -1342,8 +1602,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     block_bf16(a, smem);
 }
 
+// one launch of min(tiles, n_cta) CTAs; n_cta <= 0: one CTA an SM
 template <bool F32>
-cudaError_t launch_block(const BlockArgsT<band_t<F32>>& a, int smem, cudaStream_t stream) {
+cudaError_t launch_block(const BlockArgsT<band_t<F32>>& a, int smem, int n_cta,
+                         cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(convnext_block_kernel<F32>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int dev = 0, sms = 0;
@@ -1353,9 +1615,10 @@ cudaError_t launch_block(const BlockArgsT<band_t<F32>>& a, int smem, cudaStream_
     cudaGetLastError();
     return e;
   }
+  if (n_cta <= 0) n_cta = sms;
   const int th = F32 ? f32m::TH : TH;
   const long long ntiles = (long long)((a.W + TW - 1) / TW) * ((a.H + th - 1) / th) * a.B;
-  const int grid = (int)(ntiles < sms ? ntiles : sms);
+  const int grid = (int)(ntiles < n_cta ? ntiles : n_cta);
   convnext_block_kernel<F32><<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1407,16 +1670,18 @@ const char* rvdd_cuda_error_string(int e) {
 // 4.  f32 = 0: bf16 in0, aux, out, pooled, head_out and head_w, and pw1,
 // pw2 and proj_w packed by the wrapper's pack_kmajor.  f32 = 1: those
 // tensors fp32, and pw1, pw2 and proj_w three pack_kmajor planes each (hi,
-// mid, lo).  Returns a cudaError_t as int.
-int rvdd_convnext_block(const void* in0, int in0_c, int in0_h, int in0_w, int upsample,
-                        const void* aux, int aux_c, int aux_stride, int aux_off,
-                        int cin0_pad, const void* proj_w, const void* proj_b,
-                        const void* dw_w, const void* dw_b, const void* ln_g,
-                        const void* ln_b, const void* pw1, const void* pw1_b,
-                        const void* pw2, const void* pw2_b, const void* ls,
-                        const void* head_w, const void* head_b, int n_head,
-                        int B, int H, int W, void* out, void* pooled, void* head_out,
-                        void* state, int state_stride, int feat_off, int f32, void* stream) {
+// mid, lo).  n_cta > 0 caps the grid (the card tests walk whole strips in
+// one CTA); n_cta <= 0 launches one CTA an SM.  Returns a cudaError_t as int.
+int rvdd_convnext_block_grid(const void* in0, int in0_c, int in0_h, int in0_w, int upsample,
+                             const void* aux, int aux_c, int aux_stride, int aux_off,
+                             int cin0_pad, const void* proj_w, const void* proj_b,
+                             const void* dw_w, const void* dw_b, const void* ln_g,
+                             const void* ln_b, const void* pw1, const void* pw1_b,
+                             const void* pw2, const void* pw2_b, const void* ls,
+                             const void* head_w, const void* head_b, int n_head,
+                             int B, int H, int W, void* out, void* pooled, void* head_out,
+                             void* state, int state_stride, int feat_off, int f32, int n_cta,
+                             void* stream) {
   const int cin = proj_w != nullptr ? cin0_pad + aux_c : 0;
   const int nh = head_w != nullptr ? n_head : 0;
   if (cin > MAX_CIN || nh > MAX_HEAD || cin % 16 || (proj_w == nullptr && (in0_c != F || aux_c)))
@@ -1427,19 +1692,27 @@ int rvdd_convnext_block(const void* in0, int in0_c, int in0_h, int in0_w, int up
       H, W, out, pooled, head_out, state, state_stride, feat_off
   cudaStream_t s = (cudaStream_t)stream;
   if (f32)
-    return (int)launch_block<true>(make_args<float>(RVDD_BLOCK_ARGS), f32m::smem_layout().total, s);
-  return (int)launch_block<false>(make_args<bf16>(RVDD_BLOCK_ARGS), smem_layout().total, s);
+    return (int)launch_block<true>(make_args<float>(RVDD_BLOCK_ARGS), f32m::smem_layout().total,
+                                   n_cta, s);
+  return (int)launch_block<false>(make_args<bf16>(RVDD_BLOCK_ARGS), smem_layout().total, n_cta, s);
 #undef RVDD_BLOCK_ARGS
+}
+
+// rvdd_convnext_block_grid with one CTA an SM (the grid of the main path)
+int rvdd_convnext_block(const void* in0, int in0_c, int in0_h, int in0_w, int upsample,
+                        const void* aux, int aux_c, int aux_stride, int aux_off,
+                        int cin0_pad, const void* proj_w, const void* proj_b,
+                        const void* dw_w, const void* dw_b, const void* ln_g,
+                        const void* ln_b, const void* pw1, const void* pw1_b,
+                        const void* pw2, const void* pw2_b, const void* ls,
+                        const void* head_w, const void* head_b, int n_head,
+                        int B, int H, int W, void* out, void* pooled, void* head_out,
+                        void* state, int state_stride, int feat_off, int f32, void* stream) {
+  return rvdd_convnext_block_grid(in0, in0_c, in0_h, in0_w, upsample, aux, aux_c, aux_stride,
+                                  aux_off, cin0_pad, proj_w, proj_b, dw_w, dw_b, ln_g, ln_b, pw1,
+                                  pw1_b, pw2, pw2_b, ls, head_w, head_b, n_head, B, H, W, out,
+                                  pooled, head_out, state, state_stride, feat_off, f32, 0, stream);
 }
 
 }  // extern "C"
 
-#ifdef RVDD_PHASE_CLOCKS
-// copies the phase clocks to host[0..3] and zeroes them; returns a cudaError_t
-extern "C" int rvdd_phase_clocks(void* host) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, wg::g_phase_clocks, sizeof(wg::g_phase_clocks));
-  const unsigned long long zero[4] = {0, 0, 0, 0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wg::g_phase_clocks, zero, sizeof(zero));
-  return (int)e;
-}
-#endif

@@ -672,14 +672,4 @@ int rvdd_warp_bicubic(const void* x, int x_bf16, const void* flow, void* out, in
                                  nullptr, stream);
 }
 
-#ifdef RVDD_PHASE_CLOCKS
-// copies the phase clocks to host[0..3] and zeroes them; returns a cudaError_t
-int rvdd_phase_clocks(void* host) {
-  cudaError_t e = cudaMemcpyFromSymbol(host, wg::g_phase_clocks, sizeof(wg::g_phase_clocks));
-  const unsigned long long zero[4] = {0, 0, 0, 0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wg::g_phase_clocks, zero, sizeof(zero));
-  return (int)e;
-}
-#endif
-
 }  // extern "C"

@@ -28,6 +28,7 @@
 #define RVDD_WGMMA_CUH_
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace wg {
@@ -78,6 +79,27 @@ __device__ __forceinline__ void bar_warpgroup(int g) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
 }
 
+// named barrier `id` of `n` threads: bar_sync waits until n threads have
+// arrived (this one included), bar_arrive counts this thread and goes on.
+// Both order the memory accesses before them for the threads that wait.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// gives registers back (dec) or takes them (inc): every thread of the
+// warpgroup then has at most N; in a warp-specialized kernel, once per role
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // 16-byte asynchronous copy global -> shared, through L1 (neighbouring
 // threads read neighbouring 16 bytes of one line in turns)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -93,16 +115,21 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Phase clocks for rvdd_tpu_torch/probe.py: built with -DRVDD_PHASE_CLOCKS,
-// thread 0 of each CTA adds the cycles of each phase of its tiles (and the
-// tile count) to g_phase_clocks; without the flag PHASE_CLOCK(...) is empty.
+// a thread of each CTA adds the cycles of each phase of its tiles to
+// g_phase_clocks[0..6) and the tile count to g_phase_clocks[7]; without the
+// flag PHASE_CLOCK(...) is empty.  A kernel of three phases uses slots 0-2;
+// a warp-specialized one gives its producer slots 0-2 and its consumers 3-5.
 #ifdef RVDD_PHASE_CLOCKS
 #define PHASE_CLOCK(...) __VA_ARGS__
-__device__ unsigned long long g_phase_clocks[4];
+constexpr int PHASE_SLOTS = 8;
+__device__ unsigned long long g_phase_clocks[PHASE_SLOTS];
+// from the calling thread: ph to slots [base, base + 3), tiles to slot 7
+__device__ __forceinline__ void phase_clocks_add_at(const long long (&ph)[3], int base, int tiles) {
+  for (int i = 0; i < 3; ++i) atomicAdd(&g_phase_clocks[base + i], (unsigned long long)ph[i]);
+  if (tiles) atomicAdd(&g_phase_clocks[PHASE_SLOTS - 1], (unsigned long long)tiles);
+}
 __device__ __forceinline__ void phase_clocks_add(const long long (&ph)[3], int tiles) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 3; ++i) atomicAdd(&g_phase_clocks[i], (unsigned long long)ph[i]);
-    atomicAdd(&g_phase_clocks[3], (unsigned long long)tiles);
-  }
+  if (threadIdx.x == 0) phase_clocks_add_at(ph, 0, tiles);
 }
 #else
 #define PHASE_CLOCK(...)
@@ -184,5 +211,15 @@ __device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)
 }
 
 }  // namespace wg
+
+#ifdef RVDD_PHASE_CLOCKS
+// copies the phase clocks to host[0..8) and zeroes them; returns a cudaError_t
+extern "C" int rvdd_phase_clocks(void* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, wg::g_phase_clocks, sizeof(wg::g_phase_clocks));
+  const unsigned long long zero[wg::PHASE_SLOTS] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(wg::g_phase_clocks, zero, sizeof(zero));
+  return (int)e;
+}
+#endif
 
 #endif  // RVDD_WGMMA_CUH_

@@ -28,11 +28,14 @@ A chain runs in one of two numerics, fixed when it is packed:
   blocks;
 * fp32 (``pack_chain(..., band_fp32=True)``; rvdd_tpu's
   ``band_dtype=float32, mxu_precision='highest', gelu_exact=True``): fp32
-  inputs, bands, outputs, taps and weights, nothing rounded, the erf GELU,
-  and fp32-faithful 1x1 products.  The kernel splits each operand of proj,
-  pw1 and pw2 by mantissa masks into three bf16 planes (``split3``) and
-  sums six bf16 products (what HIGHEST does on the TPU); its head runs in
-  fp32 on the CUDA cores.
+  inputs, bands, outputs, taps and weights, nothing rounded, the erf GELU
+  (the kernel's erf is rvdd_tpu's kernel's Abramowitz-Stegun polynomial,
+  1.5e-7 abs; the plain version's is torch's exact one), and fp32-faithful
+  1x1 products.  The kernel splits each operand of proj, pw1 and pw2 by
+  mantissa masks into three bf16 planes (``split3``) and sums six bf16
+  products (what HIGHEST does on the TPU); its head runs in fp32 on the
+  CUDA cores.  Its CTAs are warp-specialized and walk runs of 4x32 tiles
+  down 32-column strips (:func:`tile_runs`).
 
 The plain version repeats the bf16 mode's rounding points in fp32
 PyTorch, and is the plain fp32 function (exact ``F.gelu``) in the fp32
@@ -59,6 +62,8 @@ HIDDEN = 4 * WIDTH
 KSIZE = 7
 MAX_CIN = 96     # proj input channels the kernel stages (padded input + aux)
 MAX_HEAD = 8
+TILE_COLS = 32   # the kernel's output tile: 32 columns,
+F32_TILE_ROWS = 4  # by 4 rows in the fp32 mode
 BF16 = torch.bfloat16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -74,6 +79,37 @@ _ARGTYPES = [
     _P, _I, _I,                      # state, stride, feat_off
     _I, _P,                          # f32, stream
 ]
+# rvdd_convnext_block_grid: the same with n_cta before the stream
+_GRID_ARGTYPES = _ARGTYPES[:-1] + [_I, _P]
+
+
+def tile_runs(B: int, H: int, W: int, n_cta: int) -> list:
+    """The fp32 mode's schedule, as the kernel computes it
+    (csrc/convnext_chain.cu, ``f32m::Sched``): for each of the
+    ``min(T, n_cta)`` CTAs of a launch, its runs ``(image, strip, first
+    tile row, tiles)``.
+
+    The T output tiles of [B, H, W] (4 rows by 32 columns) are numbered
+    image by image, strip (32 columns) by strip, top to bottom; CTA c of n
+    takes tiles [c T / n, (c + 1) T / n), so no CTA takes more than
+    ceil(T / n).  Its consecutive tiles of one strip form a run, down which
+    the kernel's halo ring carries over (a run's first tile stages its
+    whole halo, the others their 4 new rows)."""
+    S, R = -(-W // TILE_COLS), -(-H // F32_TILE_ROWS)
+    T = B * S * R
+    n = min(T, n_cta)
+    out = []
+    for c in range(n):
+        i, hi = T * c // n, T * (c + 1) // n
+        runs = []
+        while i < hi:
+            b, rem = divmod(i, S * R)
+            s, r = divmod(rem, R)
+            cnt = min(hi - i, R - r)
+            runs.append((b, s, r, cnt))
+            i += cnt
+        out.append(runs)
+    return out
 
 
 def _ceil16(n: int) -> int:
@@ -317,7 +353,8 @@ def _ptr(t: Optional[torch.Tensor]):
 def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tensor] = None,
                    aux_channels: Optional[Tuple[int, int]] = None, emit: Sequence[int] = (),
                    pool: Sequence[int] = (), upsample_input: bool = False,
-                   state_out: Optional[Tuple[int, Optional[int]]] = None):
+                   state_out: Optional[Tuple[int, Optional[int]]] = None,
+                   n_cta: Optional[int] = None):
     """Run a packed ConvNeXt chain (see :func:`pack_chain`) on NHWC x of the
     chain's dtype (``chain.dtype``: bf16, or fp32 for a ``band_fp32``
     chain; x and aux of any other dtype raise TypeError).
@@ -337,7 +374,9 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
     CUDA tensors launch one kernel per block (counted in
     ``convnext_chain.launches``, and those of fp32 chains also in
     ``convnext_chain.fp32_launches``); CPU tensors run
-    :func:`convnext_chain_plain`.
+    :func:`convnext_chain_plain`.  ``n_cta`` caps a launch's grid, which is
+    one CTA an SM otherwise (tests use it to make one CTA walk a whole
+    strip; see :func:`tile_runs`).
     """
     _check_dtype("x", x, chain)
     if aux is not None:
@@ -382,9 +421,17 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
             raise ValueError(f"convnext_chain: state_out {state_out} does not fit the chain")
         state = torch.empty(b, hh, ww, n_state, dtype=torch.float32, device=dev)
 
+    if n_cta is not None and n_cta < 1:
+        raise ValueError(f"convnext_chain: n_cta {n_cta} < 1")
     lib = _build.load_library("convnext_chain")
-    fn = lib.rvdd_convnext_block
-    fn.argtypes = _ARGTYPES
+    if n_cta is None:
+        fn = lib.rvdd_convnext_block
+        fn.argtypes = _ARGTYPES
+        grid = ()
+    else:
+        fn = lib.rvdd_convnext_block_grid
+        fn.argtypes = _GRID_ARGTYPES
+        grid = (n_cta,)
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     bd = chain.dtype
@@ -412,7 +459,7 @@ def convnext_chain(x: torch.Tensor, chain: CnxChain, *, aux: Optional[torch.Tens
                 chain.n_head if head else 0,
                 b, hh, ww, _ptr(out), _ptr(pl), _ptr(head_out) if head else None,
                 _ptr(state) if last else None, n_state, feat_off, int(chain.band_fp32),
-                stream)
+                *grid, stream)
         convnext_chain.launches += 1
         convnext_chain.fp32_launches += chain.band_fp32
         _build.check(lib, rc, f"convnext_chain block {i}")

@@ -16,9 +16,13 @@ single launches at 1080p:
   (with a streamed layer's per-tap waits), the epilogue with the next
   tile's staging;
 - ``convnext_chain``: a plain block, a proj block (96 input channels) and
-  an upsample block, each in the bf16 and the fp32 mode; phases: the halo tile (staging, projection or
-  interpolation), the depthwise and LayerNorm, the 1x1 products with the
-  GELU and the epilogue;
+  an upsample block, each in the bf16 and the fp32 mode.  bf16 phases: the
+  halo tile (staging, projection or interpolation), the depthwise and
+  LayerNorm, the 1x1 products with the GELU and the epilogue.  The fp32
+  mode is warp-specialized, so its phases are by role: the producer's
+  (waiting for the consumers' release, staging or projection of the new
+  halo rows, depthwise and LayerNorm) and the consumers' (waiting for the
+  LN output, the products with the GELU, the epilogue);
 - ``warp_bicubic``: the 56-channel fp32 state to bf16 (the wide kernel),
   the 3-channel bf16 future frame (narrow) and the solver's [1, 540, 960,
   4] fp32 stack (narrow), by bench's smooth flow and the solver's known
@@ -29,8 +33,9 @@ single launches at 1080p:
 
 For each it prints the time (CUDA events, the build without clocks) and the
 mean cycles per tile and phase, as thread 0 of each CTA sees them (in
-conv_chain, the first warpgroup's tiles; the phases of a chain's layers are
-pooled).  Random weights from a seed; the outputs are not checked here
+conv_chain, the first warpgroup's tiles; in convnext_chain's fp32 mode the
+producer's first thread and the first consumer's; the phases of a chain's
+layers are pooled).  Random weights from a seed; the outputs are not checked here
 (chip_smoke.py and the card tests do that).
 """
 
@@ -93,16 +98,27 @@ def graph_time_ms(fn, reps: int) -> float:
     return ms
 
 
+#: phase-clock slots of csrc/wgmma.cuh: phases in 0-5, the tile count in 7
+SLOTS = 8
+
+
 def phases(lib: ctypes.CDLL, fn) -> list:
-    """Mean cycles per tile of each phase over one run of fn."""
-    buf = (ctypes.c_ulonglong * 4)()
+    """Mean cycles per tile of each of the six phase slots over one run of
+    fn, and the tile count last."""
+    buf = (ctypes.c_ulonglong * SLOTS)()
     lib.rvdd_phase_clocks.argtypes = [ctypes.c_void_p]
     _build.check(lib, lib.rvdd_phase_clocks(ctypes.addressof(buf)), "phase clocks")
     fn()
     torch.cuda.synchronize()
     _build.check(lib, lib.rvdd_phase_clocks(ctypes.addressof(buf)), "phase clocks")
-    tiles = max(int(buf[3]), 1)
-    return [buf[i] / tiles for i in range(3)] + [int(buf[3])]
+    tiles = max(int(buf[SLOTS - 1]), 1)
+    return [buf[i] / tiles for i in range(SLOTS - 2)] + [int(buf[SLOTS - 1])]
+
+
+#: the fp32 convnext_chain's phases by role (slots 0-2 the producer's, 3-5
+#: the consumers')
+CNX_F32_PHASES = ("producer: wait for release", "stage or project new rows", "depthwise + LN",
+                  "consumers: wait for LN", "products + GELU", "epilogue")
 
 
 def conv_cases(dev, gen):
@@ -153,11 +169,13 @@ def cnx_cases(dev, gen):
         xh = torch.randn(1, H // 2, W // 2, 48, device=dev, generator=gen).to(dt)
         plain = cx.pack_chain([sd(48)], 48, band_fp32=fp32)
         proj = cx.pack_chain([sd(96)], 96, band_fp32=fp32)
+        labels = CNX_F32_PHASES if fp32 else ("halo tile", "depthwise + LN",
+                                              "1x1 + GELU + epilogue")
         cases += [
-            (f"plain block{tag}", lambda x=x, c=plain: cx.convnext_chain(x, c)),
-            (f"proj block (96 -> 48){tag}", lambda x=x96, c=proj: cx.convnext_chain(x, c)),
+            (f"plain block{tag}", lambda x=x, c=plain: cx.convnext_chain(x, c), labels),
+            (f"proj block (96 -> 48){tag}", lambda x=x96, c=proj: cx.convnext_chain(x, c), labels),
             (f"upsample block{tag}",
-             lambda x=xh, c=plain: cx.convnext_chain(x, c, upsample_input=True)),
+             lambda x=xh, c=plain: cx.convnext_chain(x, c, upsample_input=True), labels),
         ]
     return cases
 
@@ -193,28 +211,27 @@ def main():
     gen.manual_seed(0)
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
     _build.build(tuple(names))
+    conv_labels = ("wait for tile", "products", "epilogue + staging")
+    warp_labels = ("flow + footprint", "window copy", "gather + store")
     groups = [
-        ("conv_chain", lambda: conv_cases(dev, gen),
-         ("wait for tile", "products", "epilogue + staging")),
-        ("convnext_chain", lambda: [(n, f, None) for n, f in cnx_cases(dev, gen)],
-         ("halo tile", "depthwise + LN", "1x1 + GELU + epilogue")),
-        ("warp_bicubic", lambda: [(n, f, None) for n, f in warp_cases(dev, gen)],
-         ("flow + footprint", "window copy", "gather + store")),
+        ("conv_chain", lambda: [(n, f, fl, conv_labels) for n, f, fl in conv_cases(dev, gen)]),
+        ("convnext_chain", lambda: [(n, f, None, lab) for n, f, lab in cnx_cases(dev, gen)]),
+        ("warp_bicubic", lambda: [(n, f, None, warp_labels) for n, f in warp_cases(dev, gen)]),
     ]
-    for name, make_cases, labels in groups:
+    for name, make_cases in groups:
         if name not in names:
             continue
         base = _build._LIBS.get(name) or _build.load_library(name)
         clocked = build_phases(name)
         timer = graph_time_ms if name == "warp_bicubic" else time_ms
-        for label, fn, flops in make_cases():
+        for label, fn, flops, labels in make_cases():
             _build._LIBS[name] = base
             ms = timer(fn, args.reps)
             _build._LIBS[name] = clocked
             ph = phases(clocked, fn)
             rate = f", {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s" if flops else ""
-            print(f"{name} {label}: {ms:.3f} ms{rate}; cycles per tile ({ph[3]} tiles seen): "
-                  + ", ".join(f"{lab} {v:.0f}" for lab, v in zip(labels, ph[:3])), flush=True)
+            print(f"{name} {label}: {ms:.3f} ms{rate}; cycles per tile ({ph[-1]} tiles seen): "
+                  + ", ".join(f"{lab} {v:.0f}" for lab, v in zip(labels, ph)), flush=True)
         _build._LIBS[name] = base
 
 

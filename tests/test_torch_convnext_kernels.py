@@ -12,6 +12,7 @@ parameters are drawn with numpy, given to rvdd_tpu as flax params and to the
 port through models/convert.py.
 """
 
+from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -27,6 +28,7 @@ from rvdd_tpu_torch.ops.cuda.convnext_chain import (  # noqa: E402
     pack_block,
     pack_chain,
     split3,
+    tile_runs,
 )
 from rvdd_tpu_torch.ops.resize import upsample2x_bilinear  # noqa: E402
 
@@ -108,9 +110,9 @@ def make_case(case, seed=0, h=H, w=W, batch=1, fp32=False):
     return x, aux, blocks, head
 
 
-def run_port(case, x, aux, blocks, head, device, plain=False, fp32=False):
+def run_port(case, x, aux, blocks, head, device, plain=False, fp32=False, n_cta=None):
     """The port's chain (``fp32``: in the fp32 mode) on the case; x and aux
-    are given in the chain's dtype."""
+    are given in the chain's dtype; ``n_cta`` caps the kernel's grid."""
     sds = [{k: v.to(device) for k, v in convnext_from_flax(p).items()} for p in blocks]
     hd = None
     if head is not None:
@@ -123,6 +125,8 @@ def run_port(case, x, aux, blocks, head, device, plain=False, fp32=False):
     if aux is not None:
         kw["aux"] = torch.from_numpy(aux).to(device).to(chain.dtype)
         kw["aux_channels"] = case["aux"][1:]
+    if n_cta is not None:
+        kw["n_cta"] = n_cta
     fn = convnext_chain_plain if plain else convnext_chain
     outs = fn(torch.from_numpy(x).to(device).to(chain.dtype), chain, **kw)
     return [o.float().cpu().numpy() for o in outs]
@@ -434,32 +438,71 @@ def test_convnext_chain_kernel_ragged_batch2(cuda, name, w):
         assert np.mean(np.abs(g - wv)) < 1e-3 * np.std(wv), (name, w)
 
 
+def check_fp32_kernel(device, name, h, w, seed, batch=2, n_cta=None):
+    """The fp32 mode of the kernel against its plain fp32 version (TF32
+    off) on a card case: max error at most 2^-14 of max|out| and mean below
+    1e-5 x std.  The two differ by the products the split drops (about
+    2^-24 relative), fp32 sums in other orders and the kernel's polynomial
+    erf (rvdd_tpu's kernel's, 1.5e-7 abs) against torch's; the kernel
+    launches once a block, counted in fp32_launches."""
+    case = CARD_CASES[name]
+    x, aux, blocks, head = make_case(case, seed=seed, h=h, w=w, batch=batch, fp32=True)
+    before = convnext_chain.launches, convnext_chain.fp32_launches
+    got = run_port(case, x, aux, blocks, head, device, fp32=True, n_cta=n_cta)
+    assert (convnext_chain.launches, convnext_chain.fp32_launches) == (
+        before[0] + case["n"], before[1] + case["n"])
+    want = run_port(case, x, aux, blocks, head, device, plain=True, fp32=True)
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == batch
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -14 * float(np.max(np.abs(wv))), (name, h, w, err)
+        assert np.mean(np.abs(g - wv)) < 1e-5 * np.std(wv), (name, h, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("w", [72, 200])
 @pytest.mark.parametrize("name", list(CARD_CASES))
 def test_convnext_chain_fp32_kernel_matches_plain(cuda, name, w):
     """The fp32 mode on the card (three-plane split, six bf16 wgmma a
-    k-step, erf GELU, fp32 bands) against its plain fp32 version (TF32 off)
-    on every card case, batch 2, at ragged sizes: max error at most 2^-14
-    of max|out| and mean below 1e-5 x std.  The two differ by the products
-    the split drops (about 2^-24 relative), fp32 sums in other orders and
-    erff against torch's erf; the kernel launches once a block, counted in
-    fp32_launches."""
-    case = CARD_CASES[name]
-    h = 22 if w == 72 else 26
-    x, aux, blocks, head = make_case(case, seed=7, h=h, w=w, batch=2, fp32=True)
-    before = convnext_chain.launches, convnext_chain.fp32_launches
-    got = run_port(case, x, aux, blocks, head, cuda, fp32=True)
-    assert (convnext_chain.launches, convnext_chain.fp32_launches) == (
-        before[0] + case["n"], before[1] + case["n"])
-    want = run_port(case, x, aux, blocks, head, cuda, plain=True, fp32=True)
-    assert len(got) == len(want)
-    for g, wv in zip(got, want):
-        assert g.shape == wv.shape and g.shape[0] == 2
-        assert np.isfinite(g).all()
-        err = float(np.max(np.abs(g - wv)))
-        assert err <= 2.0 ** -14 * float(np.max(np.abs(wv))), (name, w, err)
-        assert np.mean(np.abs(g - wv)) < 1e-5 * np.std(wv), (name, w)
+    k-step, erf GELU, fp32 bands) against its plain fp32 version on every
+    card case, batch 2, at ragged sizes (check_fp32_kernel's limits)."""
+    check_fp32_kernel(cuda, name, 22 if w == 72 else 26, w, seed=7)
+
+
+# (h, w) that walk the fp32 kernel's halo ring: a tall strip (a CTA carries
+# the ring down many tiles), images shorter than a tile's 10-row halo, and
+# a strip narrower than the 32-column tile
+RING_SHAPES = {"tall_h70_w40": (70, 40), "short_h6": (6, 72), "short_h3": (3, 72),
+               "narrow_w20": (22, 20)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(RING_SHAPES))
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_convnext_chain_fp32_kernel_ring_edges(cuda, name, shape):
+    """The fp32 mode on every card case at the shapes of RING_SHAPES, batch
+    2: the runs of the tiles of image 0 end at its last tile row, and those
+    of image 1 start with a whole halo (check_fp32_kernel's limits).  An
+    upsampling case doubles its input, so an odd h becomes h - 1."""
+    h, w = RING_SHAPES[shape]
+    if CARD_CASES[name].get("upsample"):
+        h -= h % 2
+    check_fp32_kernel(cuda, name, h, w, seed=9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cta", [1, 5])
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_convnext_chain_fp32_kernel_small_grid(cuda, name, n_cta):
+    """The fp32 mode with the grid capped (n_cta): one CTA walks every
+    strip of both images (n_cta = 1), or five CTAs take runs that start
+    and end inside strips (tile_runs), at 70 x 72, batch 2."""
+    runs = tile_runs(2, 70, 72, n_cta)
+    assert len(runs) == n_cta
+    assert n_cta == 1 or any(r[2] > 0 for cta in runs for r in cta[:1])
+    check_fp32_kernel(cuda, name, 70, 72, seed=11, n_cta=n_cta)
 
 
 @pytest.mark.parametrize("fp32", [False, True])
@@ -541,8 +584,8 @@ def test_mixed_flagship_steps_on_card_match_plain_versions(cuda):
     chain in the fp32 mode, fp32 warps) against the same steps on the CPU,
     where the wrappers run their plain fp32 versions: normalized max error
     below 1e-4 at both steps (fp32 sums in other orders, the products the
-    split drops and erff against torch's erf, carried over 25 blocks and
-    two steps)."""
+    split drops and the kernel's polynomial erf against torch's, carried
+    over 25 blocks and two steps)."""
     from rvdd_tpu_torch.models import build_network
     from rvdd_tpu_torch.recurrent import engine
 
@@ -566,3 +609,53 @@ def test_mixed_flagship_steps_on_card_match_plain_versions(cuda):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert np.isfinite(got).all()
         assert _norm_err(got, want) < 1e-4, _norm_err(got, want)
+
+
+# (B, H, W, n_cta): the flagship's chain resolutions at 1080p on the H100's
+# 132 SMs (full, half, quarter and eighth: A and dec2, B and dec1, C and
+# dec0, mid), the card tests' shapes, and edges: H not a multiple of 4, W
+# not a multiple of 32, H below the 10-row halo, W below the tile, one CTA,
+# more CTAs than tiles
+TILE_RUNS_GRIDS = [
+    (1, 1080, 1920, 132), (1, 540, 960, 132), (1, 270, 480, 132), (1, 135, 240, 132),
+    (2, 70, 40, 132), (2, 70, 72, 1), (2, 70, 72, 5), (2, 6, 72, 132), (2, 3, 72, 132),
+    (2, 22, 20, 132), (2, 26, 200, 132), (3, 37, 100, 7), (1, 1, 1, 4), (4, 9, 33, 5),
+]
+
+
+@pytest.mark.parametrize("grid", TILE_RUNS_GRIDS, ids=lambda g: "x".join(map(str, g)))
+def test_tile_runs_cover_every_tile_once(grid):
+    """The fp32 kernel's schedule: every 4x32 tile of every image exactly
+    once; each CTA's runs lie in one strip of one image and follow each
+    other in the kernel's tile order (image, strip, tile row), so its tiles
+    are one contiguous range; no CTA takes more than ceil(T / n) tiles, nor
+    one more than another."""
+    b, h, w, n = grid
+    runs = tile_runs(b, h, w, n)
+    strips, rows = -(-w // 32), -(-h // 4)
+    total = b * strips * rows
+    assert len(runs) == min(total, n)
+    seen = Counter()
+    order = []
+    for cta in runs:
+        assert cta, "every CTA of the grid has a tile"
+        for img, s, r0, cnt in cta:
+            assert 0 <= img < b and 0 <= s < strips and cnt >= 1 and 0 <= r0 and r0 + cnt <= rows
+            for k in range(cnt):
+                seen[(img, s, r0 + k)] += 1
+                order.append((img * strips + s) * rows + r0 + k)
+    assert len(seen) == total and set(seen.values()) == {1}
+    assert order == list(range(total))
+    counts = [sum(r[3] for r in cta) for cta in runs]
+    assert max(counts) <= -(-total // len(runs)) and max(counts) - min(counts) <= 1
+
+
+def test_tile_runs_balance_at_1080p():
+    """At 1080p on 132 SMs (16,200 tiles of a full-res block) no CTA takes
+    more than 1.05x the mean, in at most two runs (one strip change), so
+    the kernel stages a whole halo at most twice a CTA."""
+    runs = tile_runs(1, 1080, 1920, 132)
+    counts = [sum(r[3] for r in cta) for cta in runs]
+    assert sum(counts) == 60 * 270
+    assert max(counts) <= 1.05 * sum(counts) / len(counts)
+    assert max(len(cta) for cta in runs) <= 2
