@@ -1,6 +1,6 @@
 """Smoke run of rvdd_tpu_torch on one CUDA card: build, check, drive.
 
-    python3 chip_smoke.py [--warp-source DIR] [--cnx-source DIR]
+    python3 chip_smoke.py [--warp-source DIR] [--cnx-source DIR] [--conv-source DIR]
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
@@ -33,7 +33,10 @@
    ``--warp-source DIR`` it also times the warp kernel of another checkout
    (e.g. the parent commit's tree) against this one, in turns; with
    ``--cnx-source DIR`` the other checkout's convnext_chain kernel against
-   this one's on the flagship's seven chains at 1080p, in both modes.
+   this one's on the flagship's seven chains at 1080p, in both modes; with
+   ``--conv-source DIR`` its conv_chain kernel against this one's on the
+   six chains of each ConvUNet packing at 1080p (every mode), where the
+   'bf16', 'high' and 'w32' outputs must be bit-identical.
 4. Runs the TV-L1 solver on a 540x960 pair with a known flow, once per
    preset, through the kernel route and the plain route: the two agree
    within tests/test_tvl1.py's limits and both find the known flow.
@@ -516,7 +519,8 @@ def check_conv_chains(packed, gen, names=CHAINS) -> dict:
                 f"layer {i} K={layer.ks ** 2 * (layer.cin0_pad + layer.aux_c)}: {p['mode']}, "
                 f"{p['trw']} rows x {p['nwg']} warpgroups, {p['smem']} B"
                 for i, (layer, p) in enumerate(
-                    (layer, layer_plan(layer, mode)) for layer in chain.layers)))
+                    (layer, layer_plan(layer, mode, upsample=(k == 0 and kw.get("upsample_input"))))
+                    for k, layer in enumerate(chain.layers))))
         got = conv_chain(x, chain, **kw)
         want = conv_chain_plain(x, chain, **kw)
         control = conv_chain(x, bf16_weight_chain(chain), **kw) if mode == "w32" else ()
@@ -943,6 +947,69 @@ def compare_cnx_source(src_dir: str, gen) -> None:
     log(json.dumps({"cnx_source_comparison": rec}))
 
 
+#: the packings --conv-source compares: (model, preset, chains), one per
+#: conv_chain mode: 'fast' (bf16), 'auto''s fp32 chains of
+#: convunet+feat+future ('high'), 'accurate' ('highest'), 'wf32' ('w32')
+CONV_PACKINGS = (("convunet+feat", "fast", CHAINS), ("convunet+feat+future", "auto", ("A", "dec2")),
+                 ("convunet+feat+future", "accurate", CHAINS), ("convunet+feat", "wf32", CHAINS))
+
+
+def compare_conv_source(src_dir: str, gen) -> None:
+    """The conv_chain kernel of another checkout (``src_dir``, e.g. the
+    parent commit's tree) against this one on the chains of each packing
+    (CONV_PACKINGS) at 1080p, in one process: both built with _build's nvcc
+    flags (the other's ptxas lines are printed) and launched by the wrapper
+    through the C entry ``rvdd_conv_layer`` (28 arguments, the same in
+    both), timed in turns (other, this, this, other) as check_conv_chains
+    times them.  Prints max |other - this| per chain, which must be 0 in
+    the modes this tree did not change ('bf16', 'high', 'w32').  The
+    wrapper counts these launches; the main paths reset the counts before
+    they run."""
+    so = _build.BUILD_DIR / "libconv_chain_other.so"
+    src = Path(src_dir) / "rvdd_tpu_torch" / "csrc" / "conv_chain.cu"
+    out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+                         check=True, capture_output=True, text=True)
+    for line in ptxas_lines((out.stdout + out.stderr).splitlines()):
+        log(f"  other conv_chain.cu: {line}")
+    libs = {"other": ctypes.CDLL(str(so)), "this": _build.load_library("conv_chain")}
+    rec = {"other": src_dir}
+    failed = []
+    try:
+        for model, preset, names in CONV_PACKINGS:
+            _, _, packed = make_model("fused", seed=0, device=DEV, model=model, precision=preset)
+            mode = packed[names[0]].mode
+            total = [0.0] * 4
+            for name, x, kw in chain_specs(packed, gen, names):
+                chain = packed[name]
+                times = []
+                for k, which in enumerate(("other", "this", "this", "other")):
+                    _build._LIBS["conv_chain"] = libs[which]
+                    times.append(time_ms(lambda: conv_chain(x, chain, **kw), reps=5))
+                    total[k] += times[-1]
+                outs = {}
+                for which in ("other", "this"):
+                    _build._LIBS["conv_chain"] = libs[which]
+                    outs[which] = conv_chain(x, chain, **kw)
+                diff = max(float((o.float() - t.float()).abs().max())
+                           for o, t in zip(outs["other"], outs["this"]))
+                log(f"conv source comparison [{mode} {name}] other, this, this, other: "
+                    f"{', '.join(f'{t:.3f}' for t in times)} ms; max |other - this| {diff:.3e}, "
+                    f"card {CARD}")
+                if mode != "highest" and diff != 0:
+                    failed.append(f"{mode} {name}: max |other - this| {diff}")
+                del outs
+            rec[f"{mode}_ms"] = total
+            log(f"conv source comparison [{mode}] chains {'+'.join(names)} a frame, other, this, "
+                f"this, other: {', '.join(f'{t:.3f}' for t in total)} ms, card {CARD}")
+            del packed
+    finally:
+        _build._LIBS["conv_chain"] = libs["this"]
+    log(json.dumps({"conv_source_comparison": rec}))
+    if failed:
+        raise AssertionError("conv_chain outputs differ from the other checkout's in an "
+                             "unchanged mode: " + "; ".join(failed))
+
+
 def check_tvl1() -> None:
     """One 540x960 flow per preset through the kernel route and the plain
     route: the two agree within tests/test_tvl1.py's limits (median |d| <
@@ -1083,6 +1150,28 @@ def main_path(model: str, flow, n_frames: int, warm: int, precision: str) -> dic
     return launches
 
 
+def ptxas_lines(lines) -> list:
+    """nvcc's ptxas register, shared-memory and spill lines, each labelled
+    with its kernel where the name tells the instantiation: conv_chain's
+    conv_layer_kernel<N, tile rows, mode (enum Mode)> and highest_kernel<N,
+    form (resident, streamed or upsample)>, convnext_chain's block kernel by
+    mode."""
+    kernel, out = "", []
+    forms = ("resident", "streamed", "upsample")
+    for line in lines:
+        m = re.search(r"conv_layer_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+        mh = re.search(r"highest_kernelILi(\d+)ELi(\d)E", line)
+        mc = re.search(r"convnext_block_kernelILb([01])E", line)
+        if "Compiling entry" in line:
+            kernel = (f"conv_layer_kernel<{m[1]}, {m[2]}, {m[3]}>: " if m else
+                      f"highest_kernel<{mh[1]}, {forms[int(mh[2])]}>: " if mh else
+                      f"convnext_block_kernel<{'fp32' if mc[1] == '1' else 'bf16'}>: " if mc
+                      else "")
+        elif "Used" in line or "spill" in line:
+            out.append(kernel + line.strip().replace("ptxas info    : ", ""))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of rvdd_tpu_torch on one CUDA card.")
     ap.add_argument("--warp-source", metavar="DIR",
@@ -1090,6 +1179,9 @@ def main(argv=None):
     ap.add_argument("--cnx-source", metavar="DIR",
                     help="also time the convnext_chain kernel of the checkout at DIR against "
                          "this one")
+    ap.add_argument("--conv-source", metavar="DIR",
+                    help="also time the conv_chain kernel of the checkout at DIR against this "
+                         "one (bit-identical outputs in the unchanged modes)")
     args = ap.parse_args(argv)
     global CARD
     card = CARD = card_info()
@@ -1101,16 +1193,8 @@ def main(argv=None):
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(info)} sources")
     for name, rec in info.items():
         log(f"  {name}.cu: nvcc {rec['seconds']:.1f} s")
-        kernel = ""  # conv_chain's instantiations by name: N, tile rows, mode (enum Mode)
-        for line in rec["ptxas"]:
-            m = re.search(r"conv_layer_kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
-            mc = re.search(r"convnext_block_kernelILb([01])E", line)
-            if "Compiling entry" in line:
-                kernel = (f"conv_layer_kernel<{m[1]}, {m[2]}, {m[3]}>: " if m else
-                          f"convnext_block_kernel<{'fp32' if mc[1] == '1' else 'bf16'}>: " if mc
-                          else "")
-            elif "Used" in line or "spill" in line:
-                log(f"    {kernel}{line.replace('ptxas info    : ', '')}")
+        for line in ptxas_lines(rec["ptxas"]):
+            log(f"    {line}")
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -1135,6 +1219,8 @@ def main(argv=None):
             compare_warp_source(args.warp_source)
         if args.cnx_source:
             compare_cnx_source(args.cnx_source, gen)
+        if args.conv_source:
+            compare_conv_source(args.conv_source, gen)
         check_tvl1()
     del packed
     torch.cuda.empty_cache()

@@ -38,24 +38,25 @@
 //     would keep 10 mantissa bits against about 16 here;
 //   * fp32 bands with HIGHEST products (band_dtype=float32,
 //     mxu_precision='highest', fp32 weights: rvdd_tpu's 'accurate',
-//     conv_pallas.py:288-304): staging splits each fp32 value into three
-//     bf16 planes, hi + mid + lo = v exactly (hi and mid by mantissa masks,
-//     lo the rest, at most 8 significant bits), the weights are packed as
-//     three such planes, and each k-step issues six wgmma: hi.hi, hi.mid,
-//     mid.hi, hi.lo, mid.mid and lo.hi, the terms HIGHEST keeps (the three
-//     dropped ones are below 2^-24 of the product), as convnext_chain.cu's
-//     fp32 mode does;
+//     conv_pallas.py:288-304), a body of its own (hx::, see below): the
+//     tile is staged as fp32, and each k-step's A values are split in
+//     registers into three bf16 fragments, hi + mid + lo = v exactly (hi
+//     and mid by mantissa masks, lo the rest, at most 8 significant bits);
+//     the weights are packed as three such planes, and each k-step issues
+//     six register-A wgmma: hi.hi, hi.mid, mid.hi, hi.lo, mid.mid and
+//     lo.hi, the terms HIGHEST keeps (the three dropped ones are below
+//     2^-24 of the product), as convnext_chain.cu's fp32 mode does;
 //   * bf16 bands with fp32 weights (weight_dtype=float32 at 'highest',
 //     rvdd_tpu's 'wf32', conv_pallas.py:295-296): the tile is staged as in
 //     the bf16 modes, the weights are three planes, and each k-step issues
 //     three wgmma, w_hi a + w_mid a + w_lo a, exact in the weights (a is
 //     bf16) up to the fp32 sums' order.
 // The mode is a template parameter of the kernel: a branch between wgmma
-// makes ptxas serialize them.  Why the tile is split in shared memory and
-// not in registers (wgmma's register-A form): a tap is a descriptor offset
-// into the staged planes, so the split runs once per staged value, where
-// register A fragments would be split once per tap (nine times for a 3x3);
-// and the three planes still fit beside a layer's weights (see below).
+// makes ptxas serialize them.  The bf16_3x mode splits its tile once in
+// shared memory (a tap is a descriptor offset into the staged planes); the
+// HIGHEST body splits it in registers, nine times for a 3x3, because a
+// three-plane tile leaves room for one tile beside the weights and an fp32
+// one for two (see the HIGHEST design below).
 //
 // What bounds it on the H100: operations.  The six chains of a 1080p frame
 // need about 1.07 TFLOP (with dec2's split layers): about 1.0 ms at the
@@ -83,8 +84,7 @@
 //   * the warpgroup holds one m64nN accumulator per tile row and issues
 //     ks^2 * cin/16 k-steps per row, each of the mode's products (one
 //     wgmma m64nNk16; two for a split layer, three in the bf16_3x and
-//     fp32-weight modes, six in the HIGHEST mode), the first with scale-d
-//     0, before one wait;
+//     fp32-weight modes), the first with scale-d 0, before one wait;
 //   * the epilogue adds bias and relu in registers, writes the fp32 state
 //     from registers, and stages the band in the warpgroup's region for
 //     16-byte stores and the 2x2 pool (4-byte stores straight from the
@@ -103,14 +103,64 @@
 // and the planes of one tap (18,432 or 27,648 bytes) at a time,
 // double-buffered with cp.async, so tap t + 1 (after the last, the next
 // tile's first) loads while tap t's products run; a barrier and a wgmma
-// wait per tap.  Every tile reloads the layer's weights from L2.  In the
-// HIGHEST mode a K = 432 layer keeps its three planes (124,416 bytes)
-// resident beside one warpgroup's TRW 2 tile (76,032): 200,448 bytes; a
-// K = 864 layer streams beside a TRW 2 tile: 207,360.  The choice is a
-// function of the layer's shape and mode alone: the resident form where
-// one of its configurations fits, else the streamed one, else the launch
-// fails with cudaErrorInvalidValue.
+// wait per tap.  Every tile reloads the layer's weights from L2.  The
+// choice is a function of the layer's shape and mode alone: the resident
+// form where one of its configurations fits, else the streamed one, else
+// the launch fails with cudaErrorInvalidValue.
+//
+// The HIGHEST body (hx::).  Six products a k-step made the serial body's
+// staging and epilogue (two thirds of a tile, its staging latency-bound
+// loads through registers) and shared memory (the A planes read six times a
+// k-step) its limits: 29,500 cycles a 2x64 tile of a 48 -> 48 layer at
+// 1080p (probe on the H100).  Its design:
+//   * a CTA of three warpgroups an SM (384 threads; setmaxnreg 104 for the
+//     producer, 200 for the consumers): warpgroup 2, the producer, stages
+//     each 2x64 tile's fp32 input a tile ahead into one of two regions
+//     [channel group of 8][row][column][8] with TMA (a box per channel
+//     group; zeros filled outside the image and past in0's channels), a
+//     streamed layer's a 48-channel slab at a time, with each tap of the
+//     slab's weights in three bulk copies into a ring of NW = 4 stages;
+//     FULL is an mbarrier, EMPTY a named barrier;
+//   * warpgroups 0 and 1, the consumers, take 32 columns of both rows each
+//     as one m64 operand (a thread holds a pixel and the one below it, so
+//     the 2x2 pool is one shuffle); a k16 step loads the thread's 8 fp32
+//     values (a warp reads 256 contiguous bytes a load) and splits them
+//     into hi, mid and lo fragments; a tap's three steps are one group of
+//     18 register-A wgmma (hi.hi into acc, the five small products into
+//     acc2), double-buffered: tap t + 1 is loaded and split while tap t's
+//     products run (wait<1>);
+//   * the epilogue runs from registers into a result array: bias, act,
+//     band, state and pool;
+//   * an upsample layer (3x3, its half-res input whole channel groups, no
+//     aux) keeps its weights beside one region and two TMA windows of its
+//     half-res input [3][36][cin], fetched two tiles ahead and interpolated
+//     by all 384 threads between the consumers' tiles; a 9-channel or
+//     unaligned input is staged through registers.
+// Budgets (bytes of the 232,448): K = 432 (48 -> 48): weights 124,416, two
+// regions of 50,688, mbarriers 128: 225,920.  K = 864 (48 + 48 aux): four
+// weight stages of 13,824 beside two 48-channel slab regions: 156,800 (each
+// tile reloads the layer's 248,832 bytes of weights from L2).  An upsample
+// K = 432 layer: 124,416 + 50,688 + two windows of 20,736 + 128 = 216,704.
+// The plan is a function of the layer's shape: the upsample form, else
+// resident, else streamed with the fewest slabs that fit (hx::plan_form,
+// mirrored by ops/cuda/conv_chain.py:highest_plan).  Registers: 168 at
+// launch, no spill (at 88 / 208 the producer spilled up to 260 bytes).
+// Measured on the H100 (probe, cycles a tile of that layer): per-thread
+// cp.async staging took 20,700 a tile for its 50,688 bytes, whatever the
+// read order or cache hint, and slowed the consumers; TMA takes 1,300 to
+// issue.  One k-step a group of 6 wgmma: 15,600 of products, whatever the
+// depth of the pipeline or the number of accumulators (three or four
+// shortened the dependent chains by 5%); a tap a group of 18: 9,800
+// (7,776 at the tensor peak), and an epilogue of 2,400.  With four
+// fragment buffers (wait<3>) ptxas gave the lo fragments of consecutive
+// steps one register quad and the outputs were wrong; two are right.  An
+// epilogue that wrote its results into the accumulators made ptxas
+// serialize every wgmma of the kernel (C7515, reported as info, not as a
+// warning).  An upsample layer's producer interpolating through registers
+// took 28,800 a tile; from TMA windows alone 16,000; with all threads
+// 3,400 of the producer's and 4,800 of the consumers' waiting.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -126,46 +176,38 @@ constexpr int SMEM_MAX = 232448;       // per block on the H100
 
 // what a launch computes: bf16 bands with 1-pass or split (hi + lo)
 // weights; fp32 bands with bf16_3x products; fp32 bands with HIGHEST
-// products; bf16 bands with fp32 weights; each fp32-weight mode with its
-// weights resident or streamed a tap at a time
+// products (the warp-specialized body, hx:: below); bf16 bands with fp32
+// weights; each fp32-weight mode with its weights resident or streamed (a
+// tap at a time; HIGHEST: a tap of a channel slab at a time), and HIGHEST's
+// upsample layers with resident weights beside windows of their half-res
+// input
 enum Mode {
   BF16 = 0, BF16_SPLIT = 1,
   F32_3X = 2, F32_3X_STREAM = 3,
-  F32_6X = 4, F32_6X_STREAM = 5,
+  HX = 4, HX_STREAM = 5,
   W32 = 6, W32_STREAM = 7,
+  HX_UP = 8,
 };
 // a layer's numerics, as the C entry points take them: bf16 bands with
 // bf16 weights, or with hi + lo weights; fp32 bands with bf16_3x or
 // HIGHEST products; bf16 bands with fp32 weights
 enum Prec { P_BF16 = 0, P_BF16_SPLIT = 1, P_HIGH = 2, P_HIGHEST = 3, P_W32 = 4 };
 
-__host__ __device__ constexpr bool mode_f32(int m) { return m >= F32_3X && m <= F32_6X_STREAM; }
-__host__ __device__ constexpr bool mode_stream(int m) {
-  return m == F32_3X_STREAM || m == F32_6X_STREAM || m == W32_STREAM;
-}
+// the modes of conv_layer_kernel (all but HX, HX_STREAM and HX_UP)
+__host__ __device__ constexpr bool mode_f32(int m) { return m == F32_3X || m == F32_3X_STREAM; }
+__host__ __device__ constexpr bool mode_stream(int m) { return m == F32_3X_STREAM || m == W32_STREAM; }
 // bf16 planes of the staged tile and of the weights
-__host__ __device__ constexpr int a_planes(int m) {
-  return m == F32_3X || m == F32_3X_STREAM ? 2 : m == F32_6X || m == F32_6X_STREAM ? 3 : 1;
-}
+__host__ __device__ constexpr int a_planes(int m) { return m == F32_3X || m == F32_3X_STREAM ? 2 : 1; }
 __host__ __device__ constexpr int w_planes(int m) { return m == BF16 ? 1 : m <= F32_3X_STREAM ? 2 : 3; }
-// the HIGHEST mode sums its five small products in a second accumulator
-// (see the kernel), so it runs 2-row tiles and at most two warpgroups
-__host__ __device__ constexpr bool mode_6x(int m) { return m == F32_6X || m == F32_6X_STREAM; }
 // the products of a k-step, and product p's (tile plane, weight plane):
-// bf16 split (0, 0) (0, 1); bf16_3x (0, 0) (1, 0) (0, 1); HIGHEST (0, 0)
-// (0, 1) (1, 0) (0, 2) (1, 1) (2, 0); fp32 weights (0, 0) (0, 1) (0, 2)
-__host__ __device__ constexpr int n_products(int m) {
-  return m == BF16 ? 1 : m == BF16_SPLIT ? 2 : m == F32_6X || m == F32_6X_STREAM ? 6 : 3;
-}
+// bf16 split (0, 0) (0, 1); bf16_3x (0, 0) (1, 0) (0, 1); fp32 weights
+// (0, 0) (0, 1) (0, 2)
+__host__ __device__ constexpr int n_products(int m) { return m == BF16 ? 1 : m == BF16_SPLIT ? 2 : 3; }
 __host__ __device__ constexpr int prod_a(int m, int p) {
-  return m == F32_3X || m == F32_3X_STREAM ? (p == 1)
-         : m == F32_6X || m == F32_6X_STREAM ? (p == 2 || p == 4 ? 1 : p == 5 ? 2 : 0)
-                                             : 0;
+  return m == F32_3X || m == F32_3X_STREAM ? (p == 1) : 0;
 }
 __host__ __device__ constexpr int prod_b(int m, int p) {
-  return m == F32_3X || m == F32_3X_STREAM ? (p == 2)
-         : m == F32_6X || m == F32_6X_STREAM ? (p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0)
-                                             : p;
+  return m == F32_3X || m == F32_3X_STREAM ? (p == 2) : p;
 }
 
 struct LayerArgs {
@@ -276,25 +318,6 @@ __device__ __forceinline__ void split8(const float* v, uint4& hi, uint4& lo) {
   lo = l.u;
 }
 
-// v = hi + mid + lo exactly in bf16: hi keeps the top 16 bits of each fp32
-// value, mid the top 16 bits of r = v - hi, lo = r - mid (at most 8
-// significant bits, so the conversion is exact); the wrapper's split3
-__device__ __forceinline__ void split3_8(const float* v, uint4& hi, uint4& mid, uint4& lo) {
-  Pack8 h, m, l;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint32_t bits = __float_as_uint(v[k]);
-    const float r = __fsub_rn(v[k], __uint_as_float(bits & 0xFFFF0000u));
-    const uint32_t rb = __float_as_uint(r);
-    h.s[k] = (unsigned short)(bits >> 16);
-    m.s[k] = (unsigned short)(rb >> 16);
-    l.s[k] = __bfloat16_as_ushort(__float2bfloat16_rn(__fsub_rn(r, __uint_as_float(rb & 0xFFFF0000u))));
-  }
-  hi = h.u;
-  mid = m.u;
-  lo = l.u;
-}
-
 // 8 channels of in0 at one pixel of its own grid, as floats
 template <bool F32>
 __device__ __forceinline__ void in0_f8(const LayerArgs& a, size_t pixel, int c0, bool vec,
@@ -343,9 +366,8 @@ __device__ __forceinline__ TileIdx tile_idx(const LayerArgs& a, int t, int tr) {
   return ti;
 }
 
-// stage tile t's input [cg][rows_in][cols_in][8] into buf (the fp32-band
-// modes: its hi plane, and its lo plane, or its mid and lo planes, each
-// L.tplane bytes after the one before).  Items go to
+// stage tile t's input [cg][rows_in][cols_in][8] into buf (the bf16_3x
+// mode: its hi plane, and its lo plane L.tplane bytes after it).  Items go to
 // threads by octets of pixels: lane -> (channel group lane / 8, pixel lane
 // % 8), so each quarter-warp writes one 128-byte core matrix (no bank
 // conflicts) and a warp reads 4 channel groups of 8 neighbouring pixels.
@@ -395,15 +417,10 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
         load_up8<true>(a, ti.b, gy, gx, c0, in0_vec, v);
       else
         in0_f8<true>(a, pixel, c0, in0_vec, v);
-      uint4 hi, mid, lo;
-      if constexpr (AP == 3) {
-        split3_8(v, hi, mid, lo);
-        *reinterpret_cast<uint4*>(buf + L.tplane + cg * L.plane + pix * 16) = mid;
-      } else {
-        split8(v, hi, lo);
-      }
+      uint4 hi, lo;
+      split8(v, hi, lo);
       *d = hi;
-      *reinterpret_cast<uint4*>(buf + (AP - 1) * L.tplane + cg * L.plane + pix * 16) = lo;
+      *reinterpret_cast<uint4*>(buf + L.tplane + cg * L.plane + pix * 16) = lo;
     } else if (c0 < a.cin0_pad) {
       const bf16* in0 = static_cast<const bf16*>(a.in0);
       if (a.upsample) {
@@ -561,9 +578,9 @@ __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db,
 // staging and epilogue overlap another's products; a streamed layer runs
 // one warpgroup a CTA.
 template <int N, int TRW, int MODE>
-__global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(const LayerArgs a) {
+__global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr bool F32 = mode_f32(MODE), STREAM = mode_stream(MODE), SMALL = mode_6x(MODE);
+  constexpr bool F32 = mode_f32(MODE), STREAM = mode_stream(MODE);
   constexpr int WP = w_planes(MODE), NP = n_products(MODE);
   constexpr int NACC = N / 2, C8 = N / 8;
   const int nwg = blockDim.x >> 7;
@@ -617,14 +634,8 @@ __global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(c
     PHASE_CLOCK(c1 = clock64(); ph[0] += c1 - c0;)  // phase 0: waiting for the tile
 
     // ---- the products: TRW rows of 64 pixels over all taps and 16-channel
-    // steps; the first product starts each sum.  The tensor cores truncate
-    // what an accumulation drops below the accumulator's last bit, so each
-    // wgmma into an accumulator biases it toward zero by up to an ulp: the
-    // HIGHEST mode's five small products (2^-8 of hi.hi and below) go to
-    // acc2, whose ulp is 2^-8 of acc's, and acc takes one wgmma a k-step
-    // (one accumulator: a mean error of 1.6e-5 x std over chain A's four
-    // layers on the H100, against 1.5e-7 for the products alone)
-    float acc[TRW][NACC], acc2[TRW][NACC];
+    // steps; the first product starts each sum
+    float acc[TRW][NACC];
     wg::fence();
 #pragma unroll 1
     for (int dy = 0; dy < a.ks; ++dy) {
@@ -665,10 +676,7 @@ __global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(c
 #pragma unroll
             for (int r = 0; r < TRW; ++r) {
               const uint64_t da = wg::desc(ap + r * L.cols_in * 16, L.plane, 128);
-              if (SMALL && p > 0)
-                mma<N>(acc2[r], da, db, p == 1 ? accumulate : 1);
-              else
-                mma<N>(acc[r], da, db, p == 0 ? accumulate : 1);
+              mma<N>(acc[r], da, db, p == 0 ? accumulate : 1);
             }
           }
         }
@@ -676,10 +684,7 @@ __global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(c
           wg::commit();
           wg::wait<0>();
 #pragma unroll
-          for (int r = 0; r < TRW; ++r) {
-            wg::fence_regs(acc[r]);
-            if constexpr (SMALL) wg::fence_regs(acc2[r]);
-          }
+          for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
           slot ^= 1;
         }
       }
@@ -688,10 +693,7 @@ __global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(c
       wg::commit();
       wg::wait<0>();
 #pragma unroll
-      for (int r = 0; r < TRW; ++r) {
-        wg::fence_regs(acc[r]);
-        if constexpr (SMALL) wg::fence_regs(acc2[r]);
-      }
+      for (int r = 0; r < TRW; ++r) wg::fence_regs(acc[r]);
     }
     PHASE_CLOCK(c0 = clock64(); ph[1] += c0 - c1;)  // phase 1: the products
     wg::bar_warpgroup(g);  // the input tile is consumed: the region takes the band
@@ -708,8 +710,8 @@ __global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(c
         for (int h = 0; h < 2; ++h) {
           const int m = 16 * warp_in + (lane >> 2) + 8 * h;
           const int i0 = 4 * j + 2 * h;
-          float v0 = (SMALL ? acc[r][i0] + acc2[r][i0] : acc[r][i0]) + bias[j][0];
-          float v1 = (SMALL ? acc[r][i0 + 1] + acc2[r][i0 + 1] : acc[r][i0 + 1]) + bias[j][1];
+          float v0 = acc[r][i0] + bias[j][0];
+          float v1 = acc[r][i0 + 1] + bias[j][1];
           if (a.relu) {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
@@ -753,17 +755,838 @@ __global__ void __launch_bounds__(mode_6x(MODE) ? 256 : 384) conv_layer_kernel(c
   wg::cp_async_wait<0>();
 }
 
-// the configurations in order of preference: the first whose shared memory
-// fits is launched (a streamed layer takes one warpgroup a CTA; the HIGHEST
-// mode's two accumulators a row take 2-row tiles and at most 255 registers
-// a thread, so two warpgroups)
+// ------------------------------------------------------------ HIGHEST mode
+// rvdd_tpu's band_dtype=float32, mxu_precision='highest' with fp32 weights,
+// warp-specialized (see the source note): warpgroup 2, the producer,
+// stages each tile's fp32 input (a streamed layer: a channel slab at a
+// time, and each tap of the slab's weights) into a ring of two regions a
+// step ahead, with TMA where the input allows; warpgroups 0 and 1, the
+// consumers, take 32 columns of the 2-row tile each, load each k16 step's
+// fp32 A values from the region, split them into hi, mid and lo fragments
+// in registers and issue six register-A wgmma.
+
+namespace hx {
+
+constexpr int TR = 2;                  // output rows of a tile (TW = 64 columns)
+constexpr int NCONS = 256;             // consumer threads: warpgroups 0 and 1
+constexpr int NTHREADS = NCONS + 128;  // and the producer, warpgroup 2
+constexpr int NW = 4;                  // weight stages of a streamed layer
+// registers a thread after setmaxnreg (168 at launch): the producer's
+// register path batches U = 4 items of 16-byte loads (at 88 it spilled 260
+// bytes in the streamed form); a consumer holds two accumulators (48), a
+// tap's fragments double-buffered (72) and the bias (12)
+constexpr int PROD_REGS = 104, CONS_REGS = 200;
+static_assert(PROD_REGS * 128 + CONS_REGS * NCONS <= 168 * NTHREADS, "the launch's registers");
+// the forms of the body: weights resident beside two tile regions; weights
+// streamed a tap of a channel slab at a time; an upsample layer's weights
+// resident beside one region and two windows of its half-res input
+enum Form { RESIDENT = 0, STREAMED = 1, UPSAMPLE = 2 };
+constexpr int SRC_ROWS = 3, SRC_COLS = 36;  // the half-res window of a 2-row tile, with its halo
+// A region, weight stage or source window is FULL once its bytes are in:
+// an mbarrier in shared memory (a region's: the producer's 128 threads
+// arrive, thread 0 with the TMA bytes it expects; the others': thread 0
+// with the bytes).  A region or weight stage is EMPTY once the consumers'
+// products that read it are done: named barriers (0 is __syncthreads) of
+// all NTHREADS threads.  BAR_JOIN: all NTHREADS threads, around an upsample
+// layer's tile, which they interpolate together into its one region.
+constexpr int BAR_REMPTY = 1, BAR_WEMPTY = 3, BAR_JOIN = BAR_WEMPTY + NW;
+static_assert(BAR_JOIN < 16, "16 named barriers");
+// the mbarriers: regions, weight stages, source windows
+constexpr int MB_REGION = 0, MB_WEIGHT = 2, MB_SRC = MB_WEIGHT + NW, MB_COUNT = MB_SRC + 2;
+
+// The shared memory of a launch: the weights at 0 (resident: all taps of
+// the three planes; streamed: NW stages of one tap of one slab, three
+// planes each), one or two regions of one slab of a tile's input, fp32 as
+// [slab_c / 8][rows_in][cols_in][8] (a TMA box per 8-channel group), an
+// upsample layer's two source windows [SRC_ROWS][SRC_COLS][c] (one TMA box), and
+// the FULL mbarriers.  A resident layer's slab is its whole input.  The
+// mirror is ops/cuda/conv_chain.py:highest_layout.
+struct Layout {
+  int slab_c;                   // input channels a region holds
+  int rows_in, cols_in, plane;  // region geometry; plane = bytes of one 8-channel group
+  int region, nreg;             // bytes of a region; regions
+  int wstage;                   // bytes of a streamed weight stage
+  int r0;                       // the regions at r0 + k region
+  int src, srcwin;              // the source windows at src + k srcwin
+  int bars;                     // the mbarriers
+  int total;
+};
+
+__host__ __device__ inline Layout layout(int ks, int cin_tot, int n, int form, int nslab) {
+  Layout L;
+  const int halo = ks / 2;
+  L.slab_c = cin_tot / nslab;
+  L.rows_in = TR + 2 * halo;
+  L.cols_in = TW + 2 * halo;
+  L.plane = L.rows_in * L.cols_in * 32;
+  L.region = align128((L.slab_c / 8) * L.plane);
+  L.nreg = form == UPSAMPLE ? 1 : 2;
+  L.wstage = L.slab_c * n * 2 * 3;
+  L.r0 = align128(form == STREAMED ? NW * L.wstage : ks * ks * cin_tot * n * 2 * 3);
+  L.src = L.r0 + L.nreg * L.region;
+  L.srcwin = form == UPSAMPLE ? SRC_ROWS * SRC_COLS * cin_tot * 4 : 0;
+  L.bars = L.src + 2 * L.srcwin;
+  L.total = L.bars + 128;
+  return L;
+}
+
+// The plan of a HIGHEST layer, a function of its shape: an upsample layer
+// whose input is whole 8-channel groups and no aux (upsample_tma) takes
+// the UPSAMPLE form where it fits; else the weights stay resident beside
+// the two regions where they fit (nslab 1), else they stream with the
+// fewest slabs (dividing the 16-channel groups) that fit; nslab 0: nothing
+// fits
+__host__ __device__ inline int plan_form(int ks, int cin_tot, int n, bool upsample_tma, int& form) {
+  form = UPSAMPLE;
+  if (upsample_tma && layout(ks, cin_tot, n, UPSAMPLE, 1).total <= SMEM_MAX) return 1;
+  form = RESIDENT;
+  if (layout(ks, cin_tot, n, RESIDENT, 1).total <= SMEM_MAX) return 1;
+  form = STREAMED;
+  const int g = cin_tot / 16;
+  for (int ns = 2; ns <= g; ++ns)
+    if (g % ns == 0 && layout(ks, cin_tot, n, STREAMED, ns).total <= SMEM_MAX) return ns;
+  return 0;
+}
+
+// whether an upsample layer's half-res input can be staged with TMA: a 3x3
+// layer, fp32 in whole 8-channel groups (at most 256: a TMA box) at
+// 16-byte aligned pixels, no aux
+__host__ __device__ inline bool upsample_tma(const LayerArgs& a) {
+  return a.upsample && a.ks == 3 && a.aux_c == 0 && a.in0_c == a.cin0_pad && a.in0_c % 8 == 0 &&
+         a.in0_c <= 256 && a.in0_stride % 4 == 0 && a.in0_off % 4 == 0;
+}
+// whether a layer's full-res input is staged with TMA: in0 and the aux
+// window in whole 8-channel groups at 16-byte aligned pixels (the upsample
+// and a 9-channel input go through registers)
+__host__ __device__ inline bool tile_tma(const LayerArgs& a) {
+  return !a.upsample && a.in0_c % 8 == 0 && a.in0_stride % 4 == 0 && a.in0_off % 4 == 0 &&
+         (a.aux_c == 0 || (a.aux_stride % 4 == 0 && a.aux_off % 4 == 0));
+}
+
+// this CTA's tiles, t = blockIdx.x + i * gridDim.x for i < n (mirrored by
+// ops/cuda/conv_chain.py:highest_tiles)
+struct Sched {
+  int n;
+  __device__ explicit Sched(const LayerArgs& a) {
+    const int nt = ((a.W + TW - 1) / TW) * ((a.H + TR - 1) / TR) * a.B;
+    n = nt > (int)blockIdx.x ? (nt - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x : 0;
+  }
+  __device__ int tile(int i) const { return blockIdx.x + i * gridDim.x; }
+};
+
+// ---- mbarriers, TMA and bulk copies (PTX of sm_90)
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(wg::smem_addr(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(wg::smem_addr(b)) : "memory");
+}
+// arrives and expects `bytes` more of asynchronous copies in this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(wg::smem_addr(b)),
+               "r"(bytes)
+               : "memory");
+}
+// waits until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(wg::smem_addr(b)),
+      "r"(parity)
+      : "memory");
+}
+// the box of tensor map `map` at coordinates (0, cg, x, y, b) to dst
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int cg, int x, int y,
+                                         int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(wg::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(cg), "r"(x), "r"(y), "r"(b),
+      "r"(wg::smem_addr(bar))
+      : "memory");
+}
+// `bytes` (a multiple of 16) from src to dst
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          wg::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(wg::smem_addr(bar))
+      : "memory");
+}
+
+// channels [c0, c0 + 4) of in0 at one pixel of its own grid; channels >=
+// in0_c read as zero
+__device__ __forceinline__ float4 in0_4(const LayerArgs& a, size_t pixel, int c0, bool vec) {
+  const float* p = static_cast<const float*>(a.in0) + pixel * a.in0_stride + a.in0_off + c0;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = c0 + k < a.in0_c ? __ldg(p + k) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The producer stages slab s of tile ti's rows and halo into region dst
+// through registers (an upsampled or unaligned input): zeros outside the
+// image and in pad channels, the 2x bilinear upsample as load_up8
+// computes it, U items a thread at once so that their loads are in flight
+// together.  Items are 16-byte halves of an 8-channel group of a pixel,
+// neighbouring pixels on neighbouring threads, so a warp writes 512
+// contiguous bytes.
+__device__ void stage_slab(const LayerArgs& a, const Layout& L, const TileIdx& ti, int s,
+                           unsigned char* dst, int pt) {
+  constexpr int U = 4;
+  const int halo = a.ks >> 1, npix = L.rows_in * L.cols_in, n = 2 * npix * (L.slab_c / 8);
+  const bool in0_vec = (a.in0_c % 4 == 0) && (a.in0_stride % 4 == 0) && (a.in0_off % 4 == 0);
+  const float* aux = static_cast<const float*>(a.aux);
+  for (int k0 = pt; k0 < n; k0 += 128 * U) {
+    float4 v[U][4];
+    int off[U], kind[U];  // kind: -1 none, 0 zeros, 2 the upsample of v[u], 3 v[u][0]
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + 128 * u;
+      kind[u] = -1;
+      if (k >= n) continue;
+      const int cg = k / (2 * npix), rem = k - cg * 2 * npix, pix = rem >> 1;
+      const int r = halo ? pix / (TW + 2) : pix / TW;
+      const int gy = ti.y0 + r - halo, gx = ti.x0 + pix - r * L.cols_in - halo;
+      const int c0 = s * L.slab_c + cg * 8 + (rem & 1) * 4;
+      off[u] = cg * L.plane + pix * 32 + (rem & 1) * 16;
+      kind[u] = 0;
+      if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W || (c0 < a.cin0_pad && c0 >= a.in0_c)) continue;
+      const size_t pixel = ((size_t)ti.b * a.H + gy) * a.W + gx;
+      if (c0 >= a.cin0_pad) {
+        const float* p = aux + pixel * a.aux_stride + a.aux_off + (c0 - a.cin0_pad);
+        v[u][0] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+        kind[u] = 3;
+      } else if (a.upsample) {  // the four source pixels of load_up8
+        const int j = gy >> 1, i = gx >> 1;
+        const int jn = min(max((gy & 1) ? j + 1 : j - 1, 0), a.in0_h - 1);
+        const int ic = min(max((gx & 1) ? i + 1 : i - 1, 0), a.in0_w - 1);
+        const size_t r0 = (size_t)ti.b * a.in0_h + j, r1 = (size_t)ti.b * a.in0_h + jn;
+        v[u][0] = in0_4(a, r0 * a.in0_w + i, c0, in0_vec);
+        v[u][1] = in0_4(a, r0 * a.in0_w + ic, c0, in0_vec);
+        v[u][2] = in0_4(a, r1 * a.in0_w + i, c0, in0_vec);
+        v[u][3] = in0_4(a, r1 * a.in0_w + ic, c0, in0_vec);
+        kind[u] = 2;
+      } else {
+        v[u][0] = in0_4(a, pixel, c0, in0_vec);
+        kind[u] = 3;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (kind[u] < 0) continue;
+      float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (kind[u] == 3) r = v[u][0];
+      if (kind[u] == 2) {  // rows first, as rvdd_tpu/ops/resize.py
+        const auto lerp = [](float x00, float x01, float x10, float x11) {
+          const float ri = 0.75f * x00 + 0.25f * x10, rn = 0.75f * x01 + 0.25f * x11;
+          return 0.75f * ri + 0.25f * rn;
+        };
+        r = make_float4(lerp(v[u][0].x, v[u][1].x, v[u][2].x, v[u][3].x),
+                        lerp(v[u][0].y, v[u][1].y, v[u][2].y, v[u][3].y),
+                        lerp(v[u][0].z, v[u][1].z, v[u][2].z, v[u][3].z),
+                        lerp(v[u][0].w, v[u][1].w, v[u][2].w, v[u][3].w));
+      }
+      *reinterpret_cast<float4*>(dst + off[u]) = r;
+    }
+  }
+}
+
+// An upsample layer's tile from its half-res source window (rows y0/2 - 1
+// .. y0/2 + 1, columns x0/2 - 2 .. x0/2 + 33 of in0, every channel, as
+// [SRC_ROWS][SRC_COLS][c]) into region dst: the 2x bilinear
+// upsample as load_up8 computes it (source rows and columns clamped to the
+// image, which the window holds), zeros outside the image, by all
+// NTHREADS threads.  Items as in stage_slab.
+__device__ void upsample_tile(const LayerArgs& a, const Layout& L, const TileIdx& ti,
+                              const unsigned char* win, unsigned char* dst) {
+  constexpr int U = 2;
+  const int pt = threadIdx.x;
+  const int npix = L.rows_in * L.cols_in;
+  const int wy = (ti.y0 >> 1) - 1, wx = (ti.x0 >> 1) - 2;  // the window's first row and column
+  const int px_bytes = a.in0_c * 4;                          // a window pixel
+  const auto lerp = [](float x00, float x01, float x10, float x11) {
+    const float ri = 0.75f * x00 + 0.25f * x10, rn = 0.75f * x01 + 0.25f * x11;
+    return 0.75f * ri + 0.25f * rn;
+  };
+  for (int cg = 0; cg < L.slab_c / 8; ++cg) {
+    const unsigned char* wp = win + cg * 32;
+    unsigned char* dp = dst + cg * L.plane;
+#pragma unroll 1
+    for (int k0 = pt; k0 < 2 * npix; k0 += NTHREADS * U) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + NTHREADS * u;
+        if (k >= 2 * npix) break;
+        const int pix = k >> 1, h = k & 1, r = pix / (TW + 2);
+        const int gy = ti.y0 + r - 1, gx = ti.x0 + pix - r * L.cols_in - 1;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W) {
+          const int j = gy >> 1, i = gx >> 1;
+          const int jn = min(max((gy & 1) ? j + 1 : j - 1, 0), a.in0_h - 1);
+          const int ic = min(max((gx & 1) ? i + 1 : i - 1, 0), a.in0_w - 1);
+          const unsigned char* p = wp + h * 16;
+          const auto at = [&](int y, int x) {
+            return *reinterpret_cast<const float4*>(p + ((y - wy) * SRC_COLS + (x - wx)) * px_bytes);
+          };
+          const float4 v00 = at(j, i), v01 = at(j, ic), v10 = at(jn, i), v11 = at(jn, ic);
+          v = make_float4(lerp(v00.x, v01.x, v10.x, v11.x), lerp(v00.y, v01.y, v10.y, v11.y),
+                          lerp(v00.z, v01.z, v10.z, v11.z), lerp(v00.w, v01.w, v10.w, v11.w));
+        }
+        *reinterpret_cast<float4*>(dp + pix * 32 + h * 16) = v;
+      }
+    }
+  }
+}
+
+// The producer's items in the consumers' order: for each tile and slab, the
+// slab's region (TMA: a box per 8-channel group, zeros filled outside the
+// image and past in0's channels; an UPSAMPLE layer: interpolated from its
+// source window, which TMA fetches a tile ahead; else stage_slab), then (a
+// STREAMED layer) its taps' weight stages (three bulk copies each).  It
+// waits only for EMPTY slots and its own source windows.  Phase clocks
+// (slots 0-2): waiting for an EMPTY region or stage, staging the regions
+// (TMA: issuing), issuing the weight stages.
+template <int N, int FORM>
+__device__ void produce(const LayerArgs& a, const Layout& L, int nslab, unsigned char* smem,
+                        const Sched& sc, const CUtensorMap* tin0, const CUtensorMap* taux,
+                        bool tma) {
+  const int pt = threadIdx.x - NCONS;
+  const int taps = a.ks * a.ks, halo = a.ks >> 1, cin_tot = a.cin0_pad + a.aux_c;
+  uint64_t* mb = reinterpret_cast<uint64_t*>(smem + L.bars);
+  PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long c0 = 0;)
+  if constexpr (FORM == UPSAMPLE) {
+    // source window i into window i % 2, two tiles ahead; each tile is
+    // interpolated by all NTHREADS threads (upsample_tile) between two
+    // BAR_JOINs: after the consumers' products of the tile before, and
+    // after the tile is in
+    const auto fetch_window = [&](int i) {
+      const TileIdx ti = tile_idx(a, sc.tile(i), TR);
+      wg::fence_async_smem();  // the reads of its last use before the copy
+      mbar_arrive_tx(&mb[MB_SRC + (i & 1)], L.srcwin);
+      tma_load(smem + L.src + (i & 1) * L.srcwin, tin0, 0, (ti.x0 >> 1) - 2, (ti.y0 >> 1) - 1,
+               ti.b, &mb[MB_SRC + (i & 1)]);
+    };
+    if (pt == 0)
+      for (int i = 0; i < 2 && i < sc.n; ++i) fetch_window(i);
+    for (int i = 0; i < sc.n; ++i) {
+      PHASE_CLOCK(c0 = clock64();)
+      mbar_wait(&mb[MB_SRC + (i & 1)], (i >> 1) & 1);
+      PHASE_CLOCK(ph[0] += clock64() - c0; c0 = clock64();)
+      upsample_tile(a, L, tile_idx(a, sc.tile(i), TR), smem + L.src + (i & 1) * L.srcwin,
+                    smem + L.r0);
+      wg::bar_sync(BAR_JOIN, NTHREADS);  // the tile is in; window i % 2 is free
+      PHASE_CLOCK(ph[1] += clock64() - c0; c0 = clock64();)
+      if (pt == 0 && i + 2 < sc.n) fetch_window(i + 2);
+      wg::bar_sync(BAR_JOIN, NTHREADS);  // the consumers' products of tile i are done
+      PHASE_CLOCK(ph[0] += clock64() - c0;)
+    }
+  } else {
+    for (int i = 0; i < sc.n; ++i) {
+      const TileIdx ti = tile_idx(a, sc.tile(i), TR);
+      for (int s = 0; s < nslab; ++s) {
+        const int si = i * nslab + s, slot = si & 1;
+        unsigned char* dst = smem + L.r0 + slot * L.region;
+        PHASE_CLOCK(c0 = clock64();)
+        if (si >= 2) wg::bar_sync(BAR_REMPTY + slot, NTHREADS);
+        PHASE_CLOCK(ph[0] += clock64() - c0; c0 = clock64();)
+        if (tma) {
+          if (pt == 0) {
+            wg::fence_async_smem();  // the consumers' reads before the copies
+            mbar_arrive_tx(&mb[MB_REGION + slot], (L.slab_c / 8) * L.plane);
+            for (int cg = 0; cg < L.slab_c / 8; ++cg) {
+              const int ch = s * L.slab_c + cg * 8;
+              if (ch < a.cin0_pad)
+                tma_load(dst + cg * L.plane, tin0, ch / 8, ti.x0 - halo, ti.y0 - halo, ti.b,
+                         &mb[MB_REGION + slot]);
+              else
+                tma_load(dst + cg * L.plane, taux, (ch - a.cin0_pad) / 8, ti.x0 - halo, ti.y0 - halo,
+                         ti.b, &mb[MB_REGION + slot]);
+            }
+          } else {
+            mbar_arrive(&mb[MB_REGION + slot]);
+          }
+        } else {
+          stage_slab(a, L, ti, s, dst, pt);
+          mbar_arrive(&mb[MB_REGION + slot]);
+        }
+        PHASE_CLOCK(ph[1] += clock64() - c0;)
+        if constexpr (FORM == STREAMED) {
+          for (int tap = 0; tap < taps; ++tap) {
+            const int wi = si * taps + tap, ws = wi % NW;
+            PHASE_CLOCK(c0 = clock64();)
+            if (wi >= NW) wg::bar_sync(BAR_WEMPTY + ws, NTHREADS);
+            PHASE_CLOCK(ph[0] += clock64() - c0; c0 = clock64();)
+            if (pt == 0) {
+              const int part = L.slab_c * N * 2, plane = taps * cin_tot * N * 2;
+              const unsigned char* src =
+                  reinterpret_cast<const unsigned char*>(a.w) + (tap * cin_tot + s * L.slab_c) * N * 2;
+              unsigned char* stage = smem + ws * L.wstage;
+              mbar_arrive_tx(&mb[MB_WEIGHT + ws], 3 * part);
+              for (int p = 0; p < 3; ++p)
+                bulk_load(stage + p * part, src + p * plane, part, &mb[MB_WEIGHT + ws]);
+            }
+            PHASE_CLOCK(ph[2] += clock64() - c0;)
+          }
+        }
+      }
+    }
+  }
+  PHASE_CLOCK(if (pt == 0) wg::phase_clocks_add_at(ph, 0, 0);)
+}
+
+// the six products of a k-step: (A plane, B plane) with planes hi 0, mid 1,
+// lo 2 (the three dropped ones are below 2^-24 of the product)
+__host__ __device__ constexpr int plane_a(int p) { return p == 2 || p == 4 ? 1 : p == 5 ? 2 : 0; }
+__host__ __device__ constexpr int plane_b(int p) { return p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0; }
+
+// a pair of fp32 values as the bf16x2 A-fragment registers of their hi,
+// mid and lo planes, v = hi + mid + lo exactly: hi keeps the top 16 bits
+// (mantissa mask), mid the top 16 bits of r = v - hi, lo = bf16(r - mid)
+// (at most 8 significant bits, so exact); the wrapper's split3
+__device__ __forceinline__ void split3x2(float x, float y, uint32_t& hi, uint32_t& mid,
+                                         uint32_t& lo) {
+  const uint32_t bx = __float_as_uint(x), by = __float_as_uint(y);
+  const float rx = __fsub_rn(x, __uint_as_float(bx & 0xffff0000u));
+  const float ry = __fsub_rn(y, __uint_as_float(by & 0xffff0000u));
+  const uint32_t rbx = __float_as_uint(rx), rby = __float_as_uint(ry);
+  hi = (bx >> 16) | (by & 0xffff0000u);
+  mid = (rbx >> 16) | (rby & 0xffff0000u);
+  lo = wg::pack_bf16x2(__fsub_rn(rx, __uint_as_float(rbx & 0xffff0000u)),
+                       __fsub_rn(ry, __uint_as_float(rby & 0xffff0000u)));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                       int acc) {
+  if constexpr (N == 16) wg::wgmma_rs_n16(d, a, db, acc);
+  else if constexpr (N == 32) wg::wgmma_rs_n32(d, a, db, acc);
+  else wg::wgmma_rs_n48(d, a, db, acc);
+}
+
+// A k16 step of a slab: tap (dy, dx), 16-channel step kc of the slab
+struct KPos {
+  int tap, dy, dx, kc;
+};
+
+// A consumer's tiles: columns [32 c, 32 c + 32) of both tile rows as one
+// m64 operand (row m = 16 w + g + 8 h of warp w, lane 4 g + q is pixel
+// (h, 32 c + 8 w + g), so a thread holds a pixel and the one below it).
+// Each k16 step loads the thread's 8 fp32 values (channels 2q, 2q + 1, 2q
+// + 8, 2q + 9 of both pixels; a warp reads 256 contiguous bytes a load)
+// and splits them into hi, mid and lo fragments; the products are six
+// wgmma a step, hi.hi into acc and the five small ones into acc2, issued a
+// tap (three steps, 18 wgmma) a group where a slab is 48 channels and a
+// step a group otherwise.  The fragments are double-buffered: group g + 1
+// is loaded and split while group g's products run (wait<1>; with more
+// groups in flight ptxas gave the lo fragments of consecutive steps one
+// register quad).  A weight stage is released (EMPTY) once the products of
+// its last step are done; at a slab's end the products drain and its
+// region is released.  An upsample layer's tile is first interpolated by
+// all threads (BAR_JOIN).  The epilogue runs from registers into a result
+// array (writing the accumulators there made ptxas serialize every wgmma,
+// C7515): bias, act, band, state and the 2x2 pool (the pixel below in the
+// thread, the one beside it in lane ^ 4).  Phase clocks (slots 3-5):
+// waiting for FULL regions and stages (and interpolating), the products,
+// the epilogue.
+template <int N, int FORM>
+__device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned char* smem,
+                        const Sched& sc) {
+  constexpr int NACC = N / 2, C8 = N / 8;
+  constexpr bool STREAM = FORM == STREAMED;
+  const int tid = threadIdx.x, c = tid >> 7, lane = tid & 31, q = lane & 3;
+  const int col = 32 * c + 8 * ((tid >> 5) & 3) + (lane >> 2);
+  const int cin_tot = a.cin0_pad + a.aux_c, taps = a.ks * a.ks, ksl = L.slab_c / 16;
+  const int steps = taps * ksl;                   // k16 steps a slab
+  const int ns = sc.n * nslab, nw = ns * taps;   // regions and weight stages of this CTA
+  uint64_t* mb = reinterpret_cast<uint64_t*>(smem + L.bars);
+  const uint32_t w_base = wg::smem_addr(smem);
+  const uint32_t wplane = STREAM ? L.slab_c * N * 2 : taps * cin_tot * N * 2;  // plane to plane
+  const unsigned char* rbase = smem + L.r0 + col * 32 + q * 8;  // pixel (0, col), channel 2q
+  const int row1 = L.cols_in * 32;                               // to the pixel below
+  float bias[C8][2];  // channels 8 j + 2 q + {0, 1}
+#pragma unroll
+  for (int j8 = 0; j8 < C8; ++j8)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = 8 * j8 + 2 * q + e;
+      bias[j8][e] = ch < a.cout ? __ldg(a.bias + ch) : 0.f;
+    }
+  PHASE_CLOCK(long long ph[3] = {0, 0, 0}; long long t0 = 0, tw = 0; int nt = 0;)
+
+  const auto wait_full = [&](int k, int parity) {
+    PHASE_CLOCK(const long long b0 = clock64();)
+    mbar_wait(&mb[k], parity);
+    PHASE_CLOCK(tw += clock64() - b0;)
+  };
+  const auto release_w = [&](int f) {  // f = weight stage + 1, or 0
+    if (f) wg::bar_arrive(BAR_WEMPTY + f - 1, NTHREADS);
+  };
+
+#pragma unroll 1
+  for (int i = 0; i < sc.n; ++i) {
+    PHASE_CLOCK(t0 = clock64(); tw = 0;)
+    float acc[NACC], acc2[NACC];
+    uint32_t fa[3][4], fb[3][4];
+    int j = 0;  // k16 steps of the tile issued
+#pragma unroll 1
+    for (int s = 0; s < nslab; ++s) {
+      const int si = i * nslab + s, wi0 = si * taps, slot = FORM == UPSAMPLE ? 0 : si & 1;
+      const unsigned char* region = rbase + slot * L.region;
+      KPos cur{0, 0, 0, 0};
+      int k = 0, last = 0;  // steps of the slab issued; what the step in flight frees
+      const auto load_split = [&](uint32_t(&f)[3][4]) {
+        const unsigned char* b = region + 2 * cur.kc * L.plane + (cur.dy * L.cols_in + cur.dx) * 32;
+        const float2 v0 = *reinterpret_cast<const float2*>(b);
+        const float2 v1 = *reinterpret_cast<const float2*>(b + row1);
+        const float2 v2 = *reinterpret_cast<const float2*>(b + L.plane);
+        const float2 v3 = *reinterpret_cast<const float2*>(b + L.plane + row1);
+        split3x2(v0.x, v0.y, f[0][0], f[1][0], f[2][0]);
+        split3x2(v1.x, v1.y, f[0][1], f[1][1], f[2][1]);
+        split3x2(v2.x, v2.y, f[0][2], f[1][2], f[2][2]);
+        split3x2(v3.x, v3.y, f[0][3], f[1][3], f[2][3]);
+      };
+      const auto issue = [&](const uint32_t(&f)[3][4]) {
+        const uint32_t wb =
+            w_base + (STREAM ? ((wi0 + cur.tap) % NW) * L.wstage + cur.kc * N * 32
+                             : (cur.tap * cin_tot + s * L.slab_c + cur.kc * 16) * N * 2);
+        const uint64_t d0 = wg::desc(wb, N * 16, 128);  // + plane offset / 16 per weight plane
+        const int first = j > 0;                        // 0: the product starts its accumulator
+        wg::fence();
+#pragma unroll
+        for (int p = 0; p < 6; ++p) {
+          const uint64_t db = d0 + ((plane_b(p) * wplane) >> 4);
+          if (p == 0)
+            mma_rs<N>(acc, f[plane_a(p)], db, first);
+          else
+            mma_rs<N>(acc2, f[plane_a(p)], db, p == 1 ? first : 1);
+        }
+        wg::commit();
+      };
+      // step k of the slab from fc; then step k + 1's fragments into fn,
+      // once step k - 1 (which read fn) is done
+      const auto step = [&](uint32_t(&fc)[3][4], uint32_t(&fn)[3][4]) {
+        const int wi = wi0 + cur.tap;
+        const int frees = STREAM && cur.kc == ksl - 1 && wi + NW < nw ? 1 + wi % NW : 0;
+        issue(fc);
+        wg::wait<1>();
+        wg::fence_regs(fn[0]);
+        wg::fence_regs(fn[1]);
+        wg::fence_regs(fn[2]);
+        release_w(last);
+        last = frees;
+        ++j;
+        if (++k < steps) {
+          if (++cur.kc == ksl) {
+            cur.kc = 0;
+            ++cur.tap;
+            if (++cur.dx == a.ks) {
+              cur.dx = 0;
+              ++cur.dy;
+            }
+            if (STREAM) wait_full(MB_WEIGHT + (wi0 + cur.tap) % NW, ((wi0 + cur.tap) / NW) & 1);
+          }
+          load_split(fn);
+        }
+      };
+      if constexpr (FORM == UPSAMPLE) {  // interpolate the tile with the producer
+        PHASE_CLOCK(const long long b0 = clock64();)
+        mbar_wait(&mb[MB_SRC + (i & 1)], (i >> 1) & 1);
+        upsample_tile(a, L, tile_idx(a, sc.tile(i), TR), smem + L.src + (i & 1) * L.srcwin,
+                      smem + L.r0);
+        wg::bar_sync(BAR_JOIN, NTHREADS);
+        PHASE_CLOCK(tw += clock64() - b0;)
+      } else {
+        wait_full(MB_REGION + slot, (si >> 1) & 1);
+      }
+      if (STREAM) wait_full(MB_WEIGHT + wi0 % NW, (wi0 / NW) & 1);
+      if (ksl == 3) {  // a 48-channel slab: a tap's three steps (18 wgmma) a group
+        uint32_t ga[3][3][4], gb[3][3][4];  // [step][plane][register]
+        const auto load_tap = [&](uint32_t(&f)[3][3][4]) {
+#pragma unroll
+          for (int kc = 0; kc < 3; ++kc) {
+            cur.kc = kc;
+            load_split(f[kc]);
+          }
+        };
+        const auto issue_tap = [&](const uint32_t(&f)[3][3][4]) {
+          const uint32_t wb = w_base + (STREAM ? ((wi0 + cur.tap) % NW) * L.wstage
+                                               : (cur.tap * cin_tot + s * L.slab_c) * N * 2);
+          wg::fence();
+#pragma unroll
+          for (int kc = 0; kc < 3; ++kc) {
+            const uint64_t d0 = wg::desc(wb + kc * N * 32, N * 16, 128);
+            const int first = j + kc > 0;
+#pragma unroll
+            for (int p = 0; p < 6; ++p) {
+              const uint64_t db = d0 + ((plane_b(p) * wplane) >> 4);
+              if (p == 0)
+                mma_rs<N>(acc, f[kc][plane_a(p)], db, first);
+              else
+                mma_rs<N>(acc2, f[kc][plane_a(p)], db, p == 1 ? first : 1);
+            }
+          }
+          wg::commit();
+        };
+        // tap t from fc; then tap t + 1's fragments into fn, once tap t - 1
+        // (which read fn) is done
+        const auto step_tap = [&](uint32_t(&fc)[3][3][4], uint32_t(&fn)[3][3][4]) {
+          const int wi = wi0 + cur.tap;
+          const int frees = STREAM && wi + NW < nw ? 1 + wi % NW : 0;
+          issue_tap(fc);
+          wg::wait<1>();
+#pragma unroll
+          for (int kc = 0; kc < 3; ++kc)
+#pragma unroll
+            for (int pl = 0; pl < 3; ++pl) wg::fence_regs(fn[kc][pl]);
+          release_w(last);
+          last = frees;
+          j += 3;
+          k += 3;
+          if (++cur.tap < taps) {
+            if (++cur.dx == a.ks) {
+              cur.dx = 0;
+              ++cur.dy;
+            }
+            if (STREAM) wait_full(MB_WEIGHT + (wi0 + cur.tap) % NW, ((wi0 + cur.tap) / NW) & 1);
+            load_tap(fn);
+          }
+        };
+        load_tap(ga);
+#pragma unroll 1
+        while (true) {
+          step_tap(ga, gb);
+          if (k == steps) break;
+          step_tap(gb, ga);
+          if (k == steps) break;
+        }
+        wg::wait<0>();
+#pragma unroll
+        for (int kc = 0; kc < 3; ++kc)
+#pragma unroll
+          for (int pl = 0; pl < 3; ++pl) {
+            wg::fence_regs(ga[kc][pl]);
+            wg::fence_regs(gb[kc][pl]);
+          }
+        release_w(last);
+        if (FORM == UPSAMPLE)
+          wg::bar_sync(BAR_JOIN, NTHREADS);
+        else if (si + 2 < ns)
+          wg::bar_arrive(BAR_REMPTY + slot, NTHREADS);
+        continue;
+      }
+      load_split(fa);
+#pragma unroll 1
+      while (true) {
+        step(fa, fb);
+        if (k == steps) break;
+        step(fb, fa);
+        if (k == steps) break;
+      }
+      // drain: the slab's products are done; its stages and region are free
+      wg::wait<0>();
+#pragma unroll
+      for (int pl = 0; pl < 3; ++pl) {
+        wg::fence_regs(fa[pl]);
+        wg::fence_regs(fb[pl]);
+      }
+      release_w(last);
+      if (FORM == UPSAMPLE)
+        wg::bar_sync(BAR_JOIN, NTHREADS);
+      else if (si + 2 < ns)
+        wg::bar_arrive(BAR_REMPTY + slot, NTHREADS);
+    }
+    wg::fence_regs(acc);
+    wg::fence_regs(acc2);
+    PHASE_CLOCK(const long long t1 = clock64(); ph[0] += tw; ph[1] += t1 - t0 - tw;)
+
+    // ---- epilogue from registers: v = hi.hi + the small products + bias,
+    // act; band, state, pool
+    const TileIdx ti = tile_idx(a, sc.tile(i), TR);
+    const int gx = ti.x0 + col;
+    float res[NACC];
+#pragma unroll
+    for (int j8 = 0; j8 < C8; ++j8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j8 + e;
+        const float v = acc[x] + acc2[x] + bias[j8][e & 1];
+        res[x] = a.relu ? fmaxf(v, 0.f) : v;
+      }
+    const bool st_vec = (a.state_stride % 2 == 0) && (a.state_off % 2 == 0);
+    const bool out_vec = a.cout % 2 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gy = ti.y0 + h;
+      if (gy >= a.H || gx >= a.W) continue;
+      const size_t px = ((size_t)ti.b * a.H + gy) * a.W + gx;
+#pragma unroll
+      for (int j8 = 0; j8 < C8; ++j8) {
+        const int ch = 8 * j8 + 2 * q;
+        const float v0 = res[4 * j8 + 2 * h], v1 = res[4 * j8 + 2 * h + 1];
+        if (ch >= a.cout) continue;
+        if (a.out != nullptr) {
+          float* o = static_cast<float*>(a.out) + px * a.cout + ch;
+          if (ch + 1 < a.cout && out_vec) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            if (ch + 1 < a.cout) o[1] = v1;
+          }
+        }
+        if (a.state != nullptr) {
+          float* st = a.state + px * a.state_stride + a.state_off + ch;
+          if (ch + 1 < a.cout && st_vec) {
+            *reinterpret_cast<float2*>(st) = make_float2(v0, v1);
+          } else {
+            st[0] = v0;
+            if (ch + 1 < a.cout) st[1] = v1;
+          }
+          if (ch == 0)
+            for (int z = 0; z < a.state_zero; ++z) st[a.cout + z] = 0.f;
+        }
+      }
+    }
+    if (a.pooled != nullptr) {  // uniform; tiles start at even rows and columns
+      const int h2 = a.H >> 1, w2 = a.W >> 1, gy2 = ti.y0 >> 1, gx2 = gx >> 1;
+      const bool here = (lane & 4) == 0 && gy2 < h2 && gx2 < w2;
+      float* pooled = static_cast<float*>(a.pooled) + (((size_t)ti.b * h2 + gy2) * w2 + gx2) * a.cout;
+#pragma unroll
+      for (int j8 = 0; j8 < C8; ++j8) {
+        const int ch = 8 * j8 + 2 * q;
+        float mx = fmaxf(res[4 * j8], res[4 * j8 + 2]), my = fmaxf(res[4 * j8 + 1], res[4 * j8 + 3]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        my = fmaxf(my, __shfl_xor_sync(0xffffffffu, my, 4));
+        if (here && ch < a.cout) {
+          if (ch + 1 < a.cout && out_vec) {
+            *reinterpret_cast<float2*>(pooled + ch) = make_float2(mx, my);
+          } else {
+            pooled[ch] = mx;
+            if (ch + 1 < a.cout) pooled[ch + 1] = my;
+          }
+        }
+      }
+    }
+    PHASE_CLOCK(ph[2] += clock64() - t1; ++nt;)
+  }
+  PHASE_CLOCK(if (tid == 0) wg::phase_clocks_add_at(ph, 3, nt);)
+}
+
+// One HIGHEST layer (N = cout_pad; FORM: resident, streamed in nslab
+// slabs, or upsample; tma: the tile staged with the tensor maps tin0 and
+// taux, an upsample layer's source window with tin0): a resident layer's
+// weights once per CTA and the FULL mbarriers, then the producer and the
+// two consumers, each in its own branch to the end
+template <int N, int FORM>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    highest_kernel(const __grid_constant__ LayerArgs a, const __grid_constant__ CUtensorMap tin0,
+                   const __grid_constant__ CUtensorMap taux, int nslab, int tma) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = layout(a.ks, a.cin0_pad + a.aux_c, N, FORM, nslab);
+  if constexpr (FORM != STREAMED) {
+    const int wbytes = a.ks * a.ks * (a.cin0_pad + a.aux_c) * N * 2 * 3;
+    for (int i = threadIdx.x * 16; i < wbytes; i += NTHREADS * 16)
+      wg::cp_async16(smem + i, reinterpret_cast<const unsigned char*>(a.w) + i);
+    wg::cp_async_commit();
+    wg::cp_async_wait<0>();
+    wg::fence_async_smem();
+  }
+  if (threadIdx.x == 0) {
+    uint64_t* mb = reinterpret_cast<uint64_t*>(smem + L.bars);
+    for (int k = 0; k < MB_COUNT; ++k) mbar_init(&mb[k], k < MB_WEIGHT ? 128 : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const Sched sc(a);
+  if (threadIdx.x >= NCONS) {
+    wg::setmaxnreg_dec<PROD_REGS>();
+    produce<N, FORM>(a, L, nslab, smem, sc, &tin0, &taux, tma != 0);
+  } else {
+    wg::setmaxnreg_inc<CONS_REGS>();
+    consume<N, FORM>(a, L, nslab, smem, sc);
+  }
+}
+
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, without linking libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of channels [off, off + c) (c % inner == 0, inner 8 or
+// c) of an NHWC fp32 tensor [B, H, W, stride] as [B][H][W][c / inner][inner],
+// boxes of inner channels x cols x rows (coordinates outside the tensor read
+// as zero)
+bool encode(CUtensorMap* m, const void* base, int c, int inner, int stride, int off, int B, int H,
+            int W, int rows, int cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t row = (cuuint64_t)stride * 4;
+  const cuuint64_t dims[5] = {(cuuint64_t)inner, (cuuint64_t)(c / inner), (cuuint64_t)W,
+                              (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)inner * 4, row, row * W, row * W * H};
+  const cuuint32_t box[5] = {(cuuint32_t)inner, 1, (cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
+            const_cast<float*>(static_cast<const float*>(base) + off), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// one launch of min(tiles, n_cta) CTAs; n_cta <= 0: one CTA an SM
+template <int N, int FORM>
+cudaError_t launch(const LayerArgs& a, int nslab, int n_cta, cudaStream_t s) {
+  const Layout L = layout(a.ks, a.cin0_pad + a.aux_c, N, FORM, nslab);
+  CUtensorMap tin0{}, taux{};
+  bool ok = true;
+  const bool tma = FORM == UPSAMPLE || tile_tma(a);
+  if (FORM == UPSAMPLE)
+    ok = encode(&tin0, a.in0, a.in0_c, a.in0_c, a.in0_stride, a.in0_off, a.B, a.in0_h, a.in0_w,
+                SRC_ROWS, SRC_COLS);
+  else if (tma)
+    ok = encode(&tin0, a.in0, a.in0_c, 8, a.in0_stride, a.in0_off, a.B, a.H, a.W, L.rows_in,
+                L.cols_in) &&
+         (a.aux_c == 0 || encode(&taux, a.aux, a.aux_c, 8, a.aux_stride, a.aux_off, a.B, a.H, a.W,
+                                 L.rows_in, L.cols_in));
+  if (!ok) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(highest_kernel<N, FORM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (n_cta <= 0) n_cta = sms;
+  const long long ntiles = (long long)((a.W + TW - 1) / TW) * ((a.H + TR - 1) / TR) * a.B;
+  const int grid = (int)(ntiles < n_cta ? ntiles : n_cta);
+  highest_kernel<N, FORM><<<grid, NTHREADS, L.total, s>>>(a, tin0, taux, nslab, tma ? 1 : 0);
+  return cudaGetLastError();
+}
+
+}  // namespace hx
+
+// the configurations of conv_layer_kernel in order of preference: the first
+// whose shared memory fits is launched (a streamed layer takes one
+// warpgroup a CTA)
 constexpr Config CONFIGS[] = {{4, 3}, {2, 3}, {2, 2}, {2, 1}};
 constexpr Config STREAM_CONFIGS[] = {{4, 1}, {2, 1}};
-constexpr Config CONFIGS_6X[] = {{2, 2}, {2, 1}};
-constexpr Config STREAM_CONFIGS_6X[] = {{2, 1}};
 
 template <int N, int TRW, int MODE>
-cudaError_t launch(const LayerArgs& a, Config c, int smem, cudaStream_t s) {
+cudaError_t launch(const LayerArgs& a, Config c, int smem, int n_cta, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(conv_layer_kernel<N, TRW, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -774,7 +1597,8 @@ cudaError_t launch(const LayerArgs& a, Config c, int smem, cudaStream_t s) {
                                                       128 * c.nwg, smem);
   if (e != cudaSuccess) return e;
   const long long ntiles = (long long)((a.W + TW - 1) / TW) * ((a.H + TRW - 1) / TRW) * a.B;
-  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (n_cta > 0 && n_cta < slots) slots = n_cta;
   const long long ctas = (ntiles + c.nwg - 1) / c.nwg;
   const int grid = (int)(ctas < slots ? ctas : slots);
   conv_layer_kernel<N, TRW, MODE><<<grid, 128 * c.nwg, smem, s>>>(a);
@@ -783,10 +1607,9 @@ cudaError_t launch(const LayerArgs& a, Config c, int smem, cudaStream_t s) {
 
 // the first configuration of `mode` whose shared memory fits, or {0, 0}
 Config pick(const LayerArgs& a, int n, int mode) {
-  const bool stream = mode_stream(mode), six = mode_6x(mode);
-  const Config* cs = six ? (stream ? STREAM_CONFIGS_6X : CONFIGS_6X)
-                         : (stream ? STREAM_CONFIGS : CONFIGS);
-  const int nc = six ? (stream ? 1 : 2) : (stream ? 2 : 4);
+  const bool stream = mode_stream(mode);
+  const Config* cs = stream ? STREAM_CONFIGS : CONFIGS;
+  const int nc = stream ? 2 : 4;
   for (int i = 0; i < nc; ++i)
     if (smem_layout(a.ks, a.cin0_pad + a.aux_c, n, mode, cs[i]).total <= SMEM_MAX) return cs[i];
   return Config{0, 0};
@@ -794,43 +1617,51 @@ Config pick(const LayerArgs& a, int n, int mode) {
 
 struct Plan {
   int mode;
-  Config c;  // {0, 0}: nothing fits
+  Config c;   // {0, 0}: nothing fits
+  int nslab;  // HX, HX_STREAM, HX_UP: input channel slabs of a tile (1: weights resident)
+  int smem;   // bytes of shared memory a CTA
 };
 
 // a layer's mode and configuration, a function of its shape and its
 // numerics alone.  The bf16 numerics keep the weights resident (split ones
 // too); the fp32-band and fp32-weight numerics keep them resident where a
 // configuration fits and stream them a tap at a time otherwise (the
-// layers with K = 864)
+// layers with K = 864); HIGHEST runs the warp-specialized body (hx::slabs)
 Plan plan(const LayerArgs& a, int n, int prec) {
-  if (prec == P_BF16 || prec == P_BF16_SPLIT) {
-    const int m = prec == P_BF16_SPLIT ? BF16_SPLIT : BF16;
-    return Plan{m, pick(a, n, m)};
+  const int cin_tot = a.cin0_pad + a.aux_c;
+  if (prec == P_HIGHEST) {
+    int form;
+    const int ns = hx::plan_form(a.ks, cin_tot, n, hx::upsample_tma(a), form);
+    if (ns == 0) return Plan{HX, Config{0, 0}, 0, 0};
+    const int m = form == hx::UPSAMPLE ? HX_UP : form == hx::STREAMED ? HX_STREAM : HX;
+    return Plan{m, Config{hx::TR, hx::NTHREADS / 128}, ns,
+                hx::layout(a.ks, cin_tot, n, form, ns).total};
   }
-  const int m = prec == P_HIGH ? F32_3X : prec == P_HIGHEST ? F32_6X : W32;
-  const Config c = pick(a, n, m);
-  return c.nwg ? Plan{m, c} : Plan{m + 1, pick(a, n, m + 1)};
+  int m = prec == P_BF16_SPLIT ? BF16_SPLIT : prec == P_HIGH ? F32_3X : prec == P_W32 ? W32 : BF16;
+  Config c = pick(a, n, m);
+  if (c.nwg == 0 && (m == F32_3X || m == W32)) c = pick(a, n, ++m);
+  return Plan{m, c, 0, c.nwg ? smem_layout(a.ks, cin_tot, n, m, c).total : 0};
 }
 
 template <int N, int MODE>
-cudaError_t launch_mode(const LayerArgs& a, Config c, cudaStream_t s) {
+cudaError_t launch_mode(const LayerArgs& a, Config c, int n_cta, cudaStream_t s) {
   const int smem = smem_layout(a.ks, a.cin0_pad + a.aux_c, N, MODE, c).total;
-  if constexpr (mode_6x(MODE)) return launch<N, 2, MODE>(a, c, smem, s);
-  else return c.trw == 4 ? launch<N, 4, MODE>(a, c, smem, s) : launch<N, 2, MODE>(a, c, smem, s);
+  return c.trw == 4 ? launch<N, 4, MODE>(a, c, smem, n_cta, s) : launch<N, 2, MODE>(a, c, smem, n_cta, s);
 }
 
 template <int N>
-cudaError_t launch_plan(const LayerArgs& a, Plan p, cudaStream_t s) {
+cudaError_t launch_plan(const LayerArgs& a, Plan p, int n_cta, cudaStream_t s) {
   if (p.c.nwg == 0) return cudaErrorInvalidValue;  // no configuration fits
   switch (p.mode) {
-    case BF16: return launch_mode<N, BF16>(a, p.c, s);
-    case BF16_SPLIT: return launch_mode<N, BF16_SPLIT>(a, p.c, s);
-    case F32_3X: return launch_mode<N, F32_3X>(a, p.c, s);
-    case F32_3X_STREAM: return launch_mode<N, F32_3X_STREAM>(a, p.c, s);
-    case F32_6X: return launch_mode<N, F32_6X>(a, p.c, s);
-    case F32_6X_STREAM: return launch_mode<N, F32_6X_STREAM>(a, p.c, s);
-    case W32: return launch_mode<N, W32>(a, p.c, s);
-    default: return launch_mode<N, W32_STREAM>(a, p.c, s);
+    case BF16: return launch_mode<N, BF16>(a, p.c, n_cta, s);
+    case BF16_SPLIT: return launch_mode<N, BF16_SPLIT>(a, p.c, n_cta, s);
+    case F32_3X: return launch_mode<N, F32_3X>(a, p.c, n_cta, s);
+    case F32_3X_STREAM: return launch_mode<N, F32_3X_STREAM>(a, p.c, n_cta, s);
+    case HX: return hx::launch<N, hx::RESIDENT>(a, p.nslab, n_cta, s);
+    case HX_STREAM: return hx::launch<N, hx::STREAMED>(a, p.nslab, n_cta, s);
+    case HX_UP: return hx::launch<N, hx::UPSAMPLE>(a, p.nslab, n_cta, s);
+    case W32: return launch_mode<N, W32>(a, p.c, n_cta, s);
+    default: return launch_mode<N, W32_STREAM>(a, p.c, n_cta, s);
   }
 }
 
@@ -855,16 +1686,18 @@ const char* rvdd_cuda_error_string(int e) {
 // bands with bf16_3x products, weights hi and lo; 3 fp32 bands with
 // HIGHEST products, weights hi, mid and lo; 4 bf16 bands with fp32
 // weights, hi, mid and lo.  in0, aux, out and pooled are fp32 under 2 and
-// 3, bf16 under the others.  Returns a cudaError_t as int.
-int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
-                    int in0_h, int in0_w, int upsample,
-                    const void* aux, int aux_c, int aux_stride, int aux_off,
-                    const void* w, int prec, const void* bias,
-                    int ks, int cin0_pad, int cout, int cout_pad, int relu,
-                    int B, int H, int W,
-                    void* out, void* pooled,
-                    void* state, int state_stride, int state_off, int state_zero,
-                    void* stream) {
+// 3, bf16 under the others.  n_cta > 0 caps the grid (the card tests walk
+// many tiles in few CTAs); n_cta <= 0 launches the plan's grid.  Returns a
+// cudaError_t as int.
+int rvdd_conv_layer_grid(const void* in0, int in0_c, int in0_stride, int in0_off,
+                         int in0_h, int in0_w, int upsample,
+                         const void* aux, int aux_c, int aux_stride, int aux_off,
+                         const void* w, int prec, const void* bias,
+                         int ks, int cin0_pad, int cout, int cout_pad, int relu,
+                         int B, int H, int W,
+                         void* out, void* pooled,
+                         void* state, int state_stride, int state_off, int state_zero,
+                         int n_cta, void* stream) {
   LayerArgs a;
   a.in0 = in0; a.in0_c = in0_c; a.in0_stride = in0_stride;
   a.in0_off = in0_off; a.in0_h = in0_h; a.in0_w = in0_w; a.upsample = upsample;
@@ -883,9 +1716,9 @@ int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
   } else {
     const Plan p = plan(a, cout_pad, prec);
     switch (cout_pad) {
-      case 16: e = launch_plan<16>(a, p, s); break;
-      case 32: e = launch_plan<32>(a, p, s); break;
-      case 48: e = launch_plan<48>(a, p, s); break;
+      case 16: e = launch_plan<16>(a, p, n_cta, s); break;
+      case 32: e = launch_plan<32>(a, p, n_cta, s); break;
+      case 48: e = launch_plan<48>(a, p, n_cta, s); break;
       default: e = cudaErrorInvalidValue;
     }
   }
@@ -893,29 +1726,51 @@ int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
   return (int)e;
 }
 
-// The launch plan of a layer of that shape (K = ks^2 * cin_tot) in the
+// rvdd_conv_layer_grid with the plan's grid (the main path's)
+int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
+                    int in0_h, int in0_w, int upsample,
+                    const void* aux, int aux_c, int aux_stride, int aux_off,
+                    const void* w, int prec, const void* bias,
+                    int ks, int cin0_pad, int cout, int cout_pad, int relu,
+                    int B, int H, int W,
+                    void* out, void* pooled,
+                    void* state, int state_stride, int state_off, int state_zero,
+                    void* stream) {
+  return rvdd_conv_layer_grid(in0, in0_c, in0_stride, in0_off, in0_h, in0_w, upsample, aux, aux_c,
+                              aux_stride, aux_off, w, prec, bias, ks, cin0_pad, cout, cout_pad,
+                              relu, B, H, W, out, pooled, state, state_stride, state_off,
+                              state_zero, 0, stream);
+}
+
+// The launch plan of a layer of that shape (K = ks^2 * cin_tot; upsample:
+// its input is upsampled, and is cin_tot fp32 channels with no aux) in the
 // numerics prec, as rvdd_conv_layer makes it: out[0] the mode (enum Mode:
 // 0 bf16, 1 bf16 with split weights, 2 and 3 fp32 bands with bf16_3x
-// products, 4 and 5 fp32 bands with HIGHEST products, 6 and 7 bf16 bands
-// with fp32 weights, the weights resident in the first of each pair and
-// streamed in the second), out[1] the tile rows, out[2] the warpgroups a
-// CTA, out[3] the shared memory a CTA.  Returns a cudaError_t as int:
+// products, 4 and 5 fp32 bands with HIGHEST products (the warp-specialized
+// body), 6 and 7 bf16 bands with fp32 weights, the weights resident in the
+// first of each pair and streamed in the second; 8 HIGHEST's upsample
+// form), out[1] the tile rows,
+// out[2] the warpgroups a CTA, out[3] the shared memory a CTA, out[4] the
+// HIGHEST body's input channel slabs a tile (0 in the other modes), out[5]
+// its weight stages (0 when resident).  Returns a cudaError_t as int:
 // cudaErrorInvalidValue for a shape the kernel does not take or that fits
 // no configuration.
-int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int prec, int* out) {
+int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int prec, int upsample, int* out) {
   if (bad_shape(ks, cin_tot, prec) || (cout_pad != 16 && cout_pad != 32 && cout_pad != 48))
     return (int)cudaErrorInvalidValue;
   LayerArgs a = {};
   a.ks = ks;
-  a.cin0_pad = cin_tot;
+  a.cin0_pad = a.in0_c = a.in0_stride = cin_tot;
+  a.upsample = upsample;
   const Plan p = plan(a, cout_pad, prec);
   if (p.c.nwg == 0) return (int)cudaErrorInvalidValue;
   out[0] = p.mode;
   out[1] = p.c.trw;
   out[2] = p.c.nwg;
-  out[3] = smem_layout(ks, cin_tot, cout_pad, p.mode, p.c).total;
+  out[3] = p.smem;
+  out[4] = p.nslab;
+  out[5] = p.mode == HX_STREAM ? hx::NW : 0;
   return 0;
 }
 
 }  // extern "C"
-

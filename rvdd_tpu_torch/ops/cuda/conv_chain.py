@@ -14,8 +14,9 @@ What bounds it on the H100 is operations (~1.07 TFLOP a 1080p frame,
 ~1.0 ms at the bf16 tensor-core peak; ~3.0 ms with fp32 weights and ~5.9
 ms in the HIGHEST mode, which count three and six bf16 products a MAC);
 see the kernel's source note for what its design (wgmma with the packed
-weights resident in shared memory, or streamed a tap at a time) does about
-it.
+weights resident in shared memory, or streamed a tap at a time; in the
+HIGHEST mode a producer warpgroup staging the next fp32 tile while two
+consumer warpgroups split the current one in registers) does about it.
 
 A chain runs in one of four numerics (``Chain.mode``), fixed when it is
 packed:
@@ -33,7 +34,8 @@ packed:
 * ``highest``, fp32 bands and fp32 weights (``band_fp32=True,
   mxu_precision='highest'``; rvdd_tpu's 'accurate', conv_pallas.py:288-304):
   the kernel splits the weights and each layer's input into three bf16
-  planes (:func:`split3`, exact) and sums the six products HIGHEST keeps;
+  planes (:func:`split3`, exact; the input in registers, a k16 step at a
+  time) and sums the six products HIGHEST keeps;
   the dropped ones are below 2^-24 of each product, so the plain version is
   the plain fp32 conv;
 * ``w32``, bf16 bands and fp32 weights (``mxu_precision='highest',
@@ -72,6 +74,8 @@ _ARGTYPES = [
     _P, _I, _I, _I,                  # state, stride, off, zero
     _P,                              # stream
 ]
+#: rvdd_conv_layer_grid's: rvdd_conv_layer's with n_cta before the stream
+_GRID_ARGTYPES = _ARGTYPES[:-1] + [_I, _P]
 MAX_COUT = 48  # the kernel holds at most three 16-channel output fragments
 #: a chain's numerics
 MODES = ("bf16", "high", "highest", "w32")
@@ -352,9 +356,84 @@ def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
 
 #: the kernel's launch modes, as rvdd_conv_layer_plan numbers them (enum
 #: Mode): the 'high', 'highest' and 'w32' chains keep a layer's weights
-#: resident where they fit beside its tile, and stream them otherwise
+#: resident where they fit beside its tile, and stream them otherwise; the
+#: 'highest' ones run the warp-specialized body (see highest_plan), whose
+#: upsample layers have a form of their own
 PLAN_MODES = ("bf16", "bf16 split", "fp32 resident", "fp32 streamed",
-              "highest resident", "highest streamed", "w32 resident", "w32 streamed")
+              "highest resident", "highest streamed", "w32 resident", "w32 streamed",
+              "highest upsample")
+
+#: shared memory a CTA may have on the H100
+SMEM_MAX = 232448
+#: the 'highest' body's geometry (csrc/conv_chain.cu, namespace hx): tiles
+#: of 2 rows x 64 columns, a CTA of two consumer warpgroups and a producer,
+#: a streamed layer's ring of weight stages, and an upsample layer's window
+#: of its half-res input (rows x columns)
+HX_ROWS, HX_COLS, HX_WARPGROUPS, HX_STAGES = 2, 64, 3, 4
+HX_SRC_ROWS, HX_SRC_COLS = 3, 36
+
+
+def _align128(n: int) -> int:
+    return (n + 127) & ~127
+
+
+def highest_layout(ks: int, cin_tot: int, cout_pad: int, form: str, nslab: int) -> dict:
+    """The 'highest' body's shared memory in one of its forms (mirror of
+    hx::layout): 'resident', 'streamed' or 'upsample' (an upsample layer's
+    weights resident beside one region and two windows of its half-res
+    input).  The weights at 0 (resident: every tap of the three planes;
+    streamed: HX_STAGES stages of one tap of one channel slab, three planes
+    each), then one (upsample) or two regions of one slab of a tile's fp32
+    input, [slab / 8][rows + halo][64 + halo][8] (a TMA box per 8-channel
+    group), an upsample layer's two source windows
+    [HX_SRC_ROWS][HX_SRC_COLS][cin] (one TMA box), then 128 bytes of
+    mbarriers.  Offsets and sizes in bytes."""
+    halo = ks // 2
+    slab_c = cin_tot // nslab
+    plane = (HX_ROWS + 2 * halo) * (HX_COLS + 2 * halo) * 32
+    region = _align128(slab_c // 8 * plane)
+    nreg = 1 if form == "upsample" else 2
+    stage = slab_c * cout_pad * 2 * 3
+    weights = HX_STAGES * stage if form == "streamed" else ks * ks * cin_tot * cout_pad * 2 * 3
+    r0 = _align128(weights)
+    src = r0 + nreg * region
+    window = HX_SRC_ROWS * HX_SRC_COLS * cin_tot * 4 if form == "upsample" else 0
+    bars = src + 2 * window
+    return dict(slab_c=slab_c, weights=(0, weights), stage=stage if form == "streamed" else 0,
+                regions=tuple((r0 + k * region, region) for k in range(nreg)),
+                windows=tuple((src + k * window, window) for k in range(2)) if window else (),
+                barriers=(bars, 128), total=bars + 128)
+
+
+def highest_plan(ks: int, cin_tot: int, cout_pad: int, upsample: bool = False) -> dict:
+    """How the kernel runs a 'highest' layer of that shape (mirror of
+    hx::plan_form and plan; ``upsample``: its input is upsampled in the
+    kernel, and is cin_tot fp32 channels with no aux): a 3x3 upsample layer
+    takes the upsample form where it fits; else its weights stay resident
+    beside the two tile regions where that fits, else they stream with the
+    fewest channel slabs (dividing the 16-channel groups) that fit.  Returns
+    the keys of :func:`layer_plan` and the ``layout``
+    (:func:`highest_layout`); raises ValueError where nothing fits, as the
+    kernel's launch fails with cudaErrorInvalidValue."""
+    groups = cin_tot // 16
+    forms = [("upsample", 1)] if upsample and ks == 3 and cin_tot <= 256 else []
+    forms += [("resident", 1)] + [("streamed", n) for n in range(2, groups + 1) if groups % n == 0]
+    for form, nslab in forms:
+        lay = highest_layout(ks, cin_tot, cout_pad, form, nslab)
+        if lay["total"] <= SMEM_MAX:
+            return dict(mode=f"highest {form}", trw=HX_ROWS, nwg=HX_WARPGROUPS, smem=lay["total"],
+                        slabs=nslab, stages=HX_STAGES if form == "streamed" else 0, layout=lay)
+    raise ValueError(f"highest: no plan fits a {ks}x{ks} layer of {cin_tot} -> {cout_pad}")
+
+
+def highest_tiles(b: int, h: int, w: int, n_cta: int = 132) -> list:
+    """The 'highest' body's schedule (mirror of hx::Sched): the grid is
+    min(tiles, n_cta) persistent CTAs, and CTA c takes tiles c, c + grid,
+    c + 2 grid, ... in that order, of the b x ceil(h / 2) x ceil(w / 64)
+    tiles numbered (image, row, column).  Returns each CTA's list."""
+    n = b * -(-h // HX_ROWS) * -(-w // HX_COLS)
+    grid = min(n, n_cta)
+    return [list(range(c, n, grid)) for c in range(grid)]
 
 
 def _prec(layer: ChainLayer, mode: str) -> int:
@@ -362,20 +441,24 @@ def _prec(layer: ChainLayer, mode: str) -> int:
     return PRECS.index("bf16 split" if mode == "bf16" and layer.split else mode)
 
 
-def layer_plan(layer: ChainLayer, mode: str) -> dict:
-    """How the kernel runs ``layer`` in a chain of that mode (MODES): the
-    launch mode (PLAN_MODES), tile rows, warpgroups a CTA and shared memory
-    a CTA.  The rule lives in the CUDA source, so this builds and loads the
-    library (a machine with the CUDA toolkit); raises for a layer no
-    configuration fits."""
+def layer_plan(layer: ChainLayer, mode: str, upsample: bool = False) -> dict:
+    """How the kernel runs ``layer`` in a chain of that mode (MODES), as
+    its first layer on an upsampled input where ``upsample``: the launch
+    mode (PLAN_MODES), tile rows, warpgroups a CTA, shared memory a CTA, and
+    the 'highest' body's channel slabs a tile and weight stages (0 in the
+    other modes; :func:`highest_plan` mirrors them).  The rule lives in the
+    CUDA source, so this builds and loads the library (a machine with the
+    CUDA toolkit); raises for a layer no configuration fits."""
     lib = _build.load_library("conv_chain")
     fn = lib.rvdd_conv_layer_plan
-    fn.argtypes = [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    rc = fn(layer.ks, layer.cin0_pad + layer.aux_c, layer.cout_pad, _prec(layer, mode), out)
+    out = (ctypes.c_int * 6)()
+    up = bool(upsample) and layer.aux_c == 0 and layer.cin0 == layer.cin0_pad
+    rc = fn(layer.ks, layer.cin0_pad + layer.aux_c, layer.cout_pad, _prec(layer, mode), int(up), out)
     _build.check(lib, rc, "conv_chain plan")
-    return dict(mode=PLAN_MODES[out[0]], trw=out[1], nwg=out[2], smem=out[3])
+    return dict(mode=PLAN_MODES[out[0]], trw=out[1], nwg=out[2], smem=out[3], slabs=out[4],
+                stages=out[5])
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -399,7 +482,8 @@ def _check(name, t, device):
 def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = None,
                aux_channels: Optional[Tuple[int, int]] = None,
                emit: Sequence[int] = (), pool: Sequence[int] = (),
-               upsample_input: bool = False, state_out=None):
+               upsample_input: bool = False, state_out=None,
+               n_cta: Optional[int] = None):
     """Run a packed conv chain (see :func:`pack_chain`) on NHWC input of
     the chain's band dtype (``chain.dtype``: fp32 for the 'high' and
     'highest' modes, else bf16; any other dtype raises TypeError).
@@ -417,7 +501,8 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
     CUDA tensors launch one kernel per layer in the chain's mode, counted
     in ``conv_chain.launches`` and by mode in
     ``conv_chain.mode_launches[chain.mode]``; CPU tensors run
-    :func:`conv_chain_plain`.
+    :func:`conv_chain_plain`.  ``n_cta`` (for tests) caps each launch's
+    grid, so that few CTAs walk many tiles (:func:`highest_tiles`).
     """
     _check_dtype("x", x, chain)
     if aux is not None:
@@ -460,8 +545,14 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
         state = torch.empty(b, hh, ww, n_state, dtype=torch.float32, device=dev)
 
     lib = _build.load_library("conv_chain")
-    fn = lib.rvdd_conv_layer
-    fn.argtypes = _ARGTYPES
+    if n_cta is None:
+        fn = lib.rvdd_conv_layer
+        fn.argtypes = _ARGTYPES
+        grid = ()
+    else:
+        fn = lib.rvdd_conv_layer_grid
+        fn.argtypes = _GRID_ARGTYPES
+        grid = (int(n_cta),)
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     cur, ch, cw = x, hx, wx
@@ -482,7 +573,7 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
                 layer.ks, layer.cin0_pad, layer.cout, layer.cout_pad, int(layer.relu),
                 b, hh, ww, _ptr(out), _ptr(pooled),
                 state.data_ptr() if l in plan else None, n_state, st_off, st_zero,
-                stream)
+                *grid, stream)
         conv_chain.launches += 1
         conv_chain.mode_launches[chain.mode] += 1
         _build.check(lib, rc, f"conv_chain layer {l}")

@@ -11,10 +11,20 @@ single launches at 1080p:
 
 - ``conv_chain``: a 3x3 48->48 layer (K = 432), and a chain of that layer
   and a 3x3 96->48 layer reading an aux tensor (K = 864), each with bf16
-  bands and in the fp32-band mode (where the K = 864 layer streams its
-  weights a tap at a time); phases: waiting for the tile, the products
-  (with a streamed layer's per-tap waits), the epilogue with the next
-  tile's staging;
+  bands, in the fp32-band ('high') mode (where the K = 864 layer streams
+  its weights a tap at a time) and in the 'highest' mode, whose chain
+  streams the K = 864 layer's weights a tap of a channel slab at a time;
+  the 'highest' mode also on dec2's first layer (3x3 48->48 on the 2x
+  upsample of a half-res input), and the 'w32' mode on the K = 432 layer
+  as a control.  Phases of the serial body: waiting for the tile, the
+  products (with a streamed layer's per-tap waits), the epilogue with the
+  next tile's staging.  The 'highest' body is warp-specialized, so its
+  phases are by role: the producer's (waiting for an empty region or
+  weight stage, or an upsample layer's window; staging the tile: issuing
+  its TMA copies, or its share of an upsample layer's interpolation;
+  issuing the weight stages) and the consumers' (waiting for a full region
+  or stage, or interpolating an upsample layer's tile; the products with
+  the split; the epilogue);
 - ``convnext_chain``: a plain block, a proj block (96 input channels) and
   an upsample block, each in the bf16 and the fp32 mode.  bf16 phases: the
   halo tile (staging, projection or interpolation), the depthwise and
@@ -119,6 +129,17 @@ def phases(lib: ctypes.CDLL, fn) -> list:
 #: the consumers')
 CNX_F32_PHASES = ("producer: wait for release", "stage or project new rows", "depthwise + LN",
                   "consumers: wait for LN", "products + GELU", "epilogue")
+#: conv_chain's phases: the serial body's, and the warp-specialized
+#: 'highest' body's by role (it fills slots 3-5, the serial body does not)
+CONV_PHASES = ("wait for tile", "products", "epilogue + staging")
+CONV_HX_PHASES = ("producer: wait for empty", "stage tile", "issue weight stages",
+                  "consumers: wait for full", "products + split", "epilogue")
+
+
+def conv_labels(ph: list) -> tuple:
+    """The labels of a conv_chain case's phase slots: by role where the
+    consumers' slots 3-5 were written."""
+    return CONV_HX_PHASES if any(ph[3:6]) else CONV_PHASES
 
 
 def conv_cases(dev, gen):
@@ -133,7 +154,12 @@ def conv_cases(dev, gen):
                   for ws in ([w0], [w0, w1]))
     f432, f864 = (cc.pack_chain(ws, [zero] * len(ws), ["relu"] * len(ws), [3] * len(ws),
                                 band_fp32=True) for ws in ([w0], [w0, w1]))
+    h432, h864 = (cc.pack_chain(ws, [zero] * len(ws), ["relu"] * len(ws), [3] * len(ws),
+                                band_fp32=True, mxu_precision="highest")
+                  for ws in ([w0], [w0, w1]))
+    w432 = cc.pack_chain([w0], [zero], ["relu"], [3], mxu_precision="highest", weight_fp32=True)
     xb, auxb = x.to(torch.bfloat16), aux.to(torch.bfloat16)
+    xh = rnd(1, H // 2, W // 2, 48)
     return [
         ("3x3 48->48 (K=432)", lambda: cc.conv_chain(xb, k432), 2 * H * W * 432 * 48),
         ("3x3 48->48 then 3x3 96->48 with aux (K=432, 864)",
@@ -143,6 +169,16 @@ def conv_cases(dev, gen):
          lambda: cc.conv_chain(x, f432), 3 * 2 * H * W * 432 * 48),
         ("fp32 bands, 3x3 48->48 then 3x3 96->48 with aux (K=432 resident, 864 streamed)",
          lambda: cc.conv_chain(x, f864, aux=aux), 3 * 2 * H * W * 1296 * 48),
+        # HIGHEST: six bf16 products a MAC
+        ("highest, 3x3 48->48 (K=432, weights resident)",
+         lambda: cc.conv_chain(x, h432), 6 * 2 * H * W * 432 * 48),
+        ("highest, 3x3 48->48 then 3x3 96->48 with aux (K=432 resident, 864 streamed)",
+         lambda: cc.conv_chain(x, h864, aux=aux), 6 * 2 * H * W * 1296 * 48),
+        ("highest, dec2's first layer: 3x3 48->48 on the 2x upsample (K=432)",
+         lambda: cc.conv_chain(xh, h432, upsample_input=True), 6 * 2 * H * W * 432 * 48),
+        # the control: fp32 weights on bf16 bands, three products a MAC
+        ("w32, 3x3 48->48 (K=432, weights resident)",
+         lambda: cc.conv_chain(xb, w432), 3 * 2 * H * W * 432 * 48),
     ]
 
 
@@ -211,7 +247,6 @@ def main():
     gen.manual_seed(0)
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
     _build.build(tuple(names))
-    conv_labels = ("wait for tile", "products", "epilogue + staging")
     warp_labels = ("flow + footprint", "window copy", "gather + store")
     groups = [
         ("conv_chain", lambda: [(n, f, fl, conv_labels) for n, f, fl in conv_cases(dev, gen)]),
@@ -230,6 +265,8 @@ def main():
             _build._LIBS[name] = clocked
             ph = phases(clocked, fn)
             rate = f", {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s" if flops else ""
+            if callable(labels):
+                labels = labels(ph)
             print(f"{name} {label}: {ms:.3f} ms{rate}; cycles per tile ({ph[-1]} tiles seen): "
                   + ", ".join(f"{lab} {v:.0f}" for lab, v in zip(labels, ph)), flush=True)
         _build._LIBS[name] = base

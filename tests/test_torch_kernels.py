@@ -21,6 +21,7 @@ from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
     chain_mode,
     conv_chain,
     conv_chain_plain,
+    highest_plan,
     layer_plan,
     layer_weight_from_pack,
     pack_chain,
@@ -119,10 +120,10 @@ MODE_KW = {"bf16": {}, "high": dict(band_fp32=True),
            "w32": dict(mxu_precision="highest", weight_fp32=True)}
 
 
-def run_port(case, x, aux, ws, bs, device, plain=False, mode="bf16"):
+def run_port(case, x, aux, ws, bs, device, plain=False, mode="bf16", n_cta=None):
     """The port's chain on numpy inputs, packed in ``mode`` (MODE_KW), the
     inputs passed in the chain's band dtype (fp32 in 'high' and 'highest',
-    else rounded to bf16)."""
+    else rounded to bf16); ``n_cta`` caps the kernel's grid."""
     chain = pack_chain([torch.from_numpy(a).to(device) for a in ws],
                        [torch.from_numpy(b).to(device) for b in bs],
                        case["acts"], case["ks"], weight_split=case.get("split"),
@@ -133,6 +134,8 @@ def run_port(case, x, aux, ws, bs, device, plain=False, mode="bf16"):
     if aux is not None:
         kw["aux"] = torch.from_numpy(aux).to(device).to(chain.dtype)
         kw["aux_channels"] = case["aux"][1:]
+    if n_cta is not None:
+        kw["n_cta"] = n_cta
     outs = fn(torch.from_numpy(x).to(device).to(chain.dtype), chain, **kw)
     return [o.float().cpu().numpy() for o in outs]
 
@@ -598,10 +601,13 @@ def test_conv_chain_w32_mean_bound_fails_bf16_weights(cuda, name):
 @pytest.mark.parametrize("mode", ["highest", "w32"])
 def test_conv_chain_fp32_weight_modes_stream_k864(cuda, mode):
     """With three weight planes a K = 864 layer's weights (248,832 bytes)
-    exceed shared memory, so chain A's layer 1 streams them a tap at a time
-    in both fp32-weight modes; its K = 144 and K = 432 layers keep them
-    resident (a 'highest' K = 432 layer beside one warpgroup's 2-row
-    tile).  Every plan fits the 232,448 bytes a block may have."""
+    exceed shared memory, so chain A's layer 1 streams them in both
+    fp32-weight modes: 'w32' a tap at a time in a one-warpgroup CTA,
+    'highest' a tap of a 48-channel slab at a time through four stages, in
+    its warp-specialized CTA of a producer and two consumer warpgroups.
+    The K = 144 and K = 432 layers keep them resident ('highest': beside
+    two 2-row fp32 tiles).  Every plan fits the 232,448 bytes a block may
+    have."""
     case = FP32_CARD_CASES["chain_A"]
     _, _, ws, bs = make_case(case)
     chain = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
@@ -609,7 +615,82 @@ def test_conv_chain_fp32_weight_modes_stream_k864(cuda, mode):
     plans = [layer_plan(layer, mode) for layer in chain.layers]
     assert [p["mode"] for p in plans] == [f"{mode} resident", f"{mode} streamed",
                                           f"{mode} resident", f"{mode} resident"], plans
-    assert plans[1]["nwg"] == 1 and all(p["smem"] <= 232448 for p in plans)
+    assert all(p["smem"] <= 232448 for p in plans)
+    if mode == "w32":
+        assert plans[1]["nwg"] == 1
+    else:
+        assert all(p["nwg"] == 3 and p["trw"] == 2 for p in plans)
+        assert (plans[1]["slabs"], plans[1]["stages"]) == (2, 4)
+        assert [p["slabs"] for p in plans] == [2 if i == 1 else 1 for i in range(4)]
+
+
+#: the layer shapes of the main path, and wider ones: (ks, cin_tot,
+#: cout_pad, upsampled input)
+HIGHEST_SHAPES = [(3, 16, 48, False), (3, 48, 48, False), (3, 48, 48, True), (3, 96, 48, False),
+                  (1, 48, 16, False), (3, 64, 48, False), (3, 192, 48, False), (3, 96, 48, True),
+                  (3, 32, 32, False), (1, 16, 16, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HIGHEST_SHAPES,
+                         ids=["k{}_c{}_n{}_up{:d}".format(*s) for s in HIGHEST_SHAPES])
+def test_conv_chain_highest_plan_mirror_equals_layer_plan(cuda, shape):
+    """The CUDA source's plan of a 'highest' layer (rvdd_conv_layer_plan)
+    equals its Python mirror, highest_plan: mode, tile rows, warpgroups,
+    shared memory, slabs and weight stages."""
+    ks, cin, n, up = shape
+    layer = SimpleNamespace(ks=ks, cin0=cin, cin0_pad=cin, aux_c=0, cout_pad=n, split=False)
+    want = highest_plan(ks, cin, n, up)
+    assert layer_plan(layer, "highest", upsample=up) == {
+        k: want[k] for k in ("mode", "trw", "nwg", "smem", "slabs", "stages")}
+
+
+def check_highest_kernel(device, name, h, w, batch, n_cta=None, seed=15):
+    """A FP32_CARD_CASES chain through the 'highest' kernel against its
+    plain version at that size, grid capped at ``n_cta`` CTAs: one launch a
+    layer, finite outputs within 2^-14 of max|out| and a mean of 1e-5 x std
+    (test_conv_chain_highest_kernel_matches_plain's bounds)."""
+    case = FP32_CARD_CASES[name]
+    x, aux, ws, bs = make_case(case, seed=seed, h=h, w=w, batch=batch, fp32=True)
+    before = conv_chain.mode_launches["highest"]
+    got = run_port(case, x, aux, ws, bs, device, mode="highest", n_cta=n_cta)
+    assert conv_chain.mode_launches["highest"] - before == len(case["ks"])
+    want = run_port(case, x, aux, ws, bs, device, plain=True, mode="highest")
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and g.shape[0] == batch
+        assert np.isfinite(g).all()
+        err = float(np.max(np.abs(g - wv)))
+        assert err <= 2.0 ** -14 * float(np.max(np.abs(wv))), (name, h, w, batch, n_cta, err)
+        assert np.mean(np.abs(g - wv)) < 1e-5 * np.std(wv), (name, h, w, batch, n_cta)
+
+
+#: (rows, columns, batch): an image shorter than a tile (2 rows where the
+#: chain pools or upsamples), widths that are not multiples of 64
+HIGHEST_EDGES = [(1, 40, 1), (4, 100, 2), (6, 130, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HIGHEST_EDGES, ids=["x".join(map(str, s)) for s in HIGHEST_EDGES])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_highest_kernel_ragged_edges(cuda, name, shape):
+    """The warp-specialized 'highest' body at the edges of its tiles: an
+    image shorter than one 2-row tile, widths of 40, 100 and 130 columns
+    (a partial 64-column tile, its halo past the image), batch 2."""
+    h, w, batch = shape
+    case = FP32_CARD_CASES[name]
+    if h % 2 and (case.get("upsample") or case.get("pool")):
+        h += 1
+    check_highest_kernel(cuda, name, h, w, batch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cta", [1, 5])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_highest_kernel_small_grid(cuda, name, n_cta):
+    """Grids of 1 and 5 persistent CTAs walk 88 tiles each launch, so the
+    producer wraps both tile regions and every weight stage many times
+    (highest_tiles is the schedule)."""
+    check_highest_kernel(cuda, name, 22, 200, 2, n_cta=n_cta)
 
 
 @pytest.mark.gpu
