@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 )
 
 #: per source: {"seconds": wall time of its nvcc, "ptxas": the -Xptxas -v
-#: lines (registers, shared memory, spills per kernel)}
+#: lines (registers, shared memory, spills per kernel) and ptxas's C75xx
+#: notes (e.g. "wgmma ... serialized", printed as info)}
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
 
@@ -85,7 +86,8 @@ def build(names=SOURCES) -> dict:
             continue
         os.replace(tmp, lib_path(name))
         ptxas = [ln.strip() for ln in out.splitlines()
-                 if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln)) or "spill" in ln]
+                 if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln)) or "spill" in ln
+                 or "(C75" in ln]
         BUILD_INFO[name] = {"seconds": secs, "ptxas": ptxas}
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))

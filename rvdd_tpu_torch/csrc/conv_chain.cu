@@ -27,44 +27,44 @@
 //   * rvdd_tpu's 'fast' bands: bf16 activations and weights, fp32
 //     accumulation, fp32 bias; every band (layer output) is stored as bf16;
 //   * fp32 bands with bf16_3x products (band_dtype=float32 with
-//     mxu_precision='high', conv_pallas.py:306-327 and :574-580): inputs,
-//     bands and emitted outputs are fp32 in global memory.  Staging loads a
-//     tile's fp32 values through registers and splits each by its mantissa
-//     (hi = the top 16 bits, exact in bf16; lo = bf16(v - hi)) into two
-//     bf16 planes of the same layout, so a tap stays a descriptor offset;
-//     every layer's weights are split, and each k-step issues three wgmma
-//     into one accumulator, w_hi a_hi + w_hi a_lo + w_lo a_hi (the lo lo
-//     term, about 2^-16 relative, is dropped as on the TPU).  TF32 wgmma
-//     would keep 10 mantissa bits against about 16 here;
+//     mxu_precision='high', conv_pallas.py:306-327 and :574-580), on the
+//     fp32-band body (f32b::, see below): inputs, bands and emitted outputs
+//     are fp32 in global memory; the tile is staged as fp32, and each
+//     k-step's A values are split in registers by their mantissa (hi = the
+//     top 16 bits, exact in bf16; lo = bf16(v - hi), rounded to nearest)
+//     into two bf16 fragments; every layer's weights are split the same way
+//     into two planes, and each k-step issues three register-A wgmma into
+//     one accumulator, a_hi.w_hi, a_lo.w_hi and a_hi.w_lo (the lo.lo term,
+//     about 2^-16 relative, is dropped as on the TPU).  TF32 wgmma would
+//     keep 10 mantissa bits against about 16 here;
 //   * fp32 bands with HIGHEST products (band_dtype=float32,
 //     mxu_precision='highest', fp32 weights: rvdd_tpu's 'accurate',
-//     conv_pallas.py:288-304), a body of its own (hx::, see below): the
-//     tile is staged as fp32, and each k-step's A values are split in
-//     registers into three bf16 fragments, hi + mid + lo = v exactly (hi
-//     and mid by mantissa masks, lo the rest, at most 8 significant bits);
-//     the weights are packed as three such planes, and each k-step issues
-//     six register-A wgmma: hi.hi, hi.mid, mid.hi, hi.lo, mid.mid and
-//     lo.hi, the terms HIGHEST keeps (the three dropped ones are below
-//     2^-24 of the product), as convnext_chain.cu's fp32 mode does;
+//     conv_pallas.py:288-304), on the same body: each k-step's A values are
+//     split in registers into three bf16 fragments, hi + mid + lo = v
+//     exactly (hi and mid by mantissa masks, lo the rest, at most 8
+//     significant bits); the weights are packed as three such planes, and
+//     each k-step issues six register-A wgmma: hi.hi, hi.mid, mid.hi,
+//     hi.lo, mid.mid and lo.hi, the terms HIGHEST keeps (the three dropped
+//     ones are below 2^-24 of the product), as convnext_chain.cu's fp32
+//     mode does;
 //   * bf16 bands with fp32 weights (weight_dtype=float32 at 'highest',
 //     rvdd_tpu's 'wf32', conv_pallas.py:295-296): the tile is staged as in
 //     the bf16 modes, the weights are three planes, and each k-step issues
 //     three wgmma, w_hi a + w_mid a + w_lo a, exact in the weights (a is
 //     bf16) up to the fp32 sums' order.
 // The mode is a template parameter of the kernel: a branch between wgmma
-// makes ptxas serialize them.  The bf16_3x mode splits its tile once in
-// shared memory (a tap is a descriptor offset into the staged planes); the
-// HIGHEST body splits it in registers, nine times for a 3x3, because a
-// three-plane tile leaves room for one tile beside the weights and an fp32
-// one for two (see the HIGHEST design below).
+// makes ptxas serialize them.  The bf16-band modes run the serial body
+// (conv_layer_kernel); the fp32-band modes the warp-specialized one
+// (f32b::fp32_band_kernel), with the number of bf16 planes, 2 or 3, as its
+// numerics parameter.
 //
 // What bounds it on the H100: operations.  The six chains of a 1080p frame
 // need about 1.07 TFLOP (with dec2's split layers): about 1.0 ms at the
-// 989 TFLOP/s bf16 dense peak, against about 0.3 ms for their bytes.  With
-// fp32 weights their 0.98 TFLOP count three bf16 products each (about 3.0
-// ms) and in the HIGHEST mode six (about 5.9 ms).  The
-// layer is a GEMM of M = pixels, N = cout_pad (48, 16 for the head), K =
-// ks^2 * (cin0_pad + aux_c) (144 to 864).  The design:
+// 989 TFLOP/s bf16 dense peak, against about 0.3 ms for their bytes.  Their
+// 0.98 TFLOP count three bf16 products each with fp32 weights or in the
+// bf16_3x mode (about 3.0 ms) and six in the HIGHEST mode (about 5.9 ms).
+// The layer is a GEMM of M = pixels, N = cout_pad (48, 16 for the head), K
+// = ks^2 * (cin0_pad + aux_c) (144 to 864).  The serial body's design:
 //   * a persistent CTA of two or three warpgroups keeps the layer's whole
 //     packed weight matrix ([K/8][N][8] bf16, the wgmma B layout; both
 //     halves of a split layer, at most 83 KB in the bf16 modes) in shared
@@ -79,12 +79,12 @@
 //     channels], so 8 consecutive pixels of one channel group are one
 //     128-byte core matrix and tap (dy, dx) of a 64-pixel output row is the
 //     same descriptor moved by (dy * (64 + 2) + dx) * 16 bytes: no im2col
-//     copy (the upsample layer, a 6-channel input and the fp32-band modes
-//     build their tile with loads and arithmetic instead);
+//     copy (the upsample layer and a 6-channel input build their tile with
+//     loads and arithmetic instead);
 //   * the warpgroup holds one m64nN accumulator per tile row and issues
 //     ks^2 * cin/16 k-steps per row, each of the mode's products (one
-//     wgmma m64nNk16; two for a split layer, three in the bf16_3x and
-//     fp32-weight modes), the first with scale-d 0, before one wait;
+//     wgmma m64nNk16; two for a split layer, three in the fp32-weight
+//     mode), the first with scale-d 0, before one wait;
 //   * the epilogue adds bias and relu in registers, writes the fp32 state
 //     from registers, and stages the band in the warpgroup's region for
 //     16-byte stores and the 2x2 pool (4-byte stores straight from the
@@ -95,40 +95,40 @@
 // gap to the peak is staging and the epilogue (chip_smoke.py prints each
 // chain's TFLOP/s and share of the bound).
 //
-// Shared memory in the fp32 and fp32-weight modes: the split weights of
-// the layers that read 48 + 48 aux channels (K = 864, N = 48) take 165,888
-// bytes in two planes and 248,832 in three, and a tile's planes 101,376 at
-// TRW 2 in two planes (152,064 in three), above the 232,448 a block may
-// have.  Such a layer streams its weights instead: one warpgroup per CTA,
-// and the planes of one tap (18,432 or 27,648 bytes) at a time,
-// double-buffered with cp.async, so tap t + 1 (after the last, the next
-// tile's first) loads while tap t's products run; a barrier and a wgmma
-// wait per tap.  Every tile reloads the layer's weights from L2.  The
-// choice is a function of the layer's shape and mode alone: the resident
-// form where one of its configurations fits, else the streamed one, else
-// the launch fails with cudaErrorInvalidValue.
+// Shared memory in the fp32-weight mode: the three weight planes of the
+// layers that read 48 + 48 aux channels (K = 864, N = 48) take 248,832
+// bytes, above the 232,448 a block may have.  Such a layer streams its
+// weights instead: one warpgroup per CTA, and the planes of one tap
+// (27,648 bytes) at a time, double-buffered with cp.async, so tap t + 1
+// (after the last, the next tile's first) loads while tap t's products
+// run; a barrier and a wgmma wait per tap.  Every tile reloads the layer's
+// weights from L2.  The choice is a function of the layer's shape and mode
+// alone: the resident form where one of its configurations fits, else the
+// streamed one, else the launch fails with cudaErrorInvalidValue.
 //
-// The HIGHEST body (hx::).  Six products a k-step made the serial body's
-// staging and epilogue (two thirds of a tile, its staging latency-bound
-// loads through registers) and shared memory (the A planes read six times a
-// k-step) its limits: 29,500 cycles a 2x64 tile of a 48 -> 48 layer at
-// 1080p (probe on the H100).  Its design:
+// The fp32-band body (f32b::).  In the serial body fp32 bands made staging
+// (latency-bound loads through registers and the split into shared memory)
+// and the epilogue its limits: a warpgroup's 2x64 tile of a 48 -> 48 layer
+// at 1080p took 28,400 cycles in the bf16_3x mode (two warpgroups a CTA),
+// 21,800 of them staging and epilogue, and 29,500 in the HIGHEST mode
+// (probe on the H100).  Its design:
 //   * a CTA of three warpgroups an SM (384 threads; setmaxnreg 104 for the
-//     producer, 200 for the consumers): warpgroup 2, the producer, stages
-//     each 2x64 tile's fp32 input a tile ahead into one of two regions
-//     [channel group of 8][row][column][8] with TMA (a box per channel
-//     group; zeros filled outside the image and past in0's channels), a
-//     streamed layer's a 48-channel slab at a time, with each tap of the
-//     slab's weights in three bulk copies into a ring of NW = 4 stages;
+//     producer and 200 for the consumers in the HIGHEST mode, 120 and 192
+//     in the bf16_3x mode): warpgroup 2, the producer, stages each 2x64
+//     tile's fp32 input a tile ahead into one of two regions [channel group
+//     of 8][row][column][8] with TMA (a box per channel group; zeros filled
+//     outside the image and past in0's channels), a streamed layer's a
+//     48-channel slab at a time, with each tap of the slab's weights in two
+//     or three bulk copies (a plane each) into a ring of NW = 4 stages;
 //     FULL is an mbarrier, EMPTY a named barrier;
 //   * warpgroups 0 and 1, the consumers, take 32 columns of both rows each
 //     as one m64 operand (a thread holds a pixel and the one below it, so
 //     the 2x2 pool is one shuffle); a k16 step loads the thread's 8 fp32
 //     values (a warp reads 256 contiguous bytes a load) and splits them
-//     into hi, mid and lo fragments; a tap's three steps are one group of
-//     18 register-A wgmma (hi.hi into acc, the five small products into
-//     acc2), double-buffered: tap t + 1 is loaded and split while tap t's
-//     products run (wait<1>);
+//     into the numerics' fragments; a tap's three steps are one group of
+//     register-A wgmma (HIGHEST: 18, hi.hi into acc and the five small
+//     products into acc2; bf16_3x: 9 into acc), double-buffered: tap t + 1
+//     is loaded and split while tap t's products run (wait<1>);
 //   * the epilogue runs from registers into a result array: bias, act,
 //     band, state and pool;
 //   * an upsample layer (3x3, its half-res input whole channel groups, no
@@ -136,29 +136,47 @@
 //     half-res input [3][36][cin], fetched two tiles ahead and interpolated
 //     by all 384 threads between the consumers' tiles; a 9-channel or
 //     unaligned input is staged through registers.
-// Budgets (bytes of the 232,448): K = 432 (48 -> 48): weights 124,416, two
-// regions of 50,688, mbarriers 128: 225,920.  K = 864 (48 + 48 aux): four
-// weight stages of 13,824 beside two 48-channel slab regions: 156,800 (each
-// tile reloads the layer's 248,832 bytes of weights from L2).  An upsample
-// K = 432 layer: 124,416 + 50,688 + two windows of 20,736 + 128 = 216,704.
-// The plan is a function of the layer's shape: the upsample form, else
-// resident, else streamed with the fewest slabs that fit (hx::plan_form,
-// mirrored by ops/cuda/conv_chain.py:highest_plan).  Registers: 168 at
-// launch, no spill (at 88 / 208 the producer spilled up to 260 bytes).
-// Measured on the H100 (probe, cycles a tile of that layer): per-thread
-// cp.async staging took 20,700 a tile for its 50,688 bytes, whatever the
-// read order or cache hint, and slowed the consumers; TMA takes 1,300 to
-// issue.  One k-step a group of 6 wgmma: 15,600 of products, whatever the
-// depth of the pipeline or the number of accumulators (three or four
-// shortened the dependent chains by 5%); a tap a group of 18: 9,800
-// (7,776 at the tensor peak), and an epilogue of 2,400.  With four
+// Budgets (bytes of the 232,448), HIGHEST / bf16_3x: K = 432 (48 -> 48):
+// weights 124,416 / 82,944 beside two regions of 50,688 and 128 of
+// mbarriers: 225,920 / 184,448.  An upsample K = 432 layer: weights, one
+// region and two windows of 20,736: 216,704 / 175,232.  K = 864 (48 + 48
+// aux): four weight stages of 13,824 / 9,216 beside two 48-channel slab
+// regions: 156,800 / 138,368; every tile reloads the layer's 248,832 /
+// 165,888 bytes of weights from L2.  Resident bf16_3x weights do not fit
+// beside two slabs of 32 channels (233,600); beside two of 16 (199,808)
+// they would, at six slabs a tile of one k-step groups.  The streamed form
+// costs the bf16_3x K = 864 layer about 1,700 cycles a tile of waiting
+// (probe), 11% of its tile, and its products run at the K = 432 layer's
+// rate a k-step.  The plan is a function of the layer's shape and
+// numerics: the upsample form, else resident, else streamed with the
+// fewest slabs that fit (f32b::plan_form, mirrored by
+// ops/cuda/conv_chain.py:fp32_plan).  Registers: 168 at launch, no spill
+// (at 88 / 208 the HIGHEST producer spilled up to 260 bytes, at 104 / 200
+// the bf16_3x one 8 with N = 16).
+// Measured on the H100 (probe, cycles a 2x64 tile of a 48 -> 48 layer at
+// 1080p).  Per-thread cp.async staging took 20,700 a tile for its 50,688
+// bytes, whatever the read order or cache hint, and slowed the consumers;
+// TMA takes 1,000-1,300 to issue.  HIGHEST: one k-step a group of 6 wgmma,
+// 15,600 of products, whatever the depth of the pipeline or the number of
+// accumulators (three or four shortened the dependent chains by 5%); a tap
+// a group of 18, 9,800 (7,776 at the tensor peak), and an epilogue of
+// 2,400.  bf16_3x: a tap a group of 9, 6,900-7,050 of products (3,888 at
+// the peak: the consumers' loads and split on the CUDA cores take about
+// as long as the products) and 2,300 of epilogue, 9,400 a tile of the SM
+// against the serial body's 14,200; two taps a group of 18 (eight
+// weight stages), 7,220 against 6,858 in the same run; a second
+// accumulator for lo.hi and hi.lo, 6,940 against 7,031 and an epilogue
+// of 2,363 against 2,307, the same time; three fragment buffers (two
+// groups in flight while the next tap loads), chain A 3.11-3.14 ms against
+// 3.07; the second consumer started 2,300 or 4,700 cycles late, within
+// 1.5%: all dropped.  With four
 // fragment buffers (wait<3>) ptxas gave the lo fragments of consecutive
 // steps one register quad and the outputs were wrong; two are right.  An
 // epilogue that wrote its results into the accumulators made ptxas
 // serialize every wgmma of the kernel (C7515, reported as info, not as a
 // warning).  An upsample layer's producer interpolating through registers
 // took 28,800 a tile; from TMA windows alone 16,000; with all threads
-// 3,400 of the producer's and 4,800 of the consumers' waiting.
+// 3,300-3,400 of the producer's and 4,700 of the consumers' waiting.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -175,40 +193,28 @@ constexpr int TW = 64;                 // output columns per tile: one m64 produ
 constexpr int SMEM_MAX = 232448;       // per block on the H100
 
 // what a launch computes: bf16 bands with 1-pass or split (hi + lo)
-// weights; fp32 bands with bf16_3x products; fp32 bands with HIGHEST
-// products (the warp-specialized body, hx:: below); bf16 bands with fp32
-// weights; each fp32-weight mode with its weights resident or streamed (a
-// tap at a time; HIGHEST: a tap of a channel slab at a time), and HIGHEST's
-// upsample layers with resident weights beside windows of their half-res
-// input
+// weights, or with fp32 weights (resident, or streamed a tap at a time),
+// on the serial body conv_layer_kernel; fp32 bands with bf16_3x or HIGHEST
+// products on the warp-specialized body (f32b:: below), each with its
+// weights resident, streamed (a tap of a channel slab at a time) or, for
+// an upsample layer, resident beside windows of its half-res input
 enum Mode {
   BF16 = 0, BF16_SPLIT = 1,
-  F32_3X = 2, F32_3X_STREAM = 3,
+  HIGH = 2, HIGH_STREAM = 3,
   HX = 4, HX_STREAM = 5,
   W32 = 6, W32_STREAM = 7,
-  HX_UP = 8,
+  HX_UP = 8, HIGH_UP = 9,
 };
 // a layer's numerics, as the C entry points take them: bf16 bands with
 // bf16 weights, or with hi + lo weights; fp32 bands with bf16_3x or
 // HIGHEST products; bf16 bands with fp32 weights
 enum Prec { P_BF16 = 0, P_BF16_SPLIT = 1, P_HIGH = 2, P_HIGHEST = 3, P_W32 = 4 };
 
-// the modes of conv_layer_kernel (all but HX, HX_STREAM and HX_UP)
-__host__ __device__ constexpr bool mode_f32(int m) { return m == F32_3X || m == F32_3X_STREAM; }
-__host__ __device__ constexpr bool mode_stream(int m) { return m == F32_3X_STREAM || m == W32_STREAM; }
-// bf16 planes of the staged tile and of the weights
-__host__ __device__ constexpr int a_planes(int m) { return m == F32_3X || m == F32_3X_STREAM ? 2 : 1; }
-__host__ __device__ constexpr int w_planes(int m) { return m == BF16 ? 1 : m <= F32_3X_STREAM ? 2 : 3; }
-// the products of a k-step, and product p's (tile plane, weight plane):
-// bf16 split (0, 0) (0, 1); bf16_3x (0, 0) (1, 0) (0, 1); fp32 weights
-// (0, 0) (0, 1) (0, 2)
-__host__ __device__ constexpr int n_products(int m) { return m == BF16 ? 1 : m == BF16_SPLIT ? 2 : 3; }
-__host__ __device__ constexpr int prod_a(int m, int p) {
-  return m == F32_3X || m == F32_3X_STREAM ? (p == 1) : 0;
-}
-__host__ __device__ constexpr int prod_b(int m, int p) {
-  return m == F32_3X || m == F32_3X_STREAM ? (p == 2) : p;
-}
+// the modes of conv_layer_kernel: BF16, BF16_SPLIT, W32 and W32_STREAM
+__host__ __device__ constexpr bool mode_stream(int m) { return m == W32_STREAM; }
+// bf16 weight planes, and the products of a k-step: product p multiplies
+// the staged bf16 tile by weight plane p (hi; hi, lo; hi, mid, lo)
+__host__ __device__ constexpr int w_planes(int m) { return m == BF16 ? 1 : m == BF16_SPLIT ? 2 : 3; }
 
 struct LayerArgs {
   const void* in0;                // [B, h0, w0, in0_stride], channels at in0_off
@@ -234,7 +240,6 @@ struct Config {
 
 struct Smem {
   int rows_in, cols_in, plane;    // staged tile geometry; plane = bytes per channel group
-  int tplane;                     // bytes from one plane of the staged tile to the next
   int w, wtap;                    // weights at w; a streamed tap's planes take wtap bytes
   int buf, buf_bytes, total;      // warpgroup g's region at buf + g * buf_bytes:
                                   // its input tile, then its band [trw][64][n]
@@ -248,12 +253,11 @@ __host__ __device__ inline Smem smem_layout(int ks, int cin_tot, int n, int mode
   s.rows_in = c.trw + 2 * halo;
   s.cols_in = TW + 2 * halo;
   s.plane = s.rows_in * s.cols_in * 16;
-  s.tplane = (cin_tot / 8) * s.plane;
   s.w = 0;
   s.wtap = cin_tot * n * 2 * w_planes(mode);
   const int wbytes = mode_stream(mode) ? 2 * s.wtap : ks * ks * s.wtap;
   s.buf = align128(wbytes);
-  const int tile = s.tplane * a_planes(mode), band = c.trw * TW * n * (mode_f32(mode) ? 4 : 2);
+  const int tile = (cin_tot / 8) * s.plane, band = c.trw * TW * n * 2;
   s.buf_bytes = align128(tile > band ? tile : band);
   s.total = s.buf + c.nwg * s.buf_bytes;
   return s;
@@ -277,21 +281,6 @@ __device__ __forceinline__ uint4 load_px8(const bf16* base, size_t pixel,
   return r.u;
 }
 
-// the same for an fp32 tensor, as floats
-__device__ __forceinline__ void load_f8(const float* base, size_t pixel, int stride, int off,
-                                        int c0, int c, bool vec, float* v) {
-  const float* p = base + pixel * stride + off + c0;
-  if (vec) {
-    const float4 x0 = *reinterpret_cast<const float4*>(p);
-    const float4 x1 = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = x0.x; v[1] = x0.y; v[2] = x0.z; v[3] = x0.w;
-    v[4] = x1.x; v[5] = x1.y; v[6] = x1.z; v[7] = x1.w;
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = (c0 + k < c) ? p[k] : 0.f;
-}
-
 __device__ __forceinline__ void unpack8(uint4 u, float* v) {
   Pack8 r;
   r.u = u;
@@ -304,36 +293,17 @@ __device__ __forceinline__ uint4 pack8(const float* v) {
                     wg::pack_bf16x2(v[4], v[5]), wg::pack_bf16x2(v[6], v[7]));
 }
 
-// v = hi + lo in bf16: hi keeps the top 16 bits of each fp32 value (the
-// mantissa mask of conv_pallas.py:315-323, exact in bf16), lo = bf16(v - hi)
-__device__ __forceinline__ void split8(const float* v, uint4& hi, uint4& lo) {
-  Pack8 h, l;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint32_t bits = __float_as_uint(v[k]);
-    h.s[k] = (unsigned short)(bits >> 16);
-    l.s[k] = __bfloat16_as_ushort(__float2bfloat16_rn(v[k] - __uint_as_float(bits & 0xFFFF0000u)));
-  }
-  hi = h.u;
-  lo = l.u;
-}
-
-// 8 channels of in0 at one pixel of its own grid, as floats
-template <bool F32>
+// 8 channels of the bf16 in0 at one pixel of its own grid, as floats
 __device__ __forceinline__ void in0_f8(const LayerArgs& a, size_t pixel, int c0, bool vec,
                                        float* v) {
-  if constexpr (F32)
-    load_f8(static_cast<const float*>(a.in0), pixel, a.in0_stride, a.in0_off, c0, a.in0_c, vec, v);
-  else
-    unpack8(load_px8(static_cast<const bf16*>(a.in0), pixel, a.in0_stride, a.in0_off, c0,
-                     a.in0_c, vec), v);
+  unpack8(load_px8(static_cast<const bf16*>(a.in0), pixel, a.in0_stride, a.in0_off, c0, a.in0_c,
+                   vec), v);
 }
 
 // 8 channels of the 2x bilinear (align_corners=False) upsample of the
 // half-res in0 at full-res (gy, gx), in fp32: rows j and jn, columns i and
 // ic, with weights 0.75 / 0.25 and edge replication; rows first, as
 // rvdd_tpu/ops/resize.py does
-template <bool F32>
 __device__ __forceinline__ void load_up8(const LayerArgs& a, int b, int gy, int gx, int c0,
                                          bool vec, float* r) {
   const int j = gy >> 1, i = gx >> 1;
@@ -341,10 +311,10 @@ __device__ __forceinline__ void load_up8(const LayerArgs& a, int b, int gy, int 
   const int ic = min(max((gx & 1) ? i + 1 : i - 1, 0), a.in0_w - 1);
   const size_t r0 = (size_t)b * a.in0_h + j, r1 = (size_t)b * a.in0_h + jn;
   float v00[8], v01[8], v10[8], v11[8];
-  in0_f8<F32>(a, r0 * a.in0_w + i, c0, vec, v00);
-  in0_f8<F32>(a, r0 * a.in0_w + ic, c0, vec, v01);
-  in0_f8<F32>(a, r1 * a.in0_w + i, c0, vec, v10);
-  in0_f8<F32>(a, r1 * a.in0_w + ic, c0, vec, v11);
+  in0_f8(a, r0 * a.in0_w + i, c0, vec, v00);
+  in0_f8(a, r0 * a.in0_w + ic, c0, vec, v01);
+  in0_f8(a, r1 * a.in0_w + i, c0, vec, v10);
+  in0_f8(a, r1 * a.in0_w + ic, c0, vec, v11);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const float ri = 0.75f * v00[k] + 0.25f * v10[k];
@@ -366,20 +336,15 @@ __device__ __forceinline__ TileIdx tile_idx(const LayerArgs& a, int t, int tr) {
   return ti;
 }
 
-// stage tile t's input [cg][rows_in][cols_in][8] into buf (the bf16_3x
-// mode: its hi plane, and its lo plane L.tplane bytes after it).  Items go to
+// stage tile t's input [cg][rows_in][cols_in][8] into buf.  Items go to
 // threads by octets of pixels: lane -> (channel group lane / 8, pixel lane
 // % 8), so each quarter-warp writes one 128-byte core matrix (no bank
-// conflicts) and a warp reads 4 channel groups of 8 neighbouring pixels.
-// bf16 modes: cp.async for 16-byte aligned channel groups, loads and
-// arithmetic for the upsample and for unaligned inputs.  fp32-band modes:
-// loads, the upsample in fp32 and the split, through registers.  Zeros outside the
-// image (the conv's zero padding) and in pad channels
-template <int MODE>
-__device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
-                           unsigned char* buf, int t128) {
-  constexpr bool F32 = mode_f32(MODE);
-  constexpr int AP = a_planes(MODE);
+// conflicts) and a warp reads 4 channel groups of 8 neighbouring pixels:
+// cp.async for 16-byte aligned channel groups, loads and arithmetic for
+// the upsample and for unaligned inputs.  Zeros outside the image (the
+// conv's zero padding) and in pad channels
+__device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr, unsigned char* buf,
+                           int t128) {
   const TileIdx ti = tile_idx(a, t, tr);
   const int halo = a.ks >> 1;
   const int cg_n = (a.cin0_pad + a.aux_c) >> 3;
@@ -387,10 +352,8 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
   const int per = 8 * cg_n;  // items per octet of pixels
   const uint64_t magic = ((1ull << 32) + per - 1) / per;  // k / per == (k * magic) >> 32 here
   const int n = (npix + 7) / 8 * per;
-  // vector loads: 16 bytes of bf16, or two 16-byte fp32 halves
-  const int align = F32 ? 4 : 8;
-  const bool in0_vec = (a.in0_c % 8 == 0) && (a.in0_stride % align == 0) && (a.in0_off % align == 0);
-  const bool aux_vec = (a.aux_c % 8 == 0) && (a.aux_stride % align == 0) && (a.aux_off % align == 0);
+  const bool in0_vec = (a.in0_c % 8 == 0) && (a.in0_stride % 8 == 0) && (a.in0_off % 8 == 0);
+  const bool aux_vec = (a.aux_c % 8 == 0) && (a.aux_stride % 8 == 0) && (a.aux_off % 8 == 0);
   for (int k = t128; k < n; k += 128) {
     const int oct = (int)(((uint64_t)k * magic) >> 32), rem = k - oct * per;
     const int cg = rem >> 3, pix = oct * 8 + (rem & 7);
@@ -401,31 +364,15 @@ __device__ void stage_tile(const LayerArgs& a, const Smem& L, int t, int tr,
     uint4* d = reinterpret_cast<uint4*>(buf + cg * L.plane + pix * 16);
     const int c0 = cg * 8;
     if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W || (c0 < a.cin0_pad && c0 >= a.in0_c)) {
-#pragma unroll
-      for (int p = 0; p < AP; ++p)
-        *reinterpret_cast<uint4*>(buf + p * L.tplane + cg * L.plane + pix * 16) =
-            make_uint4(0u, 0u, 0u, 0u);
+      *d = make_uint4(0u, 0u, 0u, 0u);
       continue;
     }
     const size_t pixel = ((size_t)ti.b * a.H + gy) * a.W + gx;
-    if constexpr (F32) {
-      float v[8];
-      if (c0 >= a.cin0_pad)
-        load_f8(static_cast<const float*>(a.aux), pixel, a.aux_stride, a.aux_off,
-                c0 - a.cin0_pad, a.aux_c, aux_vec, v);
-      else if (a.upsample)
-        load_up8<true>(a, ti.b, gy, gx, c0, in0_vec, v);
-      else
-        in0_f8<true>(a, pixel, c0, in0_vec, v);
-      uint4 hi, lo;
-      split8(v, hi, lo);
-      *d = hi;
-      *reinterpret_cast<uint4*>(buf + L.tplane + cg * L.plane + pix * 16) = lo;
-    } else if (c0 < a.cin0_pad) {
+    if (c0 < a.cin0_pad) {
       const bf16* in0 = static_cast<const bf16*>(a.in0);
       if (a.upsample) {
         float v[8];
-        load_up8<false>(a, ti.b, gy, gx, c0, in0_vec, v);
+        load_up8(a, ti.b, gy, gx, c0, in0_vec, v);
         *d = pack8(v);
       } else if (in0_vec) {
         wg::cp_async16(d, in0 + pixel * a.in0_stride + a.in0_off + c0);
@@ -512,58 +459,6 @@ __device__ __forceinline__ void store_band_bf16(const LayerArgs& a, const TileId
   }
 }
 
-// the staged fp32 band [TRW][64][N] of tile ti to out and pooled (fp32)
-template <int N, int TRW>
-__device__ __forceinline__ void store_band_f32(const LayerArgs& a, const TileIdx& ti,
-                                               const float* band, int t128) {
-  constexpr int C4 = N / 4;
-  float* out = static_cast<float*>(a.out);
-  float* pooled = static_cast<float*>(a.pooled);
-  if (out != nullptr) {
-    if (a.cout == N) {
-      for (int it = t128; it < TRW * TW * C4; it += 128) {
-        const int pix = it / C4, q = it - pix * C4;
-        const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
-        if (gy >= a.H || gx >= a.W) continue;
-        *reinterpret_cast<float4*>(out + (((size_t)ti.b * a.H + gy) * a.W + gx) * N + q * 4) =
-            *reinterpret_cast<const float4*>(band + pix * N + q * 4);
-      }
-    } else {
-      for (int it = t128; it < TRW * TW * a.cout; it += 128) {
-        const int pix = it / a.cout, c = it - pix * a.cout;
-        const int gy = ti.y0 + pix / TW, gx = ti.x0 + pix % TW;
-        if (gy >= a.H || gx >= a.W) continue;
-        out[(((size_t)ti.b * a.H + gy) * a.W + gx) * a.cout + c] = band[pix * N + c];
-      }
-    }
-  }
-  if (pooled != nullptr) {
-    const int h2 = a.H >> 1, w2 = a.W >> 1;
-    const int c4 = a.cout == N ? C4 : a.cout;  // 4-channel groups, or single channels
-    for (int it = t128; it < (TRW / 2) * (TW / 2) * c4; it += 128) {
-      const int q = it % c4, pq = it / c4;
-      const int py = pq / (TW / 2), px = pq % (TW / 2);
-      const int gy2 = (ti.y0 >> 1) + py, gx2 = (ti.x0 >> 1) + px;
-      if (gy2 >= h2 || gx2 >= w2) continue;
-      const size_t o = (((size_t)ti.b * h2 + gy2) * w2 + gx2) * a.cout;
-      if (a.cout == N) {
-        const float* s0 = band + ((2 * py) * TW + 2 * px) * N + q * 4;
-        float4 m = *reinterpret_cast<const float4*>(s0);
-        const int others[3] = {N, TW * N, TW * N + N};
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float4 v = *reinterpret_cast<const float4*>(s0 + others[k]);
-          m = make_float4(fmaxf(m.x, v.x), fmaxf(m.y, v.y), fmaxf(m.z, v.z), fmaxf(m.w, v.w));
-        }
-        *reinterpret_cast<float4*>(pooled + o + q * 4) = m;
-      } else {
-        const float* s0 = band + ((2 * py) * TW + 2 * px) * N + q;
-        pooled[o + q] = fmaxf(fmaxf(s0[0], s0[N]), fmaxf(s0[TW * N], s0[TW * N + N]));
-      }
-    }
-  }
-}
-
 template <int N>
 __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
   if constexpr (N == 16) wg::wgmma_ss_n16(d, da, db, acc);
@@ -573,15 +468,15 @@ __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da, uint64_t db,
 
 // N = cout_pad; TRW = tile rows of a warpgroup (one m64 accumulator each);
 // MODE (a template parameter: a branch between the wgmma makes ptxas
-// serialize them) picks the products and the band dtype.  Each warpgroup
+// serialize them) picks the products and whether the weights stream.  Each warpgroup
 // walks its own tiles in its own shared-memory region, so one warpgroup's
 // staging and epilogue overlap another's products; a streamed layer runs
 // one warpgroup a CTA.
 template <int N, int TRW, int MODE>
 __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr bool F32 = mode_f32(MODE), STREAM = mode_stream(MODE);
-  constexpr int WP = w_planes(MODE), NP = n_products(MODE);
+  constexpr bool STREAM = mode_stream(MODE);
+  constexpr int WP = w_planes(MODE);
   constexpr int NACC = N / 2, C8 = N / 8;
   const int nwg = blockDim.x >> 7;
   const int cin_tot = a.cin0_pad + a.aux_c;  // a multiple of 16
@@ -606,7 +501,7 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
     for (int i = tid * 16; i < wbytes; i += blockDim.x * 16)
       wg::cp_async16(smem + L.w + i, reinterpret_cast<const unsigned char*>(a.w) + i);
   }
-  if (t0 < ntiles) stage_tile<MODE>(a, L, t0, TRW, buf, t128);
+  if (t0 < ntiles) stage_tile(a, L, t0, TRW, buf, t128);
   wg::cp_async_commit();
   wg::cp_async_wait<0>();
   wg::fence_async_smem();
@@ -668,14 +563,13 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
           const int accumulate = (tap + kc) > 0;
           const uint32_t wo = kc * N * 32;
           const uint32_t ak = a_tap + 2 * kc * L.plane;
-          // the mode's products (tile plane, weight plane), each over the rows
+          // the mode's products (the tile by weight plane p), each over the rows
 #pragma unroll
-          for (int p = 0; p < NP; ++p) {
-            const uint64_t db = wg::desc(wh + prod_b(MODE, p) * wstride + wo, N * 16, 128);
-            const uint32_t ap = ak + prod_a(MODE, p) * L.tplane;
+          for (int p = 0; p < WP; ++p) {
+            const uint64_t db = wg::desc(wh + p * wstride + wo, N * 16, 128);
 #pragma unroll
             for (int r = 0; r < TRW; ++r) {
-              const uint64_t da = wg::desc(ap + r * L.cols_in * 16, L.plane, 128);
+              const uint64_t da = wg::desc(ak + r * L.cols_in * 16, L.plane, 128);
               mma<N>(acc[r], da, db, p == 0 ? accumulate : 1);
             }
           }
@@ -716,12 +610,8 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
           }
-          if constexpr (F32)
-            *reinterpret_cast<float2*>(reinterpret_cast<float*>(buf) + (r * TW + m) * N + c) =
-                make_float2(v0, v1);
-          else
-            *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(buf) + (r * TW + m) * N + c) =
-                wg::pack_bf16x2(v0, v1);
+          *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(buf) + (r * TW + m) * N + c) =
+              wg::pack_bf16x2(v0, v1);
           const int gx = ti.x0 + m;
           if (a.state != nullptr && gy < a.H && gx < a.W && c < a.cout) {
             float* st = a.state + (((size_t)ti.b * a.H + gy) * a.W + gx) * a.state_stride +
@@ -742,12 +632,9 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
 
     // ---- band and pool from the staged band: 16-byte stores where the
     // layer's channels fill N
-    if constexpr (F32)
-      store_band_f32<N, TRW>(a, ti, reinterpret_cast<const float*>(buf), t128);
-    else
-      store_band_bf16<N, TRW>(a, ti, reinterpret_cast<const bf16*>(buf), t128);
+    store_band_bf16<N, TRW>(a, ti, reinterpret_cast<const bf16*>(buf), t128);
     wg::bar_warpgroup(g);  // the band is out: stage the next tile
-    if (t + stride < ntiles) stage_tile<MODE>(a, L, t + stride, TRW, buf, t128);
+    if (t + stride < ntiles) stage_tile(a, L, t + stride, TRW, buf, t128);
     wg::cp_async_commit();
     PHASE_CLOCK(ph[2] += clock64() - c0; ++nt;)  // phase 2: epilogue and staging
   }
@@ -755,28 +642,34 @@ __global__ void __launch_bounds__(384) conv_layer_kernel(const LayerArgs a) {
   wg::cp_async_wait<0>();
 }
 
-// ------------------------------------------------------------ HIGHEST mode
-// rvdd_tpu's band_dtype=float32, mxu_precision='highest' with fp32 weights,
-// warp-specialized (see the source note): warpgroup 2, the producer,
-// stages each tile's fp32 input (a streamed layer: a channel slab at a
-// time, and each tap of the slab's weights) into a ring of two regions a
-// step ahead, with TMA where the input allows; warpgroups 0 and 1, the
-// consumers, take 32 columns of the 2-row tile each, load each k16 step's
-// fp32 A values from the region, split them into hi, mid and lo fragments
-// in registers and issue six register-A wgmma.
+// ------------------------------------------------------- fp32-band modes
+// rvdd_tpu's band_dtype=float32 at mxu_precision='high' (bf16_3x) or
+// 'highest' (fp32 weights), warp-specialized (see the source note):
+// warpgroup 2, the producer, stages each tile's fp32 input (a streamed
+// layer: a channel slab at a time, and each tap of the slab's weights)
+// into a ring of two regions a step ahead, with TMA where the input allows;
+// warpgroups 0 and 1, the consumers, take 32 columns of the 2-row tile
+// each, load each k16 step's fp32 A values from the region, split them in
+// registers into WP bf16 fragments (hi, lo; or hi, mid, lo) and issue the
+// numerics' register-A wgmma on as many weight planes.  WP, a template
+// parameter, is the numerics: 2 for bf16_3x, 3 for HIGHEST.
 
-namespace hx {
+namespace f32b {
 
 constexpr int TR = 2;                  // output rows of a tile (TW = 64 columns)
 constexpr int NCONS = 256;             // consumer threads: warpgroups 0 and 1
 constexpr int NTHREADS = NCONS + 128;  // and the producer, warpgroup 2
-constexpr int NW = 4;                  // weight stages of a streamed layer
 // registers a thread after setmaxnreg (168 at launch): the producer's
 // register path batches U = 4 items of 16-byte loads (at 88 it spilled 260
-// bytes in the streamed form); a consumer holds two accumulators (48), a
-// tap's fragments double-buffered (72) and the bias (12)
-constexpr int PROD_REGS = 104, CONS_REGS = 200;
-static_assert(PROD_REGS * 128 + CONS_REGS * NCONS <= 168 * NTHREADS, "the launch's registers");
+// bytes in the streamed form; at 104 the bf16_3x one spilled 8 with N =
+// 16); a HIGHEST consumer holds two accumulators (48), a tap's fragments
+// double-buffered (72) and the bias (12), a bf16_3x one an accumulator
+// (24), its fragments (48) and the bias, so its producer has 16 more
+__host__ __device__ constexpr int prod_regs(int wp) { return wp == 3 ? 104 : 120; }
+__host__ __device__ constexpr int cons_regs(int wp) { return wp == 3 ? 200 : 192; }
+static_assert(prod_regs(3) * 128 + cons_regs(3) * NCONS <= 168 * NTHREADS &&
+                  prod_regs(2) * 128 + cons_regs(2) * NCONS <= 168 * NTHREADS,
+              "the launch's registers");
 // the forms of the body: weights resident beside two tile regions; weights
 // streamed a tap of a channel slab at a time; an upsample layer's weights
 // resident beside one region and two windows of its half-res input
@@ -789,18 +682,19 @@ constexpr int SRC_ROWS = 3, SRC_COLS = 36;  // the half-res window of a 2-row ti
 // products that read it are done: named barriers (0 is __syncthreads) of
 // all NTHREADS threads.  BAR_JOIN: all NTHREADS threads, around an upsample
 // layer's tile, which they interpolate together into its one region.
+constexpr int NW = 4;  // weight stages of a streamed layer
 constexpr int BAR_REMPTY = 1, BAR_WEMPTY = 3, BAR_JOIN = BAR_WEMPTY + NW;
 static_assert(BAR_JOIN < 16, "16 named barriers");
 // the mbarriers: regions, weight stages, source windows
 constexpr int MB_REGION = 0, MB_WEIGHT = 2, MB_SRC = MB_WEIGHT + NW, MB_COUNT = MB_SRC + 2;
 
 // The shared memory of a launch: the weights at 0 (resident: all taps of
-// the three planes; streamed: NW stages of one tap of one slab, three
-// planes each), one or two regions of one slab of a tile's input, fp32 as
+// the wp planes; streamed: NW stages of one tap of one slab, wp planes
+// each), one or two regions of one slab of a tile's input, fp32 as
 // [slab_c / 8][rows_in][cols_in][8] (a TMA box per 8-channel group), an
 // upsample layer's two source windows [SRC_ROWS][SRC_COLS][c] (one TMA box), and
 // the FULL mbarriers.  A resident layer's slab is its whole input.  The
-// mirror is ops/cuda/conv_chain.py:highest_layout.
+// mirror is ops/cuda/conv_chain.py:fp32_layout.
 struct Layout {
   int slab_c;                   // input channels a region holds
   int rows_in, cols_in, plane;  // region geometry; plane = bytes of one 8-channel group
@@ -812,7 +706,7 @@ struct Layout {
   int total;
 };
 
-__host__ __device__ inline Layout layout(int ks, int cin_tot, int n, int form, int nslab) {
+__host__ __device__ inline Layout layout(int ks, int cin_tot, int n, int wp, int form, int nslab) {
   Layout L;
   const int halo = ks / 2;
   L.slab_c = cin_tot / nslab;
@@ -821,8 +715,8 @@ __host__ __device__ inline Layout layout(int ks, int cin_tot, int n, int form, i
   L.plane = L.rows_in * L.cols_in * 32;
   L.region = align128((L.slab_c / 8) * L.plane);
   L.nreg = form == UPSAMPLE ? 1 : 2;
-  L.wstage = L.slab_c * n * 2 * 3;
-  L.r0 = align128(form == STREAMED ? NW * L.wstage : ks * ks * cin_tot * n * 2 * 3);
+  L.wstage = L.slab_c * n * 2 * wp;
+  L.r0 = align128(form == STREAMED ? NW * L.wstage : ks * ks * cin_tot * n * 2 * wp);
   L.src = L.r0 + L.nreg * L.region;
   L.srcwin = form == UPSAMPLE ? SRC_ROWS * SRC_COLS * cin_tot * 4 : 0;
   L.bars = L.src + 2 * L.srcwin;
@@ -830,21 +724,22 @@ __host__ __device__ inline Layout layout(int ks, int cin_tot, int n, int form, i
   return L;
 }
 
-// The plan of a HIGHEST layer, a function of its shape: an upsample layer
+// The plan of a layer, a function of its shape and its wp: an upsample layer
 // whose input is whole 8-channel groups and no aux (upsample_tma) takes
 // the UPSAMPLE form where it fits; else the weights stay resident beside
 // the two regions where they fit (nslab 1), else they stream with the
 // fewest slabs (dividing the 16-channel groups) that fit; nslab 0: nothing
 // fits
-__host__ __device__ inline int plan_form(int ks, int cin_tot, int n, bool upsample_tma, int& form) {
+__host__ __device__ inline int plan_form(int ks, int cin_tot, int n, int wp, bool upsample_tma,
+                                         int& form) {
   form = UPSAMPLE;
-  if (upsample_tma && layout(ks, cin_tot, n, UPSAMPLE, 1).total <= SMEM_MAX) return 1;
+  if (upsample_tma && layout(ks, cin_tot, n, wp, UPSAMPLE, 1).total <= SMEM_MAX) return 1;
   form = RESIDENT;
-  if (layout(ks, cin_tot, n, RESIDENT, 1).total <= SMEM_MAX) return 1;
+  if (layout(ks, cin_tot, n, wp, RESIDENT, 1).total <= SMEM_MAX) return 1;
   form = STREAMED;
   const int g = cin_tot / 16;
   for (int ns = 2; ns <= g; ++ns)
-    if (g % ns == 0 && layout(ks, cin_tot, n, STREAMED, ns).total <= SMEM_MAX) return ns;
+    if (g % ns == 0 && layout(ks, cin_tot, n, wp, STREAMED, ns).total <= SMEM_MAX) return ns;
   return 0;
 }
 
@@ -864,7 +759,7 @@ __host__ __device__ inline bool tile_tma(const LayerArgs& a) {
 }
 
 // this CTA's tiles, t = blockIdx.x + i * gridDim.x for i < n (mirrored by
-// ops/cuda/conv_chain.py:highest_tiles)
+// ops/cuda/conv_chain.py:fp32_tiles)
 struct Sched {
   int n;
   __device__ explicit Sched(const LayerArgs& a) {
@@ -1046,11 +941,11 @@ __device__ void upsample_tile(const LayerArgs& a, const Layout& L, const TileIdx
 // slab's region (TMA: a box per 8-channel group, zeros filled outside the
 // image and past in0's channels; an UPSAMPLE layer: interpolated from its
 // source window, which TMA fetches a tile ahead; else stage_slab), then (a
-// STREAMED layer) its taps' weight stages (three bulk copies each).  It
+// STREAMED layer) its taps' weight stages (WP bulk copies each).  It
 // waits only for EMPTY slots and its own source windows.  Phase clocks
 // (slots 0-2): waiting for an EMPTY region or stage, staging the regions
 // (TMA: issuing), issuing the weight stages.
-template <int N, int FORM>
+template <int N, int FORM, int WP>
 __device__ void produce(const LayerArgs& a, const Layout& L, int nslab, unsigned char* smem,
                         const Sched& sc, const CUtensorMap* tin0, const CUtensorMap* taux,
                         bool tma) {
@@ -1125,8 +1020,8 @@ __device__ void produce(const LayerArgs& a, const Layout& L, int nslab, unsigned
               const unsigned char* src =
                   reinterpret_cast<const unsigned char*>(a.w) + (tap * cin_tot + s * L.slab_c) * N * 2;
               unsigned char* stage = smem + ws * L.wstage;
-              mbar_arrive_tx(&mb[MB_WEIGHT + ws], 3 * part);
-              for (int p = 0; p < 3; ++p)
+              mbar_arrive_tx(&mb[MB_WEIGHT + ws], WP * part);
+              for (int p = 0; p < WP; ++p)
                 bulk_load(stage + p * part, src + p * plane, part, &mb[MB_WEIGHT + ws]);
             }
             PHASE_CLOCK(ph[2] += clock64() - c0;)
@@ -1138,10 +1033,22 @@ __device__ void produce(const LayerArgs& a, const Layout& L, int nslab, unsigned
   PHASE_CLOCK(if (pt == 0) wg::phase_clocks_add_at(ph, 0, 0);)
 }
 
-// the six products of a k-step: (A plane, B plane) with planes hi 0, mid 1,
-// lo 2 (the three dropped ones are below 2^-24 of the product)
-__host__ __device__ constexpr int plane_a(int p) { return p == 2 || p == 4 ? 1 : p == 5 ? 2 : 0; }
-__host__ __device__ constexpr int plane_b(int p) { return p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0; }
+// the products of a k-step, (A plane, B plane) of product p: HIGHEST's
+// six with planes hi 0, mid 1, lo 2 (the three dropped ones are below
+// 2^-24 of the product), hi.hi into acc and the others into acc2;
+// bf16_3x's three with planes hi 0, lo 1, in the serial body's order
+// (hi.hi, lo.hi, hi.lo; lo.lo, about 2^-16 relative, is dropped as on the
+// TPU), all into acc
+__host__ __device__ constexpr int n_prod(int wp) { return wp == 3 ? 6 : 3; }
+__host__ __device__ constexpr int plane_a(int wp, int p) {
+  return wp == 3 ? (p == 2 || p == 4 ? 1 : p == 5 ? 2 : 0) : p == 1;
+}
+__host__ __device__ constexpr int plane_b(int wp, int p) {
+  return wp == 3 ? (p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0) : p == 2;
+}
+__host__ __device__ constexpr bool in_acc2(int wp, int p) { return wp == 3 && p > 0; }
+// whether product p is the first of a k-step into its accumulator
+__host__ __device__ constexpr bool first_in_acc(int wp, int p) { return p == 0 || (wp == 3 && p == 1); }
 
 // a pair of fp32 values as the bf16x2 A-fragment registers of their hi,
 // mid and lo planes, v = hi + mid + lo exactly: hi keeps the top 16 bits
@@ -1157,6 +1064,26 @@ __device__ __forceinline__ void split3x2(float x, float y, uint32_t& hi, uint32_
   mid = (rbx >> 16) | (rby & 0xffff0000u);
   lo = wg::pack_bf16x2(__fsub_rn(rx, __uint_as_float(rbx & 0xffff0000u)),
                        __fsub_rn(ry, __uint_as_float(rby & 0xffff0000u)));
+}
+
+// a pair of fp32 values as the bf16x2 A-fragment registers of their hi
+// and lo planes, v = hi + lo: hi keeps the top 16 bits (mantissa mask,
+// exact in bf16), lo = bf16(v - hi) rounded to nearest even; the
+// wrapper's split_weight
+__device__ __forceinline__ void split2x2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const uint32_t bx = __float_as_uint(x), by = __float_as_uint(y);
+  hi = (bx >> 16) | (by & 0xffff0000u);
+  lo = wg::pack_bf16x2(__fsub_rn(x, __uint_as_float(bx & 0xffff0000u)),
+                       __fsub_rn(y, __uint_as_float(by & 0xffff0000u)));
+}
+
+// v's WP fragments: f[0][r] hi, then (lo) or (mid, lo)
+template <int WP>
+__device__ __forceinline__ void split_pair(float2 v, uint32_t (&f)[WP][4], int r) {
+  if constexpr (WP == 3)
+    split3x2(v.x, v.y, f[0][r], f[1][r], f[2][r]);
+  else
+    split2x2(v.x, v.y, f[0][r], f[1][r]);
 }
 
 template <int N>
@@ -1177,10 +1104,10 @@ struct KPos {
 // (h, 32 c + 8 w + g), so a thread holds a pixel and the one below it).
 // Each k16 step loads the thread's 8 fp32 values (channels 2q, 2q + 1, 2q
 // + 8, 2q + 9 of both pixels; a warp reads 256 contiguous bytes a load)
-// and splits them into hi, mid and lo fragments; the products are six
-// wgmma a step, hi.hi into acc and the five small ones into acc2, issued a
-// tap (three steps, 18 wgmma) a group where a slab is 48 channels and a
-// step a group otherwise.  The fragments are double-buffered: group g + 1
+// and splits them into WP fragments; the products are the numerics'
+// (n_prod: six wgmma a step, or three), issued a tap (three steps: 18 or 9
+// wgmma) a group where a slab is 48 channels and a step a group
+// otherwise.  The fragments are double-buffered: group g + 1
 // is loaded and split while group g's products run (wait<1>; with more
 // groups in flight ptxas gave the lo fragments of consecutive steps one
 // register quad).  A weight stage is released (EMPTY) once the products of
@@ -1192,7 +1119,7 @@ struct KPos {
 // thread, the one beside it in lane ^ 4).  Phase clocks (slots 3-5):
 // waiting for FULL regions and stages (and interpolating), the products,
 // the epilogue.
-template <int N, int FORM>
+template <int N, int FORM, int WP>
 __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned char* smem,
                         const Sched& sc) {
   constexpr int NACC = N / 2, C8 = N / 8;
@@ -1229,8 +1156,8 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
 #pragma unroll 1
   for (int i = 0; i < sc.n; ++i) {
     PHASE_CLOCK(t0 = clock64(); tw = 0;)
-    float acc[NACC], acc2[NACC];
-    uint32_t fa[3][4], fb[3][4];
+    float acc[NACC], acc2[NACC];  // acc2: HIGHEST's small products
+    uint32_t fa[WP][4], fb[WP][4];
     int j = 0;  // k16 steps of the tile issued
 #pragma unroll 1
     for (int s = 0; s < nslab; ++s) {
@@ -1238,18 +1165,27 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
       const unsigned char* region = rbase + slot * L.region;
       KPos cur{0, 0, 0, 0};
       int k = 0, last = 0;  // steps of the slab issued; what the step in flight frees
-      const auto load_split = [&](uint32_t(&f)[3][4]) {
+      const auto load_split = [&](uint32_t(&f)[WP][4]) {
         const unsigned char* b = region + 2 * cur.kc * L.plane + (cur.dy * L.cols_in + cur.dx) * 32;
         const float2 v0 = *reinterpret_cast<const float2*>(b);
         const float2 v1 = *reinterpret_cast<const float2*>(b + row1);
         const float2 v2 = *reinterpret_cast<const float2*>(b + L.plane);
         const float2 v3 = *reinterpret_cast<const float2*>(b + L.plane + row1);
-        split3x2(v0.x, v0.y, f[0][0], f[1][0], f[2][0]);
-        split3x2(v1.x, v1.y, f[0][1], f[1][1], f[2][1]);
-        split3x2(v2.x, v2.y, f[0][2], f[1][2], f[2][2]);
-        split3x2(v3.x, v3.y, f[0][3], f[1][3], f[2][3]);
+        split_pair<WP>(v0, f, 0);
+        split_pair<WP>(v1, f, 1);
+        split_pair<WP>(v2, f, 2);
+        split_pair<WP>(v3, f, 3);
       };
-      const auto issue = [&](const uint32_t(&f)[3][4]) {
+      // product p of a step from fragments f and weight descriptor d0
+      const auto product = [&](int p, const uint32_t(&f)[WP][4], uint64_t d0, int first) {
+        const uint64_t db = d0 + ((plane_b(WP, p) * wplane) >> 4);
+        const int scale_d = first_in_acc(WP, p) ? first : 1;
+        if (in_acc2(WP, p))
+          mma_rs<N>(acc2, f[plane_a(WP, p)], db, scale_d);
+        else
+          mma_rs<N>(acc, f[plane_a(WP, p)], db, scale_d);
+      };
+      const auto issue = [&](const uint32_t(&f)[WP][4]) {
         const uint32_t wb =
             w_base + (STREAM ? ((wi0 + cur.tap) % NW) * L.wstage + cur.kc * N * 32
                              : (cur.tap * cin_tot + s * L.slab_c + cur.kc * 16) * N * 2);
@@ -1257,25 +1193,18 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
         const int first = j > 0;                        // 0: the product starts its accumulator
         wg::fence();
 #pragma unroll
-        for (int p = 0; p < 6; ++p) {
-          const uint64_t db = d0 + ((plane_b(p) * wplane) >> 4);
-          if (p == 0)
-            mma_rs<N>(acc, f[plane_a(p)], db, first);
-          else
-            mma_rs<N>(acc2, f[plane_a(p)], db, p == 1 ? first : 1);
-        }
+        for (int p = 0; p < n_prod(WP); ++p) product(p, f, d0, first);
         wg::commit();
       };
       // step k of the slab from fc; then step k + 1's fragments into fn,
       // once step k - 1 (which read fn) is done
-      const auto step = [&](uint32_t(&fc)[3][4], uint32_t(&fn)[3][4]) {
+      const auto step = [&](uint32_t(&fc)[WP][4], uint32_t(&fn)[WP][4]) {
         const int wi = wi0 + cur.tap;
         const int frees = STREAM && cur.kc == ksl - 1 && wi + NW < nw ? 1 + wi % NW : 0;
         issue(fc);
         wg::wait<1>();
-        wg::fence_regs(fn[0]);
-        wg::fence_regs(fn[1]);
-        wg::fence_regs(fn[2]);
+#pragma unroll
+        for (int pl = 0; pl < WP; ++pl) wg::fence_regs(fn[pl]);
         release_w(last);
         last = frees;
         ++j;
@@ -1303,16 +1232,16 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
         wait_full(MB_REGION + slot, (si >> 1) & 1);
       }
       if (STREAM) wait_full(MB_WEIGHT + wi0 % NW, (wi0 / NW) & 1);
-      if (ksl == 3) {  // a 48-channel slab: a tap's three steps (18 wgmma) a group
-        uint32_t ga[3][3][4], gb[3][3][4];  // [step][plane][register]
-        const auto load_tap = [&](uint32_t(&f)[3][3][4]) {
+      if (ksl == 3) {  // a 48-channel slab: a tap's three steps a group
+        uint32_t ga[3][WP][4], gb[3][WP][4];  // [step][plane][register]
+        const auto load_tap = [&](uint32_t(&f)[3][WP][4]) {
 #pragma unroll
           for (int kc = 0; kc < 3; ++kc) {
             cur.kc = kc;
             load_split(f[kc]);
           }
         };
-        const auto issue_tap = [&](const uint32_t(&f)[3][3][4]) {
+        const auto issue_tap = [&](const uint32_t(&f)[3][WP][4]) {
           const uint32_t wb = w_base + (STREAM ? ((wi0 + cur.tap) % NW) * L.wstage
                                                : (cur.tap * cin_tot + s * L.slab_c) * N * 2);
           wg::fence();
@@ -1321,19 +1250,13 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
             const uint64_t d0 = wg::desc(wb + kc * N * 32, N * 16, 128);
             const int first = j + kc > 0;
 #pragma unroll
-            for (int p = 0; p < 6; ++p) {
-              const uint64_t db = d0 + ((plane_b(p) * wplane) >> 4);
-              if (p == 0)
-                mma_rs<N>(acc, f[kc][plane_a(p)], db, first);
-              else
-                mma_rs<N>(acc2, f[kc][plane_a(p)], db, p == 1 ? first : 1);
-            }
+            for (int p = 0; p < n_prod(WP); ++p) product(p, f[kc], d0, first);
           }
           wg::commit();
         };
         // tap t from fc; then tap t + 1's fragments into fn, once tap t - 1
         // (which read fn) is done
-        const auto step_tap = [&](uint32_t(&fc)[3][3][4], uint32_t(&fn)[3][3][4]) {
+        const auto step_tap = [&](uint32_t(&fc)[3][WP][4], uint32_t(&fn)[3][WP][4]) {
           const int wi = wi0 + cur.tap;
           const int frees = STREAM && wi + NW < nw ? 1 + wi % NW : 0;
           issue_tap(fc);
@@ -1341,7 +1264,7 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
 #pragma unroll
           for (int kc = 0; kc < 3; ++kc)
 #pragma unroll
-            for (int pl = 0; pl < 3; ++pl) wg::fence_regs(fn[kc][pl]);
+            for (int pl = 0; pl < WP; ++pl) wg::fence_regs(fn[kc][pl]);
           release_w(last);
           last = frees;
           j += 3;
@@ -1367,7 +1290,7 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
 #pragma unroll
         for (int kc = 0; kc < 3; ++kc)
 #pragma unroll
-          for (int pl = 0; pl < 3; ++pl) {
+          for (int pl = 0; pl < WP; ++pl) {
             wg::fence_regs(ga[kc][pl]);
             wg::fence_regs(gb[kc][pl]);
           }
@@ -1389,7 +1312,7 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
       // drain: the slab's products are done; its stages and region are free
       wg::wait<0>();
 #pragma unroll
-      for (int pl = 0; pl < 3; ++pl) {
+      for (int pl = 0; pl < WP; ++pl) {
         wg::fence_regs(fa[pl]);
         wg::fence_regs(fb[pl]);
       }
@@ -1400,11 +1323,11 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
         wg::bar_arrive(BAR_REMPTY + slot, NTHREADS);
     }
     wg::fence_regs(acc);
-    wg::fence_regs(acc2);
+    if constexpr (WP == 3) wg::fence_regs(acc2);
     PHASE_CLOCK(const long long t1 = clock64(); ph[0] += tw; ph[1] += t1 - t0 - tw;)
 
-    // ---- epilogue from registers: v = hi.hi + the small products + bias,
-    // act; band, state, pool
+    // ---- epilogue from registers: v = the products (HIGHEST: hi.hi + the
+    // small ones) + bias, act; band, state, pool
     const TileIdx ti = tile_idx(a, sc.tile(i), TR);
     const int gx = ti.x0 + col;
     float res[NACC];
@@ -1413,7 +1336,9 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int x = 4 * j8 + e;
-        const float v = acc[x] + acc2[x] + bias[j8][e & 1];
+        float v = acc[x];
+        if constexpr (WP == 3) v += acc2[x];
+        v += bias[j8][e & 1];
         res[x] = a.relu ? fmaxf(v, 0.f) : v;
       }
     const bool st_vec = (a.state_stride % 2 == 0) && (a.state_off % 2 == 0);
@@ -1475,19 +1400,20 @@ __device__ void consume(const LayerArgs& a, const Layout& L, int nslab, unsigned
   PHASE_CLOCK(if (tid == 0) wg::phase_clocks_add_at(ph, 3, nt);)
 }
 
-// One HIGHEST layer (N = cout_pad; FORM: resident, streamed in nslab
-// slabs, or upsample; tma: the tile staged with the tensor maps tin0 and
-// taux, an upsample layer's source window with tin0): a resident layer's
-// weights once per CTA and the FULL mbarriers, then the producer and the
-// two consumers, each in its own branch to the end
-template <int N, int FORM>
+// One fp32-band layer (N = cout_pad; FORM: resident, streamed in nslab
+// slabs, or upsample; WP: the numerics, 2 bf16_3x or 3 HIGHEST; tma: the
+// tile staged with the tensor maps tin0 and taux, an upsample layer's
+// source window with tin0): a resident layer's weights once per CTA and the
+// FULL mbarriers, then the producer and the two consumers, each in its own
+// branch to the end
+template <int N, int FORM, int WP>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    highest_kernel(const __grid_constant__ LayerArgs a, const __grid_constant__ CUtensorMap tin0,
-                   const __grid_constant__ CUtensorMap taux, int nslab, int tma) {
+    fp32_band_kernel(const __grid_constant__ LayerArgs a, const __grid_constant__ CUtensorMap tin0,
+                     const __grid_constant__ CUtensorMap taux, int nslab, int tma) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(a.ks, a.cin0_pad + a.aux_c, N, FORM, nslab);
+  const Layout L = layout(a.ks, a.cin0_pad + a.aux_c, N, WP, FORM, nslab);
   if constexpr (FORM != STREAMED) {
-    const int wbytes = a.ks * a.ks * (a.cin0_pad + a.aux_c) * N * 2 * 3;
+    const int wbytes = a.ks * a.ks * (a.cin0_pad + a.aux_c) * N * 2 * WP;
     for (int i = threadIdx.x * 16; i < wbytes; i += NTHREADS * 16)
       wg::cp_async16(smem + i, reinterpret_cast<const unsigned char*>(a.w) + i);
     wg::cp_async_commit();
@@ -1502,11 +1428,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   __syncthreads();
   const Sched sc(a);
   if (threadIdx.x >= NCONS) {
-    wg::setmaxnreg_dec<PROD_REGS>();
-    produce<N, FORM>(a, L, nslab, smem, sc, &tin0, &taux, tma != 0);
+    wg::setmaxnreg_dec<prod_regs(WP)>();
+    produce<N, FORM, WP>(a, L, nslab, smem, sc, &tin0, &taux, tma != 0);
   } else {
-    wg::setmaxnreg_inc<CONS_REGS>();
-    consume<N, FORM>(a, L, nslab, smem, sc);
+    wg::setmaxnreg_inc<cons_regs(WP)>();
+    consume<N, FORM, WP>(a, L, nslab, smem, sc);
   }
 }
 
@@ -1549,9 +1475,9 @@ bool encode(CUtensorMap* m, const void* base, int c, int inner, int stride, int 
 }
 
 // one launch of min(tiles, n_cta) CTAs; n_cta <= 0: one CTA an SM
-template <int N, int FORM>
+template <int N, int FORM, int WP>
 cudaError_t launch(const LayerArgs& a, int nslab, int n_cta, cudaStream_t s) {
-  const Layout L = layout(a.ks, a.cin0_pad + a.aux_c, N, FORM, nslab);
+  const Layout L = layout(a.ks, a.cin0_pad + a.aux_c, N, WP, FORM, nslab);
   CUtensorMap tin0{}, taux{};
   bool ok = true;
   const bool tma = FORM == UPSAMPLE || tile_tma(a);
@@ -1564,7 +1490,7 @@ cudaError_t launch(const LayerArgs& a, int nslab, int n_cta, cudaStream_t s) {
          (a.aux_c == 0 || encode(&taux, a.aux, a.aux_c, 8, a.aux_stride, a.aux_off, a.B, a.H, a.W,
                                  L.rows_in, L.cols_in));
   if (!ok) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(highest_kernel<N, FORM>,
+  cudaError_t e = cudaFuncSetAttribute(fp32_band_kernel<N, FORM, WP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   int dev = 0, sms = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
@@ -1573,11 +1499,11 @@ cudaError_t launch(const LayerArgs& a, int nslab, int n_cta, cudaStream_t s) {
   if (n_cta <= 0) n_cta = sms;
   const long long ntiles = (long long)((a.W + TW - 1) / TW) * ((a.H + TR - 1) / TR) * a.B;
   const int grid = (int)(ntiles < n_cta ? ntiles : n_cta);
-  highest_kernel<N, FORM><<<grid, NTHREADS, L.total, s>>>(a, tin0, taux, nslab, tma ? 1 : 0);
+  fp32_band_kernel<N, FORM, WP><<<grid, NTHREADS, L.total, s>>>(a, tin0, taux, nslab, tma ? 1 : 0);
   return cudaGetLastError();
 }
 
-}  // namespace hx
+}  // namespace f32b
 
 // the configurations of conv_layer_kernel in order of preference: the first
 // whose shared memory fits is launched (a streamed layer takes one
@@ -1618,28 +1544,31 @@ Config pick(const LayerArgs& a, int n, int mode) {
 struct Plan {
   int mode;
   Config c;   // {0, 0}: nothing fits
-  int nslab;  // HX, HX_STREAM, HX_UP: input channel slabs of a tile (1: weights resident)
+  int nslab;  // the fp32-band modes: input channel slabs of a tile (1: weights resident)
   int smem;   // bytes of shared memory a CTA
 };
 
 // a layer's mode and configuration, a function of its shape and its
 // numerics alone.  The bf16 numerics keep the weights resident (split ones
-// too); the fp32-band and fp32-weight numerics keep them resident where a
-// configuration fits and stream them a tap at a time otherwise (the
-// layers with K = 864); HIGHEST runs the warp-specialized body (hx::slabs)
+// too); the fp32-weight numerics keep them resident where a configuration
+// fits and stream them a tap at a time otherwise (the layers with K =
+// 864); the fp32-band numerics run the warp-specialized body (f32b::plan_form)
 Plan plan(const LayerArgs& a, int n, int prec) {
   const int cin_tot = a.cin0_pad + a.aux_c;
-  if (prec == P_HIGHEST) {
+  if (prec == P_HIGH || prec == P_HIGHEST) {
+    const int wp = prec == P_HIGHEST ? 3 : 2;
     int form;
-    const int ns = hx::plan_form(a.ks, cin_tot, n, hx::upsample_tma(a), form);
-    if (ns == 0) return Plan{HX, Config{0, 0}, 0, 0};
-    const int m = form == hx::UPSAMPLE ? HX_UP : form == hx::STREAMED ? HX_STREAM : HX;
-    return Plan{m, Config{hx::TR, hx::NTHREADS / 128}, ns,
-                hx::layout(a.ks, cin_tot, n, form, ns).total};
+    const int ns = f32b::plan_form(a.ks, cin_tot, n, wp, f32b::upsample_tma(a), form);
+    const int m = form == f32b::UPSAMPLE   ? (wp == 3 ? HX_UP : HIGH_UP)
+                  : form == f32b::STREAMED ? (wp == 3 ? HX_STREAM : HIGH_STREAM)
+                                         : (wp == 3 ? HX : HIGH);
+    if (ns == 0) return Plan{m, Config{0, 0}, 0, 0};
+    return Plan{m, Config{f32b::TR, f32b::NTHREADS / 128}, ns,
+                f32b::layout(a.ks, cin_tot, n, wp, form, ns).total};
   }
-  int m = prec == P_BF16_SPLIT ? BF16_SPLIT : prec == P_HIGH ? F32_3X : prec == P_W32 ? W32 : BF16;
+  int m = prec == P_BF16_SPLIT ? BF16_SPLIT : prec == P_W32 ? W32 : BF16;
   Config c = pick(a, n, m);
-  if (c.nwg == 0 && (m == F32_3X || m == W32)) c = pick(a, n, ++m);
+  if (c.nwg == 0 && m == W32) c = pick(a, n, ++m);
   return Plan{m, c, 0, c.nwg ? smem_layout(a.ks, cin_tot, n, m, c).total : 0};
 }
 
@@ -1655,11 +1584,12 @@ cudaError_t launch_plan(const LayerArgs& a, Plan p, int n_cta, cudaStream_t s) {
   switch (p.mode) {
     case BF16: return launch_mode<N, BF16>(a, p.c, n_cta, s);
     case BF16_SPLIT: return launch_mode<N, BF16_SPLIT>(a, p.c, n_cta, s);
-    case F32_3X: return launch_mode<N, F32_3X>(a, p.c, n_cta, s);
-    case F32_3X_STREAM: return launch_mode<N, F32_3X_STREAM>(a, p.c, n_cta, s);
-    case HX: return hx::launch<N, hx::RESIDENT>(a, p.nslab, n_cta, s);
-    case HX_STREAM: return hx::launch<N, hx::STREAMED>(a, p.nslab, n_cta, s);
-    case HX_UP: return hx::launch<N, hx::UPSAMPLE>(a, p.nslab, n_cta, s);
+    case HIGH: return f32b::launch<N, f32b::RESIDENT, 2>(a, p.nslab, n_cta, s);
+    case HIGH_STREAM: return f32b::launch<N, f32b::STREAMED, 2>(a, p.nslab, n_cta, s);
+    case HIGH_UP: return f32b::launch<N, f32b::UPSAMPLE, 2>(a, p.nslab, n_cta, s);
+    case HX: return f32b::launch<N, f32b::RESIDENT, 3>(a, p.nslab, n_cta, s);
+    case HX_STREAM: return f32b::launch<N, f32b::STREAMED, 3>(a, p.nslab, n_cta, s);
+    case HX_UP: return f32b::launch<N, f32b::UPSAMPLE, 3>(a, p.nslab, n_cta, s);
     case W32: return launch_mode<N, W32>(a, p.c, n_cta, s);
     default: return launch_mode<N, W32_STREAM>(a, p.c, n_cta, s);
   }
@@ -1746,13 +1676,13 @@ int rvdd_conv_layer(const void* in0, int in0_c, int in0_stride, int in0_off,
 // its input is upsampled, and is cin_tot fp32 channels with no aux) in the
 // numerics prec, as rvdd_conv_layer makes it: out[0] the mode (enum Mode:
 // 0 bf16, 1 bf16 with split weights, 2 and 3 fp32 bands with bf16_3x
-// products, 4 and 5 fp32 bands with HIGHEST products (the warp-specialized
-// body), 6 and 7 bf16 bands with fp32 weights, the weights resident in the
-// first of each pair and streamed in the second; 8 HIGHEST's upsample
-// form), out[1] the tile rows,
-// out[2] the warpgroups a CTA, out[3] the shared memory a CTA, out[4] the
-// HIGHEST body's input channel slabs a tile (0 in the other modes), out[5]
-// its weight stages (0 when resident).  Returns a cudaError_t as int:
+// products and 4 and 5 with HIGHEST products (the warp-specialized body),
+// 6 and 7 bf16 bands with fp32 weights, the weights resident in the first
+// of each pair and streamed in the second; 8 HIGHEST's and 9 bf16_3x's
+// upsample form), out[1] the tile rows, out[2] the warpgroups a CTA,
+// out[3] the shared memory a CTA, out[4] the fp32-band body's input
+// channel slabs a tile (0 in the other modes), out[5] its weight stages (0
+// when resident).  Returns a cudaError_t as int:
 // cudaErrorInvalidValue for a shape the kernel does not take or that fits
 // no configuration.
 int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int prec, int upsample, int* out) {
@@ -1769,7 +1699,7 @@ int rvdd_conv_layer_plan(int ks, int cin_tot, int cout_pad, int prec, int upsamp
   out[2] = p.c.nwg;
   out[3] = p.smem;
   out[4] = p.nslab;
-  out[5] = p.mode == HX_STREAM ? hx::NW : 0;
+  out[5] = p.mode == HX_STREAM || p.mode == HIGH_STREAM ? f32b::NW : 0;
   return 0;
 }
 

@@ -15,7 +15,7 @@ What bounds it on the H100 is operations (~1.07 TFLOP a 1080p frame,
 ms in the HIGHEST mode, which count three and six bf16 products a MAC);
 see the kernel's source note for what its design (wgmma with the packed
 weights resident in shared memory, or streamed a tap at a time; in the
-HIGHEST mode a producer warpgroup staging the next fp32 tile while two
+fp32-band modes a producer warpgroup staging the next fp32 tile while two
 consumer warpgroups split the current one in registers) does about it.
 
 A chain runs in one of four numerics (``Chain.mode``), fixed when it is
@@ -28,9 +28,10 @@ packed:
 * ``high``, fp32 bands (``pack_chain(..., band_fp32=True)``; rvdd_tpu's
   ``band_dtype=float32, mxu_precision='high'``): inputs, bands and outputs
   are fp32, every layer's weights are split, and each layer's input is
-  split the same way (hi by the mantissa mask, lo = bf16(a - hi)), so a
-  product is w_hi a_hi + w_hi a_lo + w_lo a_hi summed in fp32 (the manual
-  bf16_3x of conv_pallas.py:306-327);
+  split the same way (hi by the mantissa mask, lo = bf16(a - hi); the
+  kernel does it in registers, a k16 step at a time), so a product is
+  w_hi a_hi + w_hi a_lo + w_lo a_hi summed in fp32 (the manual bf16_3x of
+  conv_pallas.py:306-327);
 * ``highest``, fp32 bands and fp32 weights (``band_fp32=True,
   mxu_precision='highest'``; rvdd_tpu's 'accurate', conv_pallas.py:288-304):
   the kernel splits the weights and each layer's input into three bf16
@@ -355,49 +356,54 @@ def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
 
 
 #: the kernel's launch modes, as rvdd_conv_layer_plan numbers them (enum
-#: Mode): the 'high', 'highest' and 'w32' chains keep a layer's weights
-#: resident where they fit beside its tile, and stream them otherwise; the
-#: 'highest' ones run the warp-specialized body (see highest_plan), whose
-#: upsample layers have a form of their own
-PLAN_MODES = ("bf16", "bf16 split", "fp32 resident", "fp32 streamed",
+#: Mode): the 'w32' chains keep a layer's weights resident where they fit
+#: beside its tile, and stream them otherwise; the 'high' and 'highest'
+#: ones run the warp-specialized body (see fp32_plan), whose upsample
+#: layers have a form of their own
+PLAN_MODES = ("bf16", "bf16 split", "high resident", "high streamed",
               "highest resident", "highest streamed", "w32 resident", "w32 streamed",
-              "highest upsample")
+              "highest upsample", "high upsample")
 
 #: shared memory a CTA may have on the H100
 SMEM_MAX = 232448
-#: the 'highest' body's geometry (csrc/conv_chain.cu, namespace hx): tiles
-#: of 2 rows x 64 columns, a CTA of two consumer warpgroups and a producer,
-#: a streamed layer's ring of weight stages, and an upsample layer's window
-#: of its half-res input (rows x columns)
-HX_ROWS, HX_COLS, HX_WARPGROUPS, HX_STAGES = 2, 64, 3, 4
-HX_SRC_ROWS, HX_SRC_COLS = 3, 36
+#: the fp32-band body's geometry (csrc/conv_chain.cu, namespace f32b):
+#: tiles of 2 rows x 64 columns, a CTA of two consumer warpgroups and a
+#: producer, a streamed layer's ring of weight stages, and an upsample
+#: layer's window of its half-res input (rows x columns)
+FP32_ROWS, FP32_COLS, FP32_WARPGROUPS, FP32_STAGES = 2, 64, 3, 4
+FP32_SRC_ROWS, FP32_SRC_COLS = 3, 36
+#: bf16 planes of the weights and of the split tile, by fp32-band mode
+FP32_PLANES = {"high": 2, "highest": 3}
 
 
 def _align128(n: int) -> int:
     return (n + 127) & ~127
 
 
-def highest_layout(ks: int, cin_tot: int, cout_pad: int, form: str, nslab: int) -> dict:
-    """The 'highest' body's shared memory in one of its forms (mirror of
-    hx::layout): 'resident', 'streamed' or 'upsample' (an upsample layer's
+def fp32_layout(ks: int, cin_tot: int, cout_pad: int, mode: str, form: str, nslab: int) -> dict:
+    """The fp32-band body's shared memory in one of its forms (mirror of
+    f32b::layout) for a 'high' (two bf16 planes) or 'highest' (three)
+    layer: 'resident', 'streamed' or 'upsample' (an upsample layer's
     weights resident beside one region and two windows of its half-res
-    input).  The weights at 0 (resident: every tap of the three planes;
-    streamed: HX_STAGES stages of one tap of one channel slab, three planes
-    each), then one (upsample) or two regions of one slab of a tile's fp32
-    input, [slab / 8][rows + halo][64 + halo][8] (a TMA box per 8-channel
-    group), an upsample layer's two source windows
-    [HX_SRC_ROWS][HX_SRC_COLS][cin] (one TMA box), then 128 bytes of
-    mbarriers.  Offsets and sizes in bytes."""
+    input).  The weights at 0 (resident: every tap of the planes; streamed:
+    FP32_STAGES stages of one tap of one channel slab, the planes each),
+    then one (upsample) or two regions of one slab of a tile's fp32 input,
+    [slab / 8][rows + halo][64 + halo][8] (a TMA box per 8-channel group),
+    an upsample layer's two source windows [FP32_SRC_ROWS][FP32_SRC_COLS][cin]
+    (one TMA box), then 128 bytes of mbarriers.  Offsets and sizes in
+    bytes."""
+    planes = FP32_PLANES[mode]
     halo = ks // 2
     slab_c = cin_tot // nslab
-    plane = (HX_ROWS + 2 * halo) * (HX_COLS + 2 * halo) * 32
+    plane = (FP32_ROWS + 2 * halo) * (FP32_COLS + 2 * halo) * 32
     region = _align128(slab_c // 8 * plane)
     nreg = 1 if form == "upsample" else 2
-    stage = slab_c * cout_pad * 2 * 3
-    weights = HX_STAGES * stage if form == "streamed" else ks * ks * cin_tot * cout_pad * 2 * 3
+    stage = slab_c * cout_pad * 2 * planes
+    weights = (FP32_STAGES * stage if form == "streamed"
+               else ks * ks * cin_tot * cout_pad * 2 * planes)
     r0 = _align128(weights)
     src = r0 + nreg * region
-    window = HX_SRC_ROWS * HX_SRC_COLS * cin_tot * 4 if form == "upsample" else 0
+    window = FP32_SRC_ROWS * FP32_SRC_COLS * cin_tot * 4 if form == "upsample" else 0
     bars = src + 2 * window
     return dict(slab_c=slab_c, weights=(0, weights), stage=stage if form == "streamed" else 0,
                 regions=tuple((r0 + k * region, region) for k in range(nreg)),
@@ -405,33 +411,34 @@ def highest_layout(ks: int, cin_tot: int, cout_pad: int, form: str, nslab: int) 
                 barriers=(bars, 128), total=bars + 128)
 
 
-def highest_plan(ks: int, cin_tot: int, cout_pad: int, upsample: bool = False) -> dict:
-    """How the kernel runs a 'highest' layer of that shape (mirror of
-    hx::plan_form and plan; ``upsample``: its input is upsampled in the
-    kernel, and is cin_tot fp32 channels with no aux): a 3x3 upsample layer
-    takes the upsample form where it fits; else its weights stay resident
-    beside the two tile regions where that fits, else they stream with the
-    fewest channel slabs (dividing the 16-channel groups) that fit.  Returns
-    the keys of :func:`layer_plan` and the ``layout``
-    (:func:`highest_layout`); raises ValueError where nothing fits, as the
-    kernel's launch fails with cudaErrorInvalidValue."""
+def fp32_plan(ks: int, cin_tot: int, cout_pad: int, mode: str, upsample: bool = False) -> dict:
+    """How the kernel runs a 'high' or 'highest' layer of that shape
+    (mirror of f32b::plan_form and plan; ``upsample``: its input is
+    upsampled in the kernel, and is cin_tot fp32 channels with no aux): a
+    3x3 upsample layer takes the upsample form where it fits; else its
+    weights stay resident beside the two tile regions where that fits, else
+    they stream with the fewest channel slabs (dividing the 16-channel
+    groups) that fit.  Returns the keys of :func:`layer_plan` and the
+    ``layout`` (:func:`fp32_layout`); raises ValueError where nothing fits,
+    as the kernel's launch fails with cudaErrorInvalidValue."""
     groups = cin_tot // 16
     forms = [("upsample", 1)] if upsample and ks == 3 and cin_tot <= 256 else []
     forms += [("resident", 1)] + [("streamed", n) for n in range(2, groups + 1) if groups % n == 0]
     for form, nslab in forms:
-        lay = highest_layout(ks, cin_tot, cout_pad, form, nslab)
+        lay = fp32_layout(ks, cin_tot, cout_pad, mode, form, nslab)
         if lay["total"] <= SMEM_MAX:
-            return dict(mode=f"highest {form}", trw=HX_ROWS, nwg=HX_WARPGROUPS, smem=lay["total"],
-                        slabs=nslab, stages=HX_STAGES if form == "streamed" else 0, layout=lay)
-    raise ValueError(f"highest: no plan fits a {ks}x{ks} layer of {cin_tot} -> {cout_pad}")
+            return dict(mode=f"{mode} {form}", trw=FP32_ROWS, nwg=FP32_WARPGROUPS,
+                        smem=lay["total"], slabs=nslab,
+                        stages=FP32_STAGES if form == "streamed" else 0, layout=lay)
+    raise ValueError(f"{mode}: no plan fits a {ks}x{ks} layer of {cin_tot} -> {cout_pad}")
 
 
-def highest_tiles(b: int, h: int, w: int, n_cta: int = 132) -> list:
-    """The 'highest' body's schedule (mirror of hx::Sched): the grid is
+def fp32_tiles(b: int, h: int, w: int, n_cta: int = 132) -> list:
+    """The fp32-band body's schedule (mirror of f32b::Sched): the grid is
     min(tiles, n_cta) persistent CTAs, and CTA c takes tiles c, c + grid,
     c + 2 grid, ... in that order, of the b x ceil(h / 2) x ceil(w / 64)
     tiles numbered (image, row, column).  Returns each CTA's list."""
-    n = b * -(-h // HX_ROWS) * -(-w // HX_COLS)
+    n = b * -(-h // FP32_ROWS) * -(-w // FP32_COLS)
     grid = min(n, n_cta)
     return [list(range(c, n, grid)) for c in range(grid)]
 
@@ -445,8 +452,8 @@ def layer_plan(layer: ChainLayer, mode: str, upsample: bool = False) -> dict:
     """How the kernel runs ``layer`` in a chain of that mode (MODES), as
     its first layer on an upsampled input where ``upsample``: the launch
     mode (PLAN_MODES), tile rows, warpgroups a CTA, shared memory a CTA, and
-    the 'highest' body's channel slabs a tile and weight stages (0 in the
-    other modes; :func:`highest_plan` mirrors them).  The rule lives in the
+    fp32-band body's channel slabs a tile and weight stages (0 in the
+    other modes; :func:`fp32_plan` mirrors them).  The rule lives in the
     CUDA source, so this builds and loads the library (a machine with the
     CUDA toolkit); raises for a layer no configuration fits."""
     lib = _build.load_library("conv_chain")
@@ -502,7 +509,7 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
     in ``conv_chain.launches`` and by mode in
     ``conv_chain.mode_launches[chain.mode]``; CPU tensors run
     :func:`conv_chain_plain`.  ``n_cta`` (for tests) caps each launch's
-    grid, so that few CTAs walk many tiles (:func:`highest_tiles`).
+    grid, so that few CTAs walk many tiles (:func:`fp32_tiles`).
     """
     _check_dtype("x", x, chain)
     if aux is not None:

@@ -11,15 +11,15 @@ single launches at 1080p:
 
 - ``conv_chain``: a 3x3 48->48 layer (K = 432), and a chain of that layer
   and a 3x3 96->48 layer reading an aux tensor (K = 864), each with bf16
-  bands, in the fp32-band ('high') mode (where the K = 864 layer streams
-  its weights a tap at a time) and in the 'highest' mode, whose chain
-  streams the K = 864 layer's weights a tap of a channel slab at a time;
-  the 'highest' mode also on dec2's first layer (3x3 48->48 on the 2x
-  upsample of a half-res input), and the 'w32' mode on the K = 432 layer
-  as a control.  Phases of the serial body: waiting for the tile, the
-  products (with a streamed layer's per-tap waits), the epilogue with the
-  next tile's staging.  The 'highest' body is warp-specialized, so its
-  phases are by role: the producer's (waiting for an empty region or
+  bands, in the 'high' (bf16_3x) mode and in the 'highest' mode, whose
+  chains stream the K = 864 layer's weights a tap of a channel slab at a
+  time; both fp32-band modes also on dec2's first layer (3x3 48->48 on the
+  2x upsample of a half-res input), and the 'w32' mode on the K = 432
+  layer as a control.  Phases of the serial body (bf16, w32): waiting for
+  the tile, the products (with a streamed layer's per-tap waits), the
+  epilogue with the next tile's staging.  The fp32-band body ('high',
+  'highest') is warp-specialized, so its phases are by role: the
+  producer's (waiting for an empty region or
   weight stage, or an upsample layer's window; staging the tile: issuing
   its TMA copies, or its share of an upsample layer's interpolation;
   issuing the weight stages) and the consumers' (waiting for a full region
@@ -130,16 +130,16 @@ def phases(lib: ctypes.CDLL, fn) -> list:
 CNX_F32_PHASES = ("producer: wait for release", "stage or project new rows", "depthwise + LN",
                   "consumers: wait for LN", "products + GELU", "epilogue")
 #: conv_chain's phases: the serial body's, and the warp-specialized
-#: 'highest' body's by role (it fills slots 3-5, the serial body does not)
+#: fp32-band body's by role (it fills slots 3-5, the serial body does not)
 CONV_PHASES = ("wait for tile", "products", "epilogue + staging")
-CONV_HX_PHASES = ("producer: wait for empty", "stage tile", "issue weight stages",
+CONV_FP32_PHASES = ("producer: wait for empty", "stage tile", "issue weight stages",
                   "consumers: wait for full", "products + split", "epilogue")
 
 
 def conv_labels(ph: list) -> tuple:
     """The labels of a conv_chain case's phase slots: by role where the
     consumers' slots 3-5 were written."""
-    return CONV_HX_PHASES if any(ph[3:6]) else CONV_PHASES
+    return CONV_FP32_PHASES if any(ph[3:6]) else CONV_PHASES
 
 
 def conv_cases(dev, gen):
@@ -164,11 +164,13 @@ def conv_cases(dev, gen):
         ("3x3 48->48 (K=432)", lambda: cc.conv_chain(xb, k432), 2 * H * W * 432 * 48),
         ("3x3 48->48 then 3x3 96->48 with aux (K=432, 864)",
          lambda: cc.conv_chain(xb, k864, aux=auxb), 2 * H * W * 1296 * 48),
-        # fp32 bands: three bf16 products a MAC
-        ("fp32 bands, 3x3 48->48 (K=432, weights resident)",
+        # 'high' (fp32 bands, bf16_3x): three bf16 products a MAC
+        ("high, 3x3 48->48 (K=432, weights resident)",
          lambda: cc.conv_chain(x, f432), 3 * 2 * H * W * 432 * 48),
-        ("fp32 bands, 3x3 48->48 then 3x3 96->48 with aux (K=432 resident, 864 streamed)",
+        ("high, 3x3 48->48 then 3x3 96->48 with aux (K=432 resident, 864 streamed)",
          lambda: cc.conv_chain(x, f864, aux=aux), 3 * 2 * H * W * 1296 * 48),
+        ("high, dec2's first layer: 3x3 48->48 on the 2x upsample (K=432)",
+         lambda: cc.conv_chain(xh, f432, upsample_input=True), 3 * 2 * H * W * 432 * 48),
         # HIGHEST: six bf16 products a MAC
         ("highest, 3x3 48->48 (K=432, weights resident)",
          lambda: cc.conv_chain(x, h432), 6 * 2 * H * W * 432 * 48),

@@ -21,7 +21,7 @@ from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
     chain_mode,
     conv_chain,
     conv_chain_plain,
-    highest_plan,
+    fp32_plan,
     layer_plan,
     layer_weight_from_pack,
     pack_chain,
@@ -488,19 +488,22 @@ def test_conv_chain_fp32_kernel_matches_plain(cuda, name, shape):
 @pytest.mark.gpu
 def test_conv_chain_fp32_k864_layer_streams_its_weights(cuda):
     """The layer that reads 48 + 48 aux channels (K = 864) has 165,888
-    bytes of split weights: with its tile's hi and lo planes it fits no
-    resident configuration, so in the fp32 mode it streams its weights (one
-    warpgroup a CTA); in the bf16 modes it stays resident.  The other fp32
-    layers of the path stay resident.  Every plan fits the 232,448 bytes a
+    bytes of split weights: beside two 2-row fp32 tiles of its 96 channels
+    they do not fit, so in the 'high' mode it streams them a tap of a
+    48-channel slab at a time through four stages, in the warp-specialized
+    CTA of a producer and two consumer warpgroups; in the bf16 modes it
+    stays resident.  The other 'high' layers of the path keep their
+    weights resident beside two tiles.  Every plan fits the 232,448 bytes a
     block may have."""
     case = FP32_CARD_CASES["chain_A"]
     _, _, ws, bs = make_case(case)
     chain = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
                        case["acts"], case["ks"], band_fp32=True)
     plans = [layer_plan(layer, "high") for layer in chain.layers]
-    assert [p["mode"] for p in plans] == ["fp32 resident", "fp32 streamed",
-                                          "fp32 resident", "fp32 resident"], plans
-    assert plans[1]["nwg"] == 1 and all(p["smem"] <= 232448 for p in plans)
+    assert [p["mode"] for p in plans] == ["high resident", "high streamed",
+                                          "high resident", "high resident"], plans
+    assert all(p["nwg"] == 3 and p["trw"] == 2 and p["smem"] <= 232448 for p in plans)
+    assert (plans[1]["slabs"], plans[1]["stages"]) == (2, 4)
     assert layer_plan(chain.layers[1], "bf16")["mode"] == "bf16 split"
     bf = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
                     case["acts"], case["ks"])
@@ -636,37 +639,65 @@ HIGHEST_SHAPES = [(3, 16, 48, False), (3, 48, 48, False), (3, 48, 48, True), (3,
                          ids=["k{}_c{}_n{}_up{:d}".format(*s) for s in HIGHEST_SHAPES])
 def test_conv_chain_highest_plan_mirror_equals_layer_plan(cuda, shape):
     """The CUDA source's plan of a 'highest' layer (rvdd_conv_layer_plan)
-    equals its Python mirror, highest_plan: mode, tile rows, warpgroups,
+    equals its Python mirror, fp32_plan: mode, tile rows, warpgroups,
     shared memory, slabs and weight stages."""
+    check_plan_mirror(shape, "highest")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HIGHEST_SHAPES,
+                         ids=["k{}_c{}_n{}_up{:d}".format(*s) for s in HIGHEST_SHAPES])
+def test_conv_chain_high_plan_mirror_equals_layer_plan(cuda, shape):
+    """The same for a 'high' layer: two weight planes, so other layers than
+    in the 'highest' mode keep their weights resident."""
+    check_plan_mirror(shape, "high")
+
+
+def check_plan_mirror(shape, mode):
     ks, cin, n, up = shape
     layer = SimpleNamespace(ks=ks, cin0=cin, cin0_pad=cin, aux_c=0, cout_pad=n, split=False)
-    want = highest_plan(ks, cin, n, up)
-    assert layer_plan(layer, "highest", upsample=up) == {
+    want = fp32_plan(ks, cin, n, mode, up)
+    assert layer_plan(layer, mode, upsample=up) == {
         k: want[k] for k in ("mode", "trw", "nwg", "smem", "slabs", "stages")}
 
 
-def check_highest_kernel(device, name, h, w, batch, n_cta=None, seed=15):
-    """A FP32_CARD_CASES chain through the 'highest' kernel against its
-    plain version at that size, grid capped at ``n_cta`` CTAs: one launch a
-    layer, finite outputs within 2^-14 of max|out| and a mean of 1e-5 x std
-    (test_conv_chain_highest_kernel_matches_plain's bounds)."""
+#: max error over max|out| and mean error over std that a fp32-band chain
+#: is held to against its plain version (the bounds of
+#: test_conv_chain_fp32_kernel_matches_plain and
+#: test_conv_chain_highest_kernel_matches_plain)
+FP32_LIMITS = {"high": (2.0 ** -12, 1e-4), "highest": (2.0 ** -14, 1e-5)}
+
+
+def check_fp32_kernel(device, name, h, w, batch, mode, n_cta=None, seed=15):
+    """A FP32_CARD_CASES chain through the fp32-band kernel in ``mode``
+    against its plain version at that size, grid capped at ``n_cta`` CTAs:
+    one launch a layer, finite outputs within the mode's FP32_LIMITS."""
     case = FP32_CARD_CASES[name]
     x, aux, ws, bs = make_case(case, seed=seed, h=h, w=w, batch=batch, fp32=True)
-    before = conv_chain.mode_launches["highest"]
-    got = run_port(case, x, aux, ws, bs, device, mode="highest", n_cta=n_cta)
-    assert conv_chain.mode_launches["highest"] - before == len(case["ks"])
-    want = run_port(case, x, aux, ws, bs, device, plain=True, mode="highest")
+    before = conv_chain.mode_launches[mode]
+    got = run_port(case, x, aux, ws, bs, device, mode=mode, n_cta=n_cta)
+    assert conv_chain.mode_launches[mode] - before == len(case["ks"])
+    want = run_port(case, x, aux, ws, bs, device, plain=True, mode=mode)
+    max_rel, mean_rel = FP32_LIMITS[mode]
     for g, wv in zip(got, want):
         assert g.shape == wv.shape and g.shape[0] == batch
         assert np.isfinite(g).all()
         err = float(np.max(np.abs(g - wv)))
-        assert err <= 2.0 ** -14 * float(np.max(np.abs(wv))), (name, h, w, batch, n_cta, err)
-        assert np.mean(np.abs(g - wv)) < 1e-5 * np.std(wv), (name, h, w, batch, n_cta)
+        assert err <= max_rel * float(np.max(np.abs(wv))), (name, h, w, batch, n_cta, err)
+        assert np.mean(np.abs(g - wv)) < mean_rel * np.std(wv), (name, h, w, batch, n_cta)
 
 
 #: (rows, columns, batch): an image shorter than a tile (2 rows where the
 #: chain pools or upsamples), widths that are not multiples of 64
 HIGHEST_EDGES = [(1, 40, 1), (4, 100, 2), (6, 130, 1)]
+
+
+def _edge_shape(name, shape):
+    h, w, batch = shape
+    case = FP32_CARD_CASES[name]
+    if h % 2 and (case.get("upsample") or case.get("pool")):
+        h += 1
+    return h, w, batch
 
 
 @pytest.mark.gpu
@@ -676,11 +707,7 @@ def test_conv_chain_highest_kernel_ragged_edges(cuda, name, shape):
     """The warp-specialized 'highest' body at the edges of its tiles: an
     image shorter than one 2-row tile, widths of 40, 100 and 130 columns
     (a partial 64-column tile, its halo past the image), batch 2."""
-    h, w, batch = shape
-    case = FP32_CARD_CASES[name]
-    if h % 2 and (case.get("upsample") or case.get("pool")):
-        h += 1
-    check_highest_kernel(cuda, name, h, w, batch)
+    check_fp32_kernel(cuda, name, *_edge_shape(name, shape), "highest")
 
 
 @pytest.mark.gpu
@@ -689,8 +716,29 @@ def test_conv_chain_highest_kernel_ragged_edges(cuda, name, shape):
 def test_conv_chain_highest_kernel_small_grid(cuda, name, n_cta):
     """Grids of 1 and 5 persistent CTAs walk 88 tiles each launch, so the
     producer wraps both tile regions and every weight stage many times
-    (highest_tiles is the schedule)."""
-    check_highest_kernel(cuda, name, 22, 200, 2, n_cta=n_cta)
+    (fp32_tiles is the schedule)."""
+    check_fp32_kernel(cuda, name, 22, 200, 2, "highest", n_cta=n_cta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HIGHEST_EDGES, ids=["x".join(map(str, s)) for s in HIGHEST_EDGES])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_high_kernel_ragged_edges(cuda, name, shape):
+    """The warp-specialized body in the 'high' mode (two planes, three
+    products a k-step) at the edges of its tiles, as
+    test_conv_chain_highest_kernel_ragged_edges, within the 'high' limits
+    of test_conv_chain_fp32_kernel_matches_plain."""
+    check_fp32_kernel(cuda, name, *_edge_shape(name, shape), "high", seed=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cta", [1, 5])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_high_kernel_small_grid(cuda, name, n_cta):
+    """The 'high' mode on grids of 1 and 5 persistent CTAs (88 tiles each
+    launch): the regions and the streamed layer's weight stages wrap many
+    times."""
+    check_fp32_kernel(cuda, name, 22, 200, 2, "high", n_cta=n_cta, seed=16)
 
 
 @pytest.mark.gpu
