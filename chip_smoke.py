@@ -39,8 +39,8 @@
    this one's on the flagship's seven chains at 1080p, in both modes; with
    ``--conv-source DIR`` its conv_chain kernel against this one's on the
    chains of each ConvUNet packing at 1080p (every mode), where the
-   'bf16', 'highest' and 'w32' outputs must be bit-identical and the
-   'high' ones (this tree's changed mode, CONV_CHANGED) within its limits
+   'bf16', 'high' and 'highest' outputs must be bit-identical and the
+   'w32' ones (this tree's changed mode, CONV_CHANGED) within its limits
    of the other's.
 4. Runs the TV-L1 solver on a 540x960 pair with a known flow, once per
    preset, through the kernel route and the plain route: the two agree
@@ -960,7 +960,7 @@ CONV_PACKINGS = (("convunet+feat", "fast", CHAINS), ("convunet+feat+future", "au
                  ("convunet+feat+future", "accurate", CHAINS), ("convunet+feat", "wf32", CHAINS))
 #: the conv_chain mode this tree changed: --conv-source holds it to the
 #: other checkout's outputs within its limits, the others bit for bit
-CONV_CHANGED = "high"
+CONV_CHANGED = "w32"
 
 
 def compare_conv_source(src_dir: str, gen) -> None:
@@ -971,8 +971,8 @@ def compare_conv_source(src_dir: str, gen) -> None:
     through the C entry ``rvdd_conv_layer`` (28 arguments, the same in
     both), timed in turns (other, this, this, other) as check_conv_chains
     times them.  Prints max |other - this| per chain, which must be 0 in
-    the modes this tree did not change ('bf16', 'highest', 'w32'); the
-    changed mode ('high') is held to the other's outputs within its limits
+    the modes this tree did not change ('bf16', 'high', 'highest'); the
+    changed mode ('w32') is held to the other's outputs within its limits
     against the plain version (chain_tolerance).  The wrapper counts these
     launches; the main paths reset the counts before they run."""
     so = _build.BUILD_DIR / "libconv_chain_other.so"
@@ -1168,20 +1168,23 @@ def main_path(model: str, flow, n_frames: int, warm: int, precision: str) -> dic
     return launches
 
 
+#: conv_chain's warp-specialized numerics (ws::HighNum, ...) by mode
+WS_NUMERICS = {"HighNum": "high", "HighestNum": "highest", "W32Num": "w32"}
+
+
 def _kernel_label(text: str) -> str:
     """The instantiation a ptxas line names, where the name tells it:
     conv_chain's conv_layer_kernel<N, tile rows, mode (enum Mode)> and
-    fp32_band_kernel<N, form, numerics>, convnext_chain's block kernel by
+    ws_layer_kernel<N, form, numerics>, convnext_chain's block kernel by
     mode; else ''."""
     m = re.search(r"conv_layer_kernelILi(\d+)ELi(\d+)ELi(\d+)E", text)
-    mf = re.search(r"fp32_band_kernelILi(\d+)ELi(\d)ELi(\d)E", text)
+    mf = re.search(r"ws_layer_kernelILi(\d+)ELi(\d)E\w*?(HighestNum|HighNum|W32Num)", text)
     mc = re.search(r"convnext_block_kernelILb([01])E", text)
     if m:
         return f"conv_layer_kernel<{m[1]}, {m[2]}, {m[3]}>"
     if mf:
         forms = ("resident", "streamed", "upsample")
-        return (f"fp32_band_kernel<{mf[1]}, {forms[int(mf[2])]}, "
-                f"{'highest' if mf[3] == '3' else 'high'}>")
+        return f"ws_layer_kernel<{mf[1]}, {forms[int(mf[2])]}, {WS_NUMERICS[mf[3]]}>"
     if mc:
         return f"convnext_block_kernel<{'fp32' if mc[1] == '1' else 'bf16'}>"
     return ""

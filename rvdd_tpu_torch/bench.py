@@ -295,7 +295,7 @@ def _kernel_group(name: str, in_solver: bool) -> str:
         if "warp_bicubic_kernel" in name:
             return "tvl1 solver: warp_catmull_zero (CUDA)"
         return "tvl1 solver: plain torch"
-    if "conv_layer_kernel" in name or "fp32_band_kernel" in name:
+    if "conv_layer_kernel" in name or "ws_layer_kernel" in name:
         return "conv_chain (CUDA)"
     if "convnext_block_kernel" in name:
         return "convnext_chain (CUDA)"

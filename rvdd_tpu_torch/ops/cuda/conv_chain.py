@@ -14,9 +14,10 @@ What bounds it on the H100 is operations (~1.07 TFLOP a 1080p frame,
 ~1.0 ms at the bf16 tensor-core peak; ~3.0 ms with fp32 weights and ~5.9
 ms in the HIGHEST mode, which count three and six bf16 products a MAC);
 see the kernel's source note for what its design (wgmma with the packed
-weights resident in shared memory, or streamed a tap at a time; in the
-fp32-band modes a producer warpgroup staging the next fp32 tile while two
-consumer warpgroups split the current one in registers) does about it.
+weights resident in shared memory; in the 'high', 'highest' and 'w32'
+modes a producer warpgroup staging the next tile with TMA, and streaming
+the weights of the layers whose planes do not fit, while two consumer
+warpgroups issue register-A wgmma on the current one) does about it.
 
 A chain runs in one of four numerics (``Chain.mode``), fixed when it is
 packed:
@@ -41,9 +42,9 @@ packed:
   the plain fp32 conv;
 * ``w32``, bf16 bands and fp32 weights (``mxu_precision='highest',
   weight_fp32=True``; rvdd_tpu's 'wf32', conv_pallas.py:295-296): the
-  weights in three planes, three products a k-step, exact in the weights;
-  the plain version convolves the bf16-valued bands with the fp32 weights
-  in fp32.
+  weights in three planes, three products a k-step on one bf16 A
+  fragment, exact in the weights; the plain version convolves the
+  bf16-valued bands with the fp32 weights in fp32.
 
 The plain version repeats those rounding points with F.conv2d in fp32 and
 is what a CPU tensor runs.  The wrapper takes tensors of the chain's band
@@ -356,89 +357,108 @@ def conv_chain_plain(x, chain: Chain, *, aux=None, aux_channels=None, emit=(),
 
 
 #: the kernel's launch modes, as rvdd_conv_layer_plan numbers them (enum
-#: Mode): the 'w32' chains keep a layer's weights resident where they fit
-#: beside its tile, and stream them otherwise; the 'high' and 'highest'
-#: ones run the warp-specialized body (see fp32_plan), whose upsample
-#: layers have a form of their own
+#: Mode): the 'bf16' chains run the serial body; the 'high', 'highest' and
+#: 'w32' ones the warp-specialized body (see ws_plan), with each layer's
+#: weights resident beside its tile, streamed a tap of a channel slab at a
+#: time, or (an upsample layer) resident beside windows of its half-res input
 PLAN_MODES = ("bf16", "bf16 split", "high resident", "high streamed",
               "highest resident", "highest streamed", "w32 resident", "w32 streamed",
-              "highest upsample", "high upsample")
+              "highest upsample", "high upsample", "w32 upsample")
 
 #: shared memory a CTA may have on the H100
 SMEM_MAX = 232448
-#: the fp32-band body's geometry (csrc/conv_chain.cu, namespace f32b):
-#: tiles of 2 rows x 64 columns, a CTA of two consumer warpgroups and a
-#: producer, a streamed layer's ring of weight stages, and an upsample
-#: layer's window of its half-res input (rows x columns)
-FP32_ROWS, FP32_COLS, FP32_WARPGROUPS, FP32_STAGES = 2, 64, 3, 4
-FP32_SRC_ROWS, FP32_SRC_COLS = 3, 36
-#: bf16 planes of the weights and of the split tile, by fp32-band mode
-FP32_PLANES = {"high": 2, "highest": 3}
+#: the warp-specialized body's geometry (csrc/conv_chain.cu, namespace ws):
+#: tiles of 64 columns, a CTA of two consumer warpgroups and a producer, a
+#: streamed layer's ring of weight stages, and the columns of an upsample
+#: layer's window of its half-res input
+WS_COLS, WS_WARPGROUPS, WS_STAGES, WS_SRC_COLS = 64, 3, 4, 36
+#: its numerics by mode (ws::HighNum, HighestNum, W32Num): bytes of an
+#: 8-channel pixel group of the band (fp32 32, bf16 16), bf16 weight
+#: planes, output rows of a tile, and whether each consumer stages its
+#: band in shared memory for a TMA store
+WS_NUMERICS = {"high": (32, 2, 2, False), "highest": (32, 3, 2, False),
+               "w32": (16, 3, 4, True)}
+
+
+def ws_rows(mode: str) -> int:
+    """The output rows of a tile of the warp-specialized body in ``mode``."""
+    return WS_NUMERICS[mode][2]
+
+
+def ws_src_rows(rows: int) -> int:
+    """The half-res rows an upsample layer's tile of ``rows`` rows reads,
+    with its halo (ws::src_rows)."""
+    return rows // 2 + 2
 
 
 def _align128(n: int) -> int:
     return (n + 127) & ~127
 
 
-def fp32_layout(ks: int, cin_tot: int, cout_pad: int, mode: str, form: str, nslab: int) -> dict:
-    """The fp32-band body's shared memory in one of its forms (mirror of
-    f32b::layout) for a 'high' (two bf16 planes) or 'highest' (three)
-    layer: 'resident', 'streamed' or 'upsample' (an upsample layer's
-    weights resident beside one region and two windows of its half-res
-    input).  The weights at 0 (resident: every tap of the planes; streamed:
-    FP32_STAGES stages of one tap of one channel slab, the planes each),
-    then one (upsample) or two regions of one slab of a tile's fp32 input,
-    [slab / 8][rows + halo][64 + halo][8] (a TMA box per 8-channel group),
-    an upsample layer's two source windows [FP32_SRC_ROWS][FP32_SRC_COLS][cin]
-    (one TMA box), then 128 bytes of mbarriers.  Offsets and sizes in
-    bytes."""
-    planes = FP32_PLANES[mode]
+def ws_layout(ks: int, cin_tot: int, cout_pad: int, mode: str, form: str, nslab: int) -> dict:
+    """The warp-specialized body's shared memory in one of its forms
+    (mirror of ws::layout) for a layer in ``mode`` ('high': fp32 tile, two
+    weight planes; 'highest': fp32, three; 'w32': bf16 tile, three):
+    'resident', 'streamed' or 'upsample' (an upsample layer's weights
+    resident beside one region and two windows of its half-res input).  The
+    weights at 0 (resident: every tap of the planes; streamed: WS_STAGES
+    stages of one tap of one channel slab, the planes each), then one
+    (upsample) or two regions of one slab of a tile's input in the band
+    dtype, [slab / 8][rows + halo][64 + halo][8] (a TMA box per 8-channel
+    group, each at a 128-byte boundary), an upsample layer's two source windows
+    [ws_src_rows(rows)][WS_SRC_COLS][cin] (one TMA box), the two consumers'
+    staged bands [rows][32][cout_pad] in bf16 ('w32': a TMA store's box),
+    then 128 bytes of mbarriers.  Offsets and sizes in bytes."""
+    pg, planes, rows, staged = WS_NUMERICS[mode]
     halo = ks // 2
     slab_c = cin_tot // nslab
-    plane = (FP32_ROWS + 2 * halo) * (FP32_COLS + 2 * halo) * 32
+    plane = _align128((rows + 2 * halo) * (WS_COLS + 2 * halo) * pg)  # a TMA box at 128 B
     region = _align128(slab_c // 8 * plane)
     nreg = 1 if form == "upsample" else 2
     stage = slab_c * cout_pad * 2 * planes
-    weights = (FP32_STAGES * stage if form == "streamed"
+    weights = (WS_STAGES * stage if form == "streamed"
                else ks * ks * cin_tot * cout_pad * 2 * planes)
     r0 = _align128(weights)
     src = r0 + nreg * region
-    window = FP32_SRC_ROWS * FP32_SRC_COLS * cin_tot * 4 if form == "upsample" else 0
-    bars = src + 2 * window
+    window = ws_src_rows(rows) * WS_SRC_COLS * cin_tot * pg // 8 if form == "upsample" else 0
+    stg = src + 2 * window
+    band = rows * WS_COLS // 2 * cout_pad * 2 if staged else 0
+    bars = stg + 2 * band
     return dict(slab_c=slab_c, weights=(0, weights), stage=stage if form == "streamed" else 0,
                 regions=tuple((r0 + k * region, region) for k in range(nreg)),
                 windows=tuple((src + k * window, window) for k in range(2)) if window else (),
+                bands=tuple((stg + k * band, band) for k in range(2)) if band else (),
                 barriers=(bars, 128), total=bars + 128)
 
 
-def fp32_plan(ks: int, cin_tot: int, cout_pad: int, mode: str, upsample: bool = False) -> dict:
-    """How the kernel runs a 'high' or 'highest' layer of that shape
-    (mirror of f32b::plan_form and plan; ``upsample``: its input is
-    upsampled in the kernel, and is cin_tot fp32 channels with no aux): a
-    3x3 upsample layer takes the upsample form where it fits; else its
-    weights stay resident beside the two tile regions where that fits, else
-    they stream with the fewest channel slabs (dividing the 16-channel
-    groups) that fit.  Returns the keys of :func:`layer_plan` and the
-    ``layout`` (:func:`fp32_layout`); raises ValueError where nothing fits,
-    as the kernel's launch fails with cudaErrorInvalidValue."""
+def ws_plan(ks: int, cin_tot: int, cout_pad: int, mode: str, upsample: bool = False) -> dict:
+    """How the kernel runs a 'high', 'highest' or 'w32' layer of that shape
+    (mirror of ws::plan_form and ws_plan; ``upsample``: its input is
+    upsampled in the kernel, and is cin_tot channels with no aux): a 3x3
+    upsample layer takes the upsample form where it fits; else its weights
+    stay resident beside the two tile regions where that fits, else they
+    stream with the fewest channel slabs (dividing the 16-channel groups)
+    that fit.  Returns the keys of :func:`layer_plan` (``trw``: the tile
+    rows) and the ``layout`` (:func:`ws_layout`); raises ValueError where
+    nothing fits, as the kernel's launch fails with cudaErrorInvalidValue."""
     groups = cin_tot // 16
     forms = [("upsample", 1)] if upsample and ks == 3 and cin_tot <= 256 else []
     forms += [("resident", 1)] + [("streamed", n) for n in range(2, groups + 1) if groups % n == 0]
     for form, nslab in forms:
-        lay = fp32_layout(ks, cin_tot, cout_pad, mode, form, nslab)
+        lay = ws_layout(ks, cin_tot, cout_pad, mode, form, nslab)
         if lay["total"] <= SMEM_MAX:
-            return dict(mode=f"{mode} {form}", trw=FP32_ROWS, nwg=FP32_WARPGROUPS,
+            return dict(mode=f"{mode} {form}", trw=ws_rows(mode), nwg=WS_WARPGROUPS,
                         smem=lay["total"], slabs=nslab,
-                        stages=FP32_STAGES if form == "streamed" else 0, layout=lay)
+                        stages=WS_STAGES if form == "streamed" else 0, layout=lay)
     raise ValueError(f"{mode}: no plan fits a {ks}x{ks} layer of {cin_tot} -> {cout_pad}")
 
 
-def fp32_tiles(b: int, h: int, w: int, n_cta: int = 132) -> list:
-    """The fp32-band body's schedule (mirror of f32b::Sched): the grid is
-    min(tiles, n_cta) persistent CTAs, and CTA c takes tiles c, c + grid,
-    c + 2 grid, ... in that order, of the b x ceil(h / 2) x ceil(w / 64)
+def ws_tiles(b: int, h: int, w: int, rows: int, n_cta: int = 132) -> list:
+    """The warp-specialized body's schedule (mirror of ws::Sched): the grid
+    is min(tiles, n_cta) persistent CTAs, and CTA c takes tiles c, c + grid,
+    c + 2 grid, ... in that order, of the b x ceil(h / rows) x ceil(w / 64)
     tiles numbered (image, row, column).  Returns each CTA's list."""
-    n = b * -(-h // FP32_ROWS) * -(-w // FP32_COLS)
+    n = b * -(-h // rows) * -(-w // WS_COLS)
     grid = min(n, n_cta)
     return [list(range(c, n, grid)) for c in range(grid)]
 
@@ -452,8 +472,8 @@ def layer_plan(layer: ChainLayer, mode: str, upsample: bool = False) -> dict:
     """How the kernel runs ``layer`` in a chain of that mode (MODES), as
     its first layer on an upsampled input where ``upsample``: the launch
     mode (PLAN_MODES), tile rows, warpgroups a CTA, shared memory a CTA, and
-    fp32-band body's channel slabs a tile and weight stages (0 in the
-    other modes; :func:`fp32_plan` mirrors them).  The rule lives in the
+    the warp-specialized body's channel slabs a tile and weight stages (0
+    on the serial body; :func:`ws_plan` mirrors them).  The rule lives in the
     CUDA source, so this builds and loads the library (a machine with the
     CUDA toolkit); raises for a layer no configuration fits."""
     lib = _build.load_library("conv_chain")
@@ -509,7 +529,7 @@ def conv_chain(x: torch.Tensor, chain: Chain, *, aux: Optional[torch.Tensor] = N
     in ``conv_chain.launches`` and by mode in
     ``conv_chain.mode_launches[chain.mode]``; CPU tensors run
     :func:`conv_chain_plain`.  ``n_cta`` (for tests) caps each launch's
-    grid, so that few CTAs walk many tiles (:func:`fp32_tiles`).
+    grid, so that few CTAs walk many tiles (:func:`ws_tiles`).
     """
     _check_dtype("x", x, chain)
     if aux is not None:

@@ -1,6 +1,6 @@
-"""conv_chain's 'high' mode on the CPU: the mirrors of the fp32-band body's
-launch plan (ops/cuda/conv_chain.py:fp32_plan) for every 'high' layer the
-main paths run, and of its persistent tile schedule (fp32_tiles) at the
+"""conv_chain's 'high' mode on the CPU: the mirrors of the warp-specialized
+body's launch plan (ops/cuda/conv_chain.py:ws_plan) for every 'high' layer
+the main paths run, and of its persistent tile schedule (ws_tiles) at the
 resolutions of those chains.
 
 The 'high' mode runs the warp-specialized body of the 'highest' mode with
@@ -17,16 +17,19 @@ torch = pytest.importorskip("torch")
 from rvdd_tpu_torch.bench import _kernel_group, make_model  # noqa: E402
 from rvdd_tpu_torch.models.fast_unet import CHAINS  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
-    FP32_COLS,
-    FP32_ROWS,
-    FP32_SRC_COLS,
-    FP32_SRC_ROWS,
-    FP32_STAGES,
     SMEM_MAX,
-    fp32_layout,
-    fp32_plan,
-    fp32_tiles,
+    WS_COLS,
+    WS_SRC_COLS,
+    WS_STAGES,
+    ws_layout,
+    ws_plan,
+    ws_rows,
+    ws_src_rows,
+    ws_tiles,
 )
+
+#: the tile rows of the 'high' mode
+ROWS = ws_rows("high")
 
 #: the packings with 'high' chains: convunet+feat+future's 'auto'
 #: (hybrid:glue+A+dec2: chains A and dec2) and the 'mixed' preset of both
@@ -65,10 +68,10 @@ def test_high_plan_fits_shared_memory(layers, packing):
     its size is the end of its mbarriers, and it runs the warp-specialized
     CTA of 2-row tiles."""
     for name, i, ks, cin, n, up in layers[packing]:
-        p = fp32_plan(ks, cin, n, "high", up)
+        p = ws_plan(ks, cin, n, "high", up)
         (o, b) = p["layout"]["barriers"]
         assert p["smem"] == p["layout"]["total"] == o + b <= SMEM_MAX, (name, i, p)
-        assert p["trw"] == FP32_ROWS and p["nwg"] == 3 and p["mode"].startswith("high ")
+        assert p["trw"] == ROWS and p["nwg"] == 3 and p["mode"].startswith("high ")
 
 
 @pytest.mark.parametrize("packing", PACKINGS, ids=["-".join(p) for p in PACKINGS])
@@ -79,7 +82,7 @@ def test_high_plan_buffers_are_disjoint(layers, packing):
     holds a slab of the tile's fp32 input with its halo, a window the
     half-res rows and columns a tile reads."""
     for name, i, ks, cin, n, up in layers[packing]:
-        p = fp32_plan(ks, cin, n, "high", up)
+        p = ws_plan(ks, cin, n, "high", up)
         lay = p["layout"]
         spans = sorted([lay["weights"], *lay["regions"], *lay["windows"], lay["barriers"]])
         for (o0, b0), (o1, _) in zip(spans, spans[1:]):
@@ -87,12 +90,12 @@ def test_high_plan_buffers_are_disjoint(layers, packing):
         assert all(o % 128 == 0 for o, _ in spans)
         halo = ks // 2
         assert lay["slab_c"] * p["slabs"] == cin
-        region = lay["slab_c"] // 8 * (FP32_ROWS + 2 * halo) * (FP32_COLS + 2 * halo) * 32
+        region = lay["slab_c"] // 8 * (ROWS + 2 * halo) * (WS_COLS + 2 * halo) * 32
         assert all(b >= region for _, b in lay["regions"])
-        assert all(b == FP32_SRC_ROWS * FP32_SRC_COLS * cin * 4 for _, b in lay["windows"])
+        assert all(b == ws_src_rows(ROWS) * WS_SRC_COLS * cin * 4 for _, b in lay["windows"])
         if p["stages"]:
-            assert lay["weights"][1] == FP32_STAGES * lay["stage"] == \
-                FP32_STAGES * lay["slab_c"] * n * 2 * 2
+            assert lay["weights"][1] == WS_STAGES * lay["stage"] == \
+                WS_STAGES * lay["slab_c"] * n * 2 * 2
         else:
             assert lay["weights"][1] == ks * ks * cin * n * 2 * 2
 
@@ -108,12 +111,12 @@ def test_high_plan_forms_of_the_main_path(layers, packing):
     48-channel slabs: 138,368.  The K = 144 and 1x1 layers are resident."""
     seen = set()
     for name, i, ks, cin, n, up in layers[packing]:
-        p, k = fp32_plan(ks, cin, n, "high", up), ks * ks * cin
+        p, k = ws_plan(ks, cin, n, "high", up), ks * ks * cin
         lay = p["layout"]
         seen.add((k, up))
         if k == 864:
             assert p["mode"] == "high streamed" and p["slabs"] == 2
-            assert p["stages"] == FP32_STAGES and lay["stage"] == 9216
+            assert p["stages"] == WS_STAGES and lay["stage"] == 9216
             assert p["smem"] == 138368
             continue
         assert p["slabs"] == 1 and p["stages"] == 0
@@ -135,13 +138,13 @@ def test_high_plan_budgets_beside_highest():
     slabs in both modes)."""
     for ks, cin, n, up in [(3, 48, 48, False), (3, 48, 48, True), (3, 96, 48, False),
                            (3, 16, 48, False), (1, 48, 16, False)]:
-        high, highest = fp32_plan(ks, cin, n, "high", up), fp32_plan(ks, cin, n, "highest", up)
+        high, highest = ws_plan(ks, cin, n, "high", up), ws_plan(ks, cin, n, "highest", up)
         assert high["mode"].split()[1] == highest["mode"].split()[1]
         w2, w3 = high["layout"]["weights"][1], highest["layout"]["weights"][1]
         assert 3 * w2 == 2 * w3 and high["smem"] < highest["smem"]
-    assert fp32_layout(3, 64, 48, "high", "resident", 1)["total"] > SMEM_MAX
-    assert fp32_plan(3, 64, 48, "high")["mode"] == "high streamed"
-    assert fp32_plan(3, 64, 48, "high")["slabs"] == 2
+    assert ws_layout(3, 64, 48, "high", "resident", 1)["total"] > SMEM_MAX
+    assert ws_plan(3, 64, 48, "high")["mode"] == "high streamed"
+    assert ws_plan(3, 64, 48, "high")["slabs"] == 2
 
 
 #: (batch, height, width): the 'high' chains at 1080p (A and dec2 at full
@@ -157,8 +160,8 @@ def test_high_tiles_cover_every_tile_once_in_order(res, n_cta):
     """Every tile of a 'high' layer is taken by exactly one CTA, each CTA's
     tiles ascend, and no CTA is left without a tile."""
     b, h, w = res
-    runs = fp32_tiles(b, h, w, n_cta)
-    n = b * -(-h // FP32_ROWS) * -(-w // FP32_COLS)
+    runs = ws_tiles(b, h, w, ROWS, n_cta)
+    n = b * -(-h // ROWS) * -(-w // WS_COLS)
     assert len(runs) == min(n, n_cta)
     assert sorted(t for r in runs for t in r) == list(range(n))
     assert all(r and r == sorted(r) for r in runs)
@@ -167,14 +170,16 @@ def test_high_tiles_cover_every_tile_once_in_order(res, n_cta):
 @pytest.mark.parametrize("res", RESOLUTIONS, ids=["x".join(map(str, r)) for r in RESOLUTIONS])
 def test_high_tiles_are_balanced(res):
     """On the H100's 132 SMs no CTA takes more than one tile above another."""
-    counts = [len(r) for r in fp32_tiles(*res)]
+    counts = [len(r) for r in ws_tiles(*res, ROWS)]
     assert max(counts) - min(counts) <= 1
 
 
 @pytest.mark.parametrize("form", [0, 1, 2], ids=["resident", "streamed", "upsample"])
 def test_bench_profile_groups_the_high_kernel(form):
-    """`bench --profile` counts the fp32-band body's 'high' launches
-    (fp32_band_kernel<N, form, 2>) under the conv_chain group."""
-    symbol = (f"void (anonymous namespace)::f32b::fp32_band_kernel<48, {form}, 2>("
-              "(anonymous namespace)::LayerArgs, CUtensorMap_st, CUtensorMap_st, int, int)")
+    """`bench --profile` counts the warp-specialized body's 'high' launches
+    (ws_layer_kernel<N, form, HighNum>) under the conv_chain group."""
+    symbol = (f"void (anonymous namespace)::ws::ws_layer_kernel<48, {form}, "
+              "(anonymous namespace)::ws::HighNum>("
+              "(anonymous namespace)::LayerArgs, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+              "int, int, int)")
     assert _kernel_group(symbol, in_solver=False) == "conv_chain (CUDA)"

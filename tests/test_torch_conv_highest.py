@@ -1,6 +1,6 @@
 """conv_chain's 'highest' body on the CPU: the mirrors of its launch plan
-(ops/cuda/conv_chain.py:fp32_plan, the shared memory of each layer the
-main path runs) and of its persistent tile schedule (fp32_tiles).
+(ops/cuda/conv_chain.py:ws_plan, the shared memory of each layer the
+main path runs) and of its persistent tile schedule (ws_tiles).
 
 The kernel itself runs only on the card; tests/test_torch_kernels.py holds
 its plan against these mirrors there (``gpu`` marker) and its outputs
@@ -16,16 +16,19 @@ torch = pytest.importorskip("torch")
 from rvdd_tpu_torch.bench import _kernel_group, make_model  # noqa: E402
 from rvdd_tpu_torch.models.fast_unet import CHAINS  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
-    FP32_COLS,
-    FP32_ROWS,
-    FP32_SRC_COLS,
-    FP32_SRC_ROWS,
-    FP32_STAGES,
     SMEM_MAX,
-    fp32_layout,
-    fp32_plan,
-    fp32_tiles,
+    WS_COLS,
+    WS_SRC_COLS,
+    WS_STAGES,
+    ws_layout,
+    ws_plan,
+    ws_rows,
+    ws_src_rows,
+    ws_tiles,
 )
+
+#: the tile rows of the 'highest' mode
+ROWS = ws_rows("highest")
 
 #: the packings whose layers the 'highest' body's plan must hold: the
 #: 'accurate' and 'wf32' presets of both ConvUNet models (the same layer
@@ -53,10 +56,10 @@ def test_highest_plan_fits_shared_memory(shapes, packing):
     """Every layer's plan fits the 232,448 bytes a block may have, and its
     size is the end of its mbarriers."""
     for name, i, ks, cin, n, up in shapes[packing]:
-        p = fp32_plan(ks, cin, n, "highest", up)
+        p = ws_plan(ks, cin, n, "highest", up)
         (o, b) = p["layout"]["barriers"]
         assert p["smem"] == p["layout"]["total"] == o + b <= SMEM_MAX, (name, i, p)
-        assert p["trw"] == FP32_ROWS and p["nwg"] == 3
+        assert p["trw"] == ROWS and p["nwg"] == 3
 
 
 @pytest.mark.parametrize("packing", PACKINGS, ids=["-".join(p) for p in PACKINGS])
@@ -67,7 +70,7 @@ def test_highest_plan_buffers_are_disjoint(shapes, packing):
     tile's fp32 input with its halo, a window the half-res rows and columns
     a tile reads, and the stages a tap of a slab in three planes."""
     for name, i, ks, cin, n, up in shapes[packing]:
-        p = fp32_plan(ks, cin, n, "highest", up)
+        p = ws_plan(ks, cin, n, "highest", up)
         lay = p["layout"]
         spans = sorted([lay["weights"], *lay["regions"], *lay["windows"], lay["barriers"]])
         for (o0, b0), (o1, _) in zip(spans, spans[1:]):
@@ -75,12 +78,12 @@ def test_highest_plan_buffers_are_disjoint(shapes, packing):
         assert all(o % 128 == 0 for o, _ in spans)
         halo = ks // 2
         assert lay["slab_c"] * p["slabs"] == cin
-        region = lay["slab_c"] // 8 * (FP32_ROWS + 2 * halo) * (FP32_COLS + 2 * halo) * 32
+        region = lay["slab_c"] // 8 * (ROWS + 2 * halo) * (WS_COLS + 2 * halo) * 32
         assert all(b >= region for _, b in lay["regions"])
-        assert all(b == FP32_SRC_ROWS * FP32_SRC_COLS * cin * 4 for _, b in lay["windows"])
+        assert all(b == ws_src_rows(ROWS) * WS_SRC_COLS * cin * 4 for _, b in lay["windows"])
         if p["stages"]:
-            assert lay["weights"][1] == FP32_STAGES * lay["stage"] == \
-                FP32_STAGES * lay["slab_c"] * n * 2 * 3
+            assert lay["weights"][1] == WS_STAGES * lay["stage"] == \
+                WS_STAGES * lay["slab_c"] * n * 2 * 3
         else:
             assert lay["weights"][1] == ks * ks * cin * n * 2 * 3
 
@@ -97,11 +100,11 @@ def test_highest_plan_k432_has_two_tile_buffers(shapes, packing):
     resident too."""
     seen = set()
     for name, i, ks, cin, n, up in shapes[packing]:
-        p, k = fp32_plan(ks, cin, n, "highest", up), ks * ks * cin
+        p, k = ws_plan(ks, cin, n, "highest", up), ks * ks * cin
         seen.add((k, up))
         if k == 864:
             assert p["mode"] == "highest streamed" and p["slabs"] == 2
-            assert p["stages"] == FP32_STAGES
+            assert p["stages"] == WS_STAGES
             continue
         assert p["slabs"] == 1 and p["stages"] == 0
         if up:
@@ -120,15 +123,15 @@ def test_highest_plan_streams_what_does_not_fit():
     """A layer too wide for resident weights streams with the fewest slabs
     that fit and divide its 16-channel groups: 64 channels in two, 192 in
     three, 97 groups (a prime) in slabs of one group."""
-    assert fp32_plan(3, 64, 48, "highest")["mode"] == "highest streamed"
-    assert fp32_layout(3, 64, 48, "highest", "resident", 1)["total"] > SMEM_MAX
-    assert fp32_plan(3, 64, 48, "highest")["slabs"] == 2
-    p = fp32_plan(3, 192, 48, "highest")
-    assert p["slabs"] == 3 and fp32_layout(3, 192, 48, "highest", "streamed", 2)["total"] > SMEM_MAX
-    assert fp32_plan(3, 16 * 97, 48, "highest")["slabs"] == 97
+    assert ws_plan(3, 64, 48, "highest")["mode"] == "highest streamed"
+    assert ws_layout(3, 64, 48, "highest", "resident", 1)["total"] > SMEM_MAX
+    assert ws_plan(3, 64, 48, "highest")["slabs"] == 2
+    p = ws_plan(3, 192, 48, "highest")
+    assert p["slabs"] == 3 and ws_layout(3, 192, 48, "highest", "streamed", 2)["total"] > SMEM_MAX
+    assert ws_plan(3, 16 * 97, 48, "highest")["slabs"] == 97
     # an upsample layer too wide for its form, and a 1x1 one, take the others
-    assert fp32_plan(3, 96, 48, "highest", upsample=True)["mode"] == "highest streamed"
-    assert fp32_plan(1, 48, 16, "highest", upsample=True)["mode"] == "highest resident"
+    assert ws_plan(3, 96, 48, "highest", upsample=True)["mode"] == "highest streamed"
+    assert ws_plan(1, 48, 16, "highest", upsample=True)["mode"] == "highest resident"
 
 
 #: (batch, height, width) of the layers at 1080p (A and dec2 at full
@@ -142,8 +145,8 @@ def test_highest_tiles_cover_every_tile_once_in_order(res, n_cta):
     """Every tile of the layer is taken by exactly one CTA, each CTA's
     tiles ascend, and no CTA is left without a tile."""
     b, h, w = res
-    runs = fp32_tiles(b, h, w, n_cta)
-    n = b * -(-h // FP32_ROWS) * -(-w // FP32_COLS)
+    runs = ws_tiles(b, h, w, ROWS, n_cta)
+    n = b * -(-h // ROWS) * -(-w // WS_COLS)
     assert len(runs) == min(n, n_cta)
     assert sorted(t for r in runs for t in r) == list(range(n))
     assert all(r and r == sorted(r) for r in runs)
@@ -153,14 +156,15 @@ def test_highest_tiles_cover_every_tile_once_in_order(res, n_cta):
 def test_highest_tiles_are_balanced(res):
     """On the H100's 132 SMs no CTA takes more than one tile above another
     (16,200 tiles at 1080p: 122 or 123 each)."""
-    counts = [len(r) for r in fp32_tiles(*res)]
+    counts = [len(r) for r in ws_tiles(*res, ROWS)]
     assert max(counts) - min(counts) <= 1
 
 
 @pytest.mark.parametrize("symbol", [
     "void (anonymous namespace)::conv_layer_kernel<48, 2, 6>((anonymous namespace)::LayerArgs)",
-    "void (anonymous namespace)::f32b::fp32_band_kernel<48, 1, 3>("
-    "(anonymous namespace)::LayerArgs, CUtensorMap_st, CUtensorMap_st, int, int)"])
+    "void (anonymous namespace)::ws::ws_layer_kernel<48, 1, (anonymous namespace)::ws::HighestNum>("
+    "(anonymous namespace)::LayerArgs, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+    "int, int, int)"])
 def test_bench_profile_groups_both_conv_chain_bodies(symbol):
     """`bench --profile` counts the serial body's launches and the
     'highest' body's under one conv_chain group."""

@@ -21,13 +21,14 @@ from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
     chain_mode,
     conv_chain,
     conv_chain_plain,
-    fp32_plan,
     layer_plan,
     layer_weight_from_pack,
     pack_chain,
     pack_kmajor,
     split3,
     unpack_kmajor,
+    ws_plan,
+    ws_rows,
 )
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import (  # noqa: E402
     warp_bicubic,
@@ -605,12 +606,11 @@ def test_conv_chain_w32_mean_bound_fails_bf16_weights(cuda, name):
 def test_conv_chain_fp32_weight_modes_stream_k864(cuda, mode):
     """With three weight planes a K = 864 layer's weights (248,832 bytes)
     exceed shared memory, so chain A's layer 1 streams them in both
-    fp32-weight modes: 'w32' a tap at a time in a one-warpgroup CTA,
-    'highest' a tap of a 48-channel slab at a time through four stages, in
-    its warp-specialized CTA of a producer and two consumer warpgroups.
-    The K = 144 and K = 432 layers keep them resident ('highest': beside
-    two 2-row fp32 tiles).  Every plan fits the 232,448 bytes a block may
-    have."""
+    fp32-weight modes, a tap of a 48-channel slab at a time through four
+    stages, in the warp-specialized CTA of a producer and two consumer
+    warpgroups ('highest': 2-row fp32 tiles; 'w32': 4-row bf16 tiles).
+    The K = 144 and K = 432 layers keep them resident beside two tiles.
+    Every plan fits the 232,448 bytes a block may have."""
     case = FP32_CARD_CASES["chain_A"]
     _, _, ws, bs = make_case(case)
     chain = pack_chain([torch.from_numpy(a) for a in ws], [torch.from_numpy(b) for b in bs],
@@ -619,12 +619,9 @@ def test_conv_chain_fp32_weight_modes_stream_k864(cuda, mode):
     assert [p["mode"] for p in plans] == [f"{mode} resident", f"{mode} streamed",
                                           f"{mode} resident", f"{mode} resident"], plans
     assert all(p["smem"] <= 232448 for p in plans)
-    if mode == "w32":
-        assert plans[1]["nwg"] == 1
-    else:
-        assert all(p["nwg"] == 3 and p["trw"] == 2 for p in plans)
-        assert (plans[1]["slabs"], plans[1]["stages"]) == (2, 4)
-        assert [p["slabs"] for p in plans] == [2 if i == 1 else 1 for i in range(4)]
+    assert all(p["nwg"] == 3 and p["trw"] == ws_rows(mode) for p in plans)
+    assert (plans[1]["slabs"], plans[1]["stages"]) == (2, 4)
+    assert [p["slabs"] for p in plans] == [2 if i == 1 else 1 for i in range(4)]
 
 
 #: the layer shapes of the main path, and wider ones: (ks, cin_tot,
@@ -639,7 +636,7 @@ HIGHEST_SHAPES = [(3, 16, 48, False), (3, 48, 48, False), (3, 48, 48, True), (3,
                          ids=["k{}_c{}_n{}_up{:d}".format(*s) for s in HIGHEST_SHAPES])
 def test_conv_chain_highest_plan_mirror_equals_layer_plan(cuda, shape):
     """The CUDA source's plan of a 'highest' layer (rvdd_conv_layer_plan)
-    equals its Python mirror, fp32_plan: mode, tile rows, warpgroups,
+    equals its Python mirror, ws_plan: mode, tile rows, warpgroups,
     shared memory, slabs and weight stages."""
     check_plan_mirror(shape, "highest")
 
@@ -653,27 +650,40 @@ def test_conv_chain_high_plan_mirror_equals_layer_plan(cuda, shape):
     check_plan_mirror(shape, "high")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HIGHEST_SHAPES,
+                         ids=["k{}_c{}_n{}_up{:d}".format(*s) for s in HIGHEST_SHAPES])
+def test_conv_chain_w32_plan_mirror_equals_layer_plan(cuda, shape):
+    """The same for a 'w32' layer: three weight planes beside 4-row bf16
+    tiles."""
+    check_plan_mirror(shape, "w32")
+
+
 def check_plan_mirror(shape, mode):
     ks, cin, n, up = shape
     layer = SimpleNamespace(ks=ks, cin0=cin, cin0_pad=cin, aux_c=0, cout_pad=n, split=False)
-    want = fp32_plan(ks, cin, n, mode, up)
+    want = ws_plan(ks, cin, n, mode, up)
     assert layer_plan(layer, mode, upsample=up) == {
         k: want[k] for k in ("mode", "trw", "nwg", "smem", "slabs", "stages")}
 
 
-#: max error over max|out| and mean error over std that a fp32-band chain
-#: is held to against its plain version (the bounds of
-#: test_conv_chain_fp32_kernel_matches_plain and
-#: test_conv_chain_highest_kernel_matches_plain)
-FP32_LIMITS = {"high": (2.0 ** -12, 1e-4), "highest": (2.0 ** -14, 1e-5)}
+#: max error over max|out| and mean error over std that a chain on the
+#: warp-specialized body is held to against its plain version (the bounds
+#: of test_conv_chain_fp32_kernel_matches_plain,
+#: test_conv_chain_highest_kernel_matches_plain and
+#: test_conv_chain_w32_kernel_matches_plain)
+FP32_LIMITS = {"high": (2.0 ** -12, 1e-4), "highest": (2.0 ** -14, 1e-5),
+               "w32": (2.0 ** -6, W32_MEAN)}
 
 
 def check_fp32_kernel(device, name, h, w, batch, mode, n_cta=None, seed=15):
-    """A FP32_CARD_CASES chain through the fp32-band kernel in ``mode``
-    against its plain version at that size, grid capped at ``n_cta`` CTAs:
-    one launch a layer, finite outputs within the mode's FP32_LIMITS."""
+    """A FP32_CARD_CASES chain through the warp-specialized kernel in
+    ``mode`` against its plain version at that size, grid capped at
+    ``n_cta`` CTAs: one launch a layer, finite outputs within the mode's
+    FP32_LIMITS (inputs of the chain's band dtype: fp32, or bf16 values in
+    'w32')."""
     case = FP32_CARD_CASES[name]
-    x, aux, ws, bs = make_case(case, seed=seed, h=h, w=w, batch=batch, fp32=True)
+    x, aux, ws, bs = make_case(case, seed=seed, h=h, w=w, batch=batch, fp32=mode != "w32")
     before = conv_chain.mode_launches[mode]
     got = run_port(case, x, aux, ws, bs, device, mode=mode, n_cta=n_cta)
     assert conv_chain.mode_launches[mode] - before == len(case["ks"])
@@ -716,7 +726,7 @@ def test_conv_chain_highest_kernel_ragged_edges(cuda, name, shape):
 def test_conv_chain_highest_kernel_small_grid(cuda, name, n_cta):
     """Grids of 1 and 5 persistent CTAs walk 88 tiles each launch, so the
     producer wraps both tile regions and every weight stage many times
-    (fp32_tiles is the schedule)."""
+    (ws_tiles is the schedule)."""
     check_fp32_kernel(cuda, name, 22, 200, 2, "highest", n_cta=n_cta)
 
 
@@ -739,6 +749,45 @@ def test_conv_chain_high_kernel_small_grid(cuda, name, n_cta):
     launch): the regions and the streamed layer's weight stages wrap many
     times."""
     check_fp32_kernel(cuda, name, 22, 200, 2, "high", n_cta=n_cta, seed=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HIGHEST_EDGES, ids=["x".join(map(str, s)) for s in HIGHEST_EDGES])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_w32_kernel_ragged_edges(cuda, name, shape):
+    """The warp-specialized body in the 'w32' mode (bf16 tile, three
+    weight planes, 4-row tiles) at the edges of its tiles, as
+    test_conv_chain_highest_kernel_ragged_edges, within the 'w32' limits of
+    test_conv_chain_w32_kernel_matches_plain."""
+    check_fp32_kernel(cuda, name, *_edge_shape(name, shape), "w32", seed=17)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cta", [1, 5])
+@pytest.mark.parametrize("name", list(FP32_CARD_CASES))
+def test_conv_chain_w32_kernel_small_grid(cuda, name, n_cta):
+    """The 'w32' mode on grids of 1 and 5 persistent CTAs (48 tiles each
+    launch): the regions, the streamed layer's weight stages and the
+    stores deferred under the next tile's products wrap many times."""
+    check_fp32_kernel(cuda, name, 22, 200, 2, "w32", n_cta=n_cta, seed=17)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [8, 4], ids=["tma", "registers"])
+def test_conv_chain_w32_aux_window_offsets(cuda, offset):
+    """Chain A in 'w32' reading its 48 aux channels from a 56-channel bf16
+    tensor: at offset 8 the window starts 16 bytes into a pixel, so the
+    producer stages it with TMA; at offset 4 (8 bytes) TMA cannot take it
+    and it goes through registers.  Both within the 'w32' limits."""
+    case = dict(FP32_CARD_CASES["chain_A"], aux=(56, offset, 48))
+    x, aux, ws, bs = make_case(case, seed=18, h=22, w=72, batch=2)
+    got = run_port(case, x, aux, ws, bs, cuda, mode="w32")
+    want = run_port(case, x, aux, ws, bs, cuda, plain=True, mode="w32")
+    max_rel, mean_rel = FP32_LIMITS["w32"]
+    for g, wv in zip(got, want):
+        assert g.shape == wv.shape and np.isfinite(g).all()
+        assert float(np.max(np.abs(g - wv))) <= max_rel * float(np.max(np.abs(wv))), offset
+        assert np.mean(np.abs(g - wv)) < mean_rel * np.std(wv), offset
 
 
 @pytest.mark.gpu
