@@ -75,7 +75,26 @@
    in another preset than 'fast' are also run under 'fast' and compared the
    same way: its max and mean errors must be below fast's at both steps
    (BEATS_FAST; 'wf32''s are printed only).
-6. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
+6. The ``serve`` phase drives the port's serving entry points through their
+   ``main(argv)``s, on the card: ``cli.generate_data`` writes a 1080p clip
+   of 7 frames at ISO 3200 (a moving sRGB texture,
+   tools/make_tiny_dataset.py:synth_video's 'rich' one, written as PNG by
+   the port) into
+   a temporary directory; ``cli.validate`` runs the repo's trained
+   convunet+feat net (trained-nets/, 48 filters, full width) four ways:
+   ``--net_impl fused`` per frame (its FlowCache computes the flows on the
+   card and persists them), ``--net_impl fused --val_scan``, and the
+   port's fp32 module path (``--net_impl xla``, TF32 off) in both
+   protocols; ``cli.score`` scores each output in sRGB.  It checks that
+   the fused PSNR is within 0.05 dB of the module path's (PARITY.md's
+   budget) in each protocol, that the denoised PSNR is at least 1 dB above
+   the noisy input's (Hamilton-Adams demosaicked) on the same frames, and
+   that PSNR.txt and SSIM.txt hold their averages; it prints the fps of
+   each run (host clock, synchronized; the flow solver's time taken out),
+   the flow seconds, the seconds of one pass of the per-frame dataset's
+   reads (TIFFs and cached flows) and of each score, and the kernels'
+   launches in each run, on one line.
+7. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
    the ``fp32_*`` ('high'), ``highest_*`` and ``w32_*`` times, bounds and
    errors of its other modes, the convnext_chain entry its fp32 mode's
    ``fp32_*``), the card line and,
@@ -93,13 +112,16 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -149,6 +171,12 @@ from rvdd_tpu_torch.ops.tvl1 import (  # noqa: E402
     tvl1_flow,
 )
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x  # noqa: E402
+from rvdd_tpu_torch.cli import generate_data, score, validate  # noqa: E402
+from rvdd_tpu_torch.data.datasets import InferenceDataset  # noqa: E402
+from rvdd_tpu_torch.data.flow_cache import FlowCache  # noqa: E402
+from rvdd_tpu_torch.data.io import imwrite, list_video_files, load_image_stack  # noqa: E402
+from rvdd_tpu_torch.ops.demosaic import hamilton_adams  # noqa: E402
+from rvdd_tpu_torch.ops.metrics import psnr  # noqa: E402
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 HBM_BPS = 3.35e12   # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
@@ -1168,6 +1196,148 @@ def main_path(model: str, flow, n_frames: int, warm: int, precision: str) -> dic
     return launches
 
 
+# ---------------------------------------------------------------- serve
+
+
+TRAINED = "trained-nets/recurrent-convunet+feat-tinyconv-iso3200.msgpack"
+SERVE_FRAMES, SERVE_ISO = 7, 3200
+#: the validate runs of the serve phase: (name, extra flags); the fused
+#: runs are each held to the module run of their protocol
+SERVE_RUNS = (("fused", ["--net_impl", "fused"]),
+              ("fused_scan", ["--net_impl", "fused", "--val_scan"]),
+              ("module", ["--net_impl", "xla"]),
+              ("module_scan", ["--net_impl", "xla", "--val_scan"]))
+SERVE_PARITY_DB = 0.05  # PARITY.md's budget, fused against the fp32 module path
+SERVE_GAIN_DB = 1.0  # denoised above the noisy input
+
+
+def synth_clip(root: str) -> None:
+    """tools/make_tiny_dataset.py:synth_video(0, SERVE_FRAMES, H, W, 'rich')
+    as 8-bit PNGs <root>/srgb/000/<t>.png: a smooth texture with four blobs
+    and multi-octave detail, under a window moving 1.5 px right and 1 px
+    down a frame.  The detail puts the denoised operating point near 40 dB,
+    the regime PARITY.md measures its fused-path budget in; on the plain
+    smooth texture (near 44 dB) bf16 deltas read about twice as large, in
+    rvdd_tpu as in the port (tools/serve_parity.py)."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(0)
+    pad = max(32, int(1.5 * SERVE_FRAMES) + 8)
+    yy, xx = np.mgrid[0:H + pad, 0:W + pad].astype(np.float32)
+    base = 110 + 70 * np.sin(xx / 6) * np.cos(yy / 8) + 40 * np.sin((xx + yy) / 17)
+    for _ in range(4):
+        cx = rng.uniform(20, W)
+        cy = rng.uniform(20, H)
+        base = base + 120 * np.exp(-(((xx - cx) / 12) ** 2 + ((yy - cy) / 12) ** 2))
+    detail = np.zeros((H + pad, W + pad), np.float32)
+    for sigma, amp in ((1.0, 28.0), (2.5, 22.0), (6.0, 18.0), (14.0, 14.0)):
+        f = gaussian_filter(rng.standard_normal((H + pad, W + pad)).astype(np.float32), sigma)
+        detail += amp * f / (np.std(f) + 1e-8)
+    base = 0.6 * base + 55 + detail
+    for t in range(SERVE_FRAMES):
+        win = base[t:t + H, int(1.5 * t):int(1.5 * t) + W]
+        rgb = np.stack([win, 0.85 * win + 15, 0.7 * win + 8], -1)
+        imwrite(os.path.join(root, "srgb", "000", f"{t:08d}.png"),
+                np.clip(rgb, 0, 255).astype(np.uint8))
+
+
+def noisy_input_psnr(val: str, frames) -> float:
+    """The validate metric (PSNR in the network domain, peak 2) of the noisy
+    raw, Hamilton-Adams demosaicked, against the linear RGB ground truth,
+    averaged over ``frames``."""
+    n_paths = list_video_files(os.path.join(val, f"noisy_iso{SERVE_ISO}", "000"))
+    gt_paths = list_video_files(os.path.join(val, f"gt_raw_linear_RGB_iso{SERVE_ISO}", "000"))
+    out = []
+    for t in frames:
+        raw = torch.from_numpy(load_image_stack([n_paths[t]])).to(DEV) * 2 - 1
+        gt = torch.from_numpy(load_image_stack([gt_paths[t]])).to(DEV) * 2 - 1
+        out.append(float(psnr(hamilton_adams(raw), gt, 2.0)))
+    return sum(out) / len(out)
+
+
+def serve_phase() -> dict:
+    """generate_data -> validate (four runs) -> score, each through its
+    main(argv), in a temporary directory, on synth_clip's clip; checks and
+    prints one line."""
+    frames, sync = SERVE_FRAMES, torch.cuda.synchronize
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    rec = {"frames": frames, "height": H, "width": W, "iso": SERVE_ISO, "texture": "rich",
+           "card": CARD}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rvdd_serve_") as root:
+        synth_clip(root)
+        val = os.path.join(root, "validation")
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        generate_data.main(["--input_val_dataset", os.path.join(root, "srgb", "%03d", "%08d.png"),
+                            "--output_val_dataset", val, "--nb_seq_val", "1", "--first", "0",
+                            "--last", str(frames - 1), "--step", "1", "--ISO", str(SERVE_ISO),
+                            "--device", "cuda"])
+        sync()
+        rec["generate_s"] = time.perf_counter() - t0
+        common = ["--netDenoiser", "convunet-mode=fixedfeatures+feat", "--feature_rec",
+                  "--path2epoch", TRAINED, "--val_dataroot", val,
+                  "--gtFolder", f"gt_iso{SERVE_ISO}", "--nFolder", f"noisy_iso{SERVE_ISO}",
+                  "--gt_linear_RGB_Folder", f"gt_raw_linear_RGB_iso{SERVE_ISO}",
+                  "--val_videos", "000", "--name", "serve", "--device", "cuda"]
+        runs = {}
+        try:
+            for name, extra in SERVE_RUNS:
+                reset_counts()
+                ckpt = os.path.join(root, name)
+                r = validate.main(common + ["--checkpoints_dir", ckpt] + extra)
+                launches = {k.__name__: k.launches for k in KERNELS}
+                launches.update({k: v for k, v in mode_counts().items() if v})
+                result = os.path.join(ckpt, "serve", "val_visuals")
+                t0 = time.perf_counter()
+                sc = score.main(["--validation_path", val, "--result_folder", result,
+                                 "--videos", "0", "--first", "1", "--last", str(frames - 1),
+                                 "--step", "1", "--ISO", str(SERVE_ISO), "--device", "cuda"])
+                for f in ("PSNR.txt", "SSIM.txt"):
+                    with open(os.path.join(result, f)) as fh:
+                        if "###  Average:" not in fh.read():
+                            raise AssertionError(f"serve {name}: {f} holds no average")
+                runs[name] = dict(
+                    psnr=r["losses"]["PSNR_valLoss"], l1=r["losses"]["L1_valLoss"],
+                    srgb_psnr=sc["psnr"], srgb_ssim=sc["ssim"], frames=r["frames"],
+                    seconds=r["seconds"], flow_seconds=r["flow_seconds"],
+                    flows_computed=r["flows_computed"], score_s=time.perf_counter() - t0,
+                    fps=r["frames"] / (r["seconds"] - r["flow_seconds"]), launches=launches)
+            t0 = time.perf_counter()
+            for _ in InferenceDataset(val, f"gt_raw_linear_RGB_iso{SERVE_ISO}",
+                                      f"noisy_iso{SERVE_ISO}", videos="000",
+                                      flow_cache=FlowCache(val, f"noisy_iso{SERVE_ISO}",
+                                                           device="cuda")):
+                pass
+            rec["read_s"] = time.perf_counter() - t0
+            rec["noisy_psnr"] = noisy_input_psnr(val, range(1, frames))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
+            torch.set_float32_matmul_precision(saved[2])
+    rec["runs"] = runs
+    rec["flow_seconds"] = sum(r["flow_seconds"] for r in runs.values())
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"serve": rec}))
+    for fused, module in (("fused", "module"), ("fused_scan", "module_scan")):
+        d = runs[fused]["psnr"] - runs[module]["psnr"]
+        log(f"serve: {fused} {runs[fused]['psnr']:.4f} dB against {module} "
+            f"{runs[module]['psnr']:.4f} dB: {d:+.4f} dB (limit {SERVE_PARITY_DB})")
+        if not abs(d) < SERVE_PARITY_DB:
+            raise AssertionError(f"serve: {fused} is {d:+.4f} dB from the module path")
+    for name, r in runs.items():
+        if not r["psnr"] >= rec["noisy_psnr"] + SERVE_GAIN_DB:
+            raise AssertionError(f"serve {name}: {r['psnr']:.3f} dB, the noisy input "
+                                 f"{rec['noisy_psnr']:.3f} dB")
+    fused_kernels = ("warp_bicubic", "conv_chain")
+    if runs["fused"]["flows_computed"] != frames - 1 or not runs["fused"]["launches"][
+            "warp_catmull_zero"] or any(not runs[n]["launches"][k] for n in ("fused", "fused_scan")
+                                        for k in fused_kernels):
+        raise AssertionError(f"serve: the fused runs did not go through the kernels: {runs}")
+    return rec
+
+
 #: conv_chain's warp-specialized numerics (ws::HighNum, ...) by mode
 WS_NUMERICS = {"HighNum": "high", "HighestNum": "highest", "W32Num": "w32"}
 
@@ -1274,6 +1444,7 @@ def main(argv=None):
 
     runs = [main_path(*path) for path in PATHS]
     total = {k.__name__: sum(r[k.__name__] for r in runs) for k in KERNELS}
+    serve_phase()
 
     kernels = [
         dict(name="warp_bicubic", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",

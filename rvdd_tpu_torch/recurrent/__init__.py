@@ -7,8 +7,9 @@ from rvdd_tpu_torch.recurrent.engine import (
     inference_step,
     init_state,
     prepare_frames,
+    scan_video,
     step,
 )
 
 __all__ = ["EngineConfig", "RecurrentState", "fused_pack", "inference_step",
-           "init_state", "prepare_frames", "step"]
+           "init_state", "prepare_frames", "scan_video", "step"]

@@ -1,9 +1,10 @@
-"""Recurrent denoising engine, streaming-inference subset (port of
+"""Recurrent denoising engine, the inference half (port of
 rvdd_tpu/recurrent/engine.py).
 
     frames, flows = prepare_frames(cfg, raw_window, raw_flows)
     den, state = inference_step(cfg, net, None, frames, flows[:, 0], nil)
     den, state = inference_step(cfg, net, state, frames, flows[:, 0], nil)
+    dens = scan_video(cfg, net, frames_t, flows_t, nil)   # a whole clip
 
 Frames are stacked on a time axis ([B, T, H, W, C]); flows are
 [B, D+fD, H, W, 2] for one step.  The recurrence state is an explicit value
@@ -12,8 +13,9 @@ the caller carries.
 Two step implementations, chosen by ``EngineConfig.net_impl``:
 
 * ``'module'``: the generic path; the ConvUNet module in fp32 with the warp
-  chosen by ``warp_impl`` (``'plain'`` PyTorch, or ``'kernel'``, the CUDA
-  warp, which on CPU tensors runs its plain version);
+  chosen by ``warp_impl`` (``'plain'`` PyTorch, the default ``'auto'``
+  included, or ``'kernel'``, the CUDA warp, which on CPU tensors runs its
+  plain version);
 * ``'fused'``: the main path; the 56-channel fp32 state
   ``[den 3 | zero 5 | feat 48]`` is warped by the CUDA warp kernel and fed
   to the CUDA chains of the net's family (six ``conv_chain`` chains for
@@ -25,6 +27,27 @@ Two step implementations, chosen by ``EngineConfig.net_impl``:
   models/fast_convnext.py:CNX_PRECISIONS for ConvNeXtUNet); the warps and
   the frame inputs run in its glue dtype (bf16, or fp32).
 
+The fused path takes rvdd_tpu's options (rvdd_tpu/recurrent/engine.py:
+_fast_planar_step) with its rounding:
+
+* ``no_warp``, or flows of None: the state's image region and the future
+  frames go unwarped (the state in its own dtype, promoted with the glue
+  dtype as rvdd_tpu's glue-dtype lane mask promotes it);
+* ``prev_noisy_frame``: the next state is ``[cur | 0 x 5 | feat]``, the
+  current frame rounded to the glue dtype and then to the state's;
+* ``state_dtype='bfloat16'``: the carry takes the preset's glue dtype
+  (bf16 under 'fast', fp32 under the fp32-glue presets).  The chains'
+  state emit is fp32 only, so the state is rounded once after the emit and
+  stored in that dtype; the warp kernel reads a bf16 state as it is;
+* ``warp_impl='plain'``: the state is warped by the plain PyTorch warp
+  (rvdd_tpu's diagnostic ``warp_impl='xla'``); the future frames stay on
+  the kernel, as in rvdd_tpu.  ``'auto'`` and ``'kernel'`` warp the state
+  with the kernel.
+
+Whole clips: ``scan_video`` streams a clip with O(1) state, a host loop
+over ``inference_step`` with the edge frames replicated and the weights
+packed once.
+
 Online flow: ``compute_window_flows`` computes a window's flows on the
 device with the TV-L1 solver (ops/tvl1.py; on CUDA tensors its warp is
 always the CUDA kernel ``warp_catmull_zero``, on either path), so a video can be
@@ -33,8 +56,8 @@ around that kernel, a host loop of small launches with one read of the
 convergence measure an iteration, so its launches, not the card's
 arithmetic, bound it (PERF.md).
 
-Training (``unrolled_forward``, ``compute_losses``) and ``scan_video`` wait
-for later slices.
+Training (``unrolled_forward``, ``compute_losses``) waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -59,7 +82,7 @@ from rvdd_tpu_torch.models.fast_unet import (
     supports_fast_path,
 )
 from rvdd_tpu_torch.ops.bayer import remosaic
-from rvdd_tpu_torch.ops.cuda.warp_bicubic import warp_bicubic
+from rvdd_tpu_torch.ops.cuda.warp_bicubic import warp_bicubic, warp_bicubic_plain
 from rvdd_tpu_torch.ops.demosaic import hamilton_adams
 from rvdd_tpu_torch.ops.tvl1 import TVL1Params, to_gray, tvl1_flow
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x, warp
@@ -73,6 +96,7 @@ STATE_FEAT = 48
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     model_patch_depth: int = 2  # D+1: previous frames + current
+    patch_depth: int = 5  # frames per training sample (train_unrollings)
     future_patch_depth: int = 0  # fD
     input_nc: int = 3
     output_nc: int = 3
@@ -81,10 +105,16 @@ class EngineConfig:
     warp_raw: bool = False
     prev_noisy_frame: bool = False
     feature_rec: bool = False
-    #: 'plain' (PyTorch) or 'kernel' (the CUDA warp) for the module path
-    warp_impl: str = "plain"
-    #: carried state dtype: 'float32' (the production default) or 'bfloat16'
-    #: (module path only)
+    #: the ground truth is packed raw: the output is remosaicked to score it
+    raw_gt: bool = False
+    lambda_l1: float = 100.0
+    #: the state warp: 'auto' (the CUDA warp on the fused path, the plain
+    #: one on the module path), 'plain' (PyTorch) or 'kernel' (the CUDA
+    #: warp, which on CPU tensors runs its plain version)
+    warp_impl: str = "auto"
+    #: carried state dtype: 'float32' (the production default) or
+    #: 'bfloat16' (the module path's carry; the fused path's carry takes
+    #: the preset's glue dtype)
     state_dtype: str = "float32"
     #: 'module' (the net's forward) or 'fused' (the CUDA chains)
     net_impl: str = "module"
@@ -96,6 +126,10 @@ class EngineConfig:
     @property
     def d(self) -> int:
         return self.model_patch_depth - 1
+
+    @property
+    def train_unrollings(self) -> int:
+        return self.patch_depth - self.model_patch_depth + 1
 
     @property
     def network_input_nc(self) -> int:
@@ -131,7 +165,7 @@ def _warp(cfg: EngineConfig, x: torch.Tensor, flow: torch.Tensor) -> torch.Tenso
     if cfg.warp_impl == "kernel":
         return warp_bicubic(x.float().contiguous(), flow.float().contiguous(),
                             out_dtype=torch.float32)
-    if cfg.warp_impl != "plain":
+    if cfg.warp_impl not in ("plain", "auto"):
         raise ValueError(f"unknown warp_impl {cfg.warp_impl!r}")
     return warp(x, flow, "bicubic")[0]
 
@@ -150,19 +184,24 @@ def _state_dtype(cfg: EngineConfig):
 
 def _check_fused(cfg: EngineConfig, net=None) -> None:
     """The fused path's knobs, and the preset against the presets of the
-    net's family (ConvUNet's where no net is given)."""
+    net's family (ConvUNet's where no net is given).  The settings refused
+    here are those rvdd_tpu's fused step refuses too
+    (rvdd_tpu/recurrent/engine.py:375-379)."""
     bad = {
         "model_patch_depth != 2": cfg.d != 1,
-        "no_warp": cfg.no_warp,
         "warp_raw": cfg.warp_raw,
         "no_predemosaic": cfg.no_predemosaic,
-        "prev_noisy_frame": cfg.prev_noisy_frame,
         "output_nc != 3": cfg.output_nc != 3,
-        "state_dtype != float32": cfg.state_dtype != "float32",
     }
     what = [k for k, v in bad.items() if v]
     if what:
-        raise NotImplementedError(f"net_impl='fused' does not support {what} yet (ROADMAP.md)")
+        raise NotImplementedError(
+            f"net_impl='fused' supports model_patch_depth=2, RGB pre-demosaic, frame-domain "
+            f"warping and output_nc=3, as rvdd_tpu's fused step; got {what}")
+    if cfg.warp_impl not in ("auto", "kernel", "plain"):
+        raise ValueError(f"unknown warp_impl {cfg.warp_impl!r}")
+    if cfg.state_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown state_dtype {cfg.state_dtype!r}")
     _fused_glue_dtype(cfg, net)
 
 
@@ -180,6 +219,14 @@ def _fused_state_c(cfg: EngineConfig) -> int:
     return STATE_FEAT_OFF + (STATE_FEAT if cfg.feature_rec else 0)
 
 
+def _fused_state_dtype(cfg: EngineConfig, net) -> torch.dtype:
+    """The fused carry's dtype: fp32, or under ``state_dtype='bfloat16'``
+    the preset's glue dtype (rvdd_tpu/recurrent/engine.py:221-228)."""
+    if cfg.state_dtype == "float32":
+        return torch.float32
+    return _fused_glue_dtype(cfg, net)
+
+
 def init_state(cfg: EngineConfig, frames: torch.Tensor, nil_feat=None,
                net=None) -> RecurrentState:
     """Initial recurrence: the previous noisy frame(s) and zero features.
@@ -192,7 +239,7 @@ def init_state(cfg: EngineConfig, frames: torch.Tensor, nil_feat=None,
         state = torch.zeros(b, h, w, _fused_state_c(cfg), dtype=torch.float32,
                             device=f0.device)
         state[..., :STATE_DEN] = f0
-        return RecurrentState(state, None)
+        return RecurrentState(state.to(_fused_state_dtype(cfg, net)), None)
     sd = _state_dtype(cfg)
     lastden = frames[:, : cfg.d].to(sd)
     feat = None
@@ -267,15 +314,15 @@ def step(cfg: EngineConfig, net, state: RecurrentState, cur: torch.Tensor,
 
 
 def _fused_step(cfg, net, state, cur, future, flows, packed):
-    """Main path: warp the fp32 state with the CUDA warp and each future
-    frame (rounded to the glue dtype, warped to it), feed
+    """Main path: warp the state with the CUDA warp and each future frame
+    (rounded to the glue dtype, warped to it), feed
     [warped den | cur | warped future] and the warped features to the
     chains, whose dec2 chain writes the next state from its fp32 values.
     The glue dtype is the preset's: bf16, or fp32 (ConvUNet: where the
-    preset names 'glue'; ConvNeXtUNet: under 'mixed' and 'accurate')."""
+    preset names 'glue'; ConvNeXtUNet: under 'mixed' and 'accurate').  The
+    options (no_warp, prev_noisy_frame, the bf16 carry, the plain state
+    warp) follow rvdd_tpu's _fast_planar_step; see the module docstring."""
     _check_fused(cfg, net)
-    if flows is None:
-        raise NotImplementedError("net_impl='fused' needs flows")
     b, h, w, _ = cur.shape
     forward, _, supports = _fused_impl(net)
     if not supports(net, h, w):
@@ -283,17 +330,34 @@ def _fused_step(cfg, net, state, cur, future, flows, packed):
     if packed is None:
         packed = fused_pack(cfg, net)
     glue = _fused_glue_dtype(cfg, net)
+    sd = _fused_state_dtype(cfg, net)
     fused = state.lastden
-    warped = warp_bicubic(fused, flows[:, 0].float().contiguous(), out_dtype=glue)
-    parts = [warped[..., :STATE_DEN], cur.to(glue)]
+    warping = not cfg.no_warp and flows is not None
+    if not warping:
+        warped = fused.to(torch.promote_types(fused.dtype, glue))
+    elif cfg.warp_impl == "plain":
+        warped = warp_bicubic_plain(fused, flows[:, 0].float(), out_dtype=glue)
+    else:
+        warped = warp_bicubic(fused.contiguous(), flows[:, 0].float().contiguous(),
+                              out_dtype=glue)
+    curp = cur.to(glue)
+    parts = [warped[..., :STATE_DEN], curp]
     for k in range(cfg.future_patch_depth):
-        parts.append(warp_bicubic(future[:, k].to(glue).contiguous(),
-                                  flows[:, cfg.d + k].float().contiguous(),
-                                  out_dtype=glue))
+        fk = future[:, k].to(glue)
+        if warping:
+            fk = warp_bicubic(fk.contiguous(), flows[:, cfg.d + k].float().contiguous(),
+                              out_dtype=glue)
+        parts.append(fk)
     x = torch.cat(parts, dim=-1)
     nxt = forward(net, packed, x, warped if cfg.feature_rec else None,
-                  aux_channels=(STATE_FEAT_OFF, STATE_FEAT), combine_state=True)
-    den = nxt[..., :STATE_DEN].contiguous()
+                  aux_channels=(STATE_FEAT_OFF, STATE_FEAT), combine_state=True).to(sd)
+    den = nxt[..., :STATE_DEN].float().contiguous()
+    if cfg.prev_noisy_frame:
+        # the ablation carries the noisy current frame and the new features
+        keep = torch.zeros_like(nxt)
+        keep[..., :STATE_DEN] = curp.to(sd)
+        keep[..., STATE_FEAT_OFF:] = nxt[..., STATE_FEAT_OFF:]
+        nxt = keep
     return den, RecurrentState(nxt, None)
 
 
@@ -311,6 +375,34 @@ def inference_step(cfg: EngineConfig, net, state: Optional[RecurrentState],
     future = frames[:, d + 1:] if cfg.future_patch_depth else None
     with torch.no_grad():
         return step(cfg, net, state, cur, future, flows, packed)
+
+
+def scan_video(cfg: EngineConfig, net, frames: torch.Tensor,
+               flows: Optional[torch.Tensor], nil_feat=None) -> torch.Tensor:
+    """Stream a whole clip with O(1) state (rvdd_tpu/recurrent/engine.py:
+    scan_video).  frames [T, B, H, W, C] prepared frames of one clip; flows
+    [T, B, D+fD, H, W, 2] to each frame, or None.  Frame t uses the window
+    [t-D, t+fD], the clip's first and last frames replicated beyond its
+    edges (the caller's flows there are zero, the reference's rule for
+    missing flows); the recurrence starts from the replicated first frame,
+    so frame 0 already sees a carried state.  The weights are packed once,
+    before the loop; each window is cut inside it.  Returns
+    [T, B, H, W, C_out]."""
+    t_total = frames.shape[0]
+    d, fd = cfg.d, cfg.future_patch_depth
+    packed = fused_pack(cfg, net) if cfg.net_impl == "fused" else None
+
+    def window(t):
+        idx = [min(max(t + j - d, 0), t_total - 1) for j in range(d + 1 + fd)]
+        return torch.stack([frames[i] for i in idx], dim=1)  # [B, D+1+fD, ...]
+
+    state = init_state(cfg, window(0), nil_feat, net)
+    dens = []
+    for t in range(t_total):
+        den, state = inference_step(cfg, net, state, window(t),
+                                    None if flows is None else flows[t], nil_feat, packed)
+        dens.append(den)
+    return torch.stack(dens)
 
 
 def compute_window_flows(cfg: EngineConfig, raw_window: torch.Tensor,

@@ -136,9 +136,12 @@ def test_kernel_warp_module_path_runs_plain_on_cpu():
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
 
 
-@pytest.mark.parametrize("knob", [dict(prev_noisy_frame=True), dict(no_warp=True),
-                                  dict(state_dtype="bfloat16"), dict(model_patch_depth=3)])
+@pytest.mark.parametrize("knob", [dict(warp_raw=True), dict(no_predemosaic=True),
+                                  dict(output_nc=4), dict(model_patch_depth=3)])
 def test_fused_unsupported_configs_raise(knob):
+    """The settings rvdd_tpu's fused step refuses too
+    (rvdd_tpu/recurrent/engine.py:375-379); its other options are ported
+    (tests/test_torch_fused_options.py)."""
     kw = dict(model_patch_depth=2, feature_rec=True, net_impl="fused")
     kw.update(knob)
     cfg = engine.EngineConfig(**kw)

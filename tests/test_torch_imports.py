@@ -1,5 +1,6 @@
 """The port stands alone: no module of rvdd_tpu_torch, and not chip_smoke.py,
-imports jax, flax or rvdd_tpu; and its entry points refuse to run without a
+imports jax, flax or rvdd_tpu, nor imageio, PIL or msgpack (the card's
+machine has none of them); and its entry points refuse to run without a
 card unless the caller asks for the CPU."""
 
 import ast
@@ -10,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rvdd_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rvdd_tpu", "imageio", "PIL", "msgpack")
 
 
 def _sources():
