@@ -94,7 +94,31 @@
    the flow seconds, the seconds of one pass of the per-frame dataset's
    reads (TIFFs and cached flows) and of each score, and the kernels'
    launches in each run, on one line.
-7. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
+7. The ``train`` phase drives the port's trainer through
+   ``cli.train.main(argv)`` on the card, in the same temporary directory:
+   ``cli.generate_data`` writes the clip's train split; the trainer runs
+   convunet+feat with its production flags (48 filters, depth 4, batch 2,
+   272x272 RGB patches, 4 unrollings; TRAIN_ARGV) on one window of 5
+   frames, 21 keys or 10 steps an epoch, with its flows computed by the
+   FlowCache on the card (``warp_catmull_zero``) and in-loop validation on
+   serve's split with the kernel warp (``warp_bicubic``); a second run
+   ``--autoresume``s into epoch 2 with the optimizer state.  It checks
+   that every loss is finite, that the '0', '1', '2', 'latest' and
+   'latest_val' nets and status.json exist, that the optimizer's step
+   count carried on, and that the warps launched once a validation frame
+   and nwarps x nscales times a flow computed; then that 30 AdamW steps
+   on one fixed batch lower the loss as on the CPU (overfit_clip), that
+   one full-width step on the card gives the CPU's loss and gradients
+   (card_against_cpu, TF32 off), that the flagship's step gives the same
+   gradients with and without ``remat`` (printing each one's peak
+   memory), and that the epoch-2 net served by ``cli.validate --net_impl
+   fused`` is finite with 21 ``conv_chain`` launches a frame.  It
+   profiles three production steps (train_profile: wall and busy ms, the
+   kernels of most device time) and prints one ``{"train": ...}`` line:
+   ms a step and samples/s (synchronized, the first step of each epoch
+   left out), data, flow and validation seconds, peak memory, the first
+   and last loss and the launches.
+8. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
    the ``fp32_*`` ('high'), ``highest_*`` and ``w32_*`` times, bounds and
    errors of its other modes, the convnext_chain entry its fp32 mode's
    ``fp32_*``), the card line and,
@@ -171,12 +195,23 @@ from rvdd_tpu_torch.ops.tvl1 import (  # noqa: E402
     tvl1_flow,
 )
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x  # noqa: E402
-from rvdd_tpu_torch.cli import generate_data, score, validate  # noqa: E402
+from rvdd_tpu_torch.cli import generate_data, score, train, validate  # noqa: E402
 from rvdd_tpu_torch.data.datasets import InferenceDataset  # noqa: E402
 from rvdd_tpu_torch.data.flow_cache import FlowCache  # noqa: E402
 from rvdd_tpu_torch.data.io import imwrite, list_video_files, load_image_stack  # noqa: E402
 from rvdd_tpu_torch.ops.demosaic import hamilton_adams  # noqa: E402
 from rvdd_tpu_torch.ops.metrics import psnr  # noqa: E402
+from rvdd_tpu_torch.models import build_network  # noqa: E402
+from rvdd_tpu_torch.ops.bayer import remosaic  # noqa: E402
+from rvdd_tpu_torch.precision import exact_precision  # noqa: E402
+from rvdd_tpu_torch.recurrent.engine import EngineConfig  # noqa: E402
+from rvdd_tpu_torch.training.checkpoints import flax_params, state_dict_from_flax  # noqa: E402
+from rvdd_tpu_torch.training.train_state import (  # noqa: E402
+    create_train_state,
+    loss_and_grads,
+    make_train_step,
+    set_learning_rate,
+)
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 HBM_BPS = 3.35e12   # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
@@ -1255,17 +1290,28 @@ def noisy_input_psnr(val: str, frames) -> float:
     return sum(out) / len(out)
 
 
-def serve_phase() -> dict:
-    """generate_data -> validate (four runs) -> score, each through its
-    main(argv), in a temporary directory, on synth_clip's clip; checks and
-    prints one line."""
-    frames, sync = SERVE_FRAMES, torch.cuda.synchronize
+@contextlib.contextmanager
+def saved_precision():
+    """The entry points set the TF32 flags process-wide (their
+    --exact_precision and --train_matmul_precision): restore them after."""
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
              torch.get_float32_matmul_precision())
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])
+
+
+def serve_phase(root: str) -> dict:
+    """generate_data -> validate (four runs) -> score, each through its
+    main(argv), in ``root``, on synth_clip's clip; checks and prints one
+    line."""
+    frames, sync = SERVE_FRAMES, torch.cuda.synchronize
     rec = {"frames": frames, "height": H, "width": W, "iso": SERVE_ISO, "texture": "rich",
            "card": CARD}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="rvdd_serve_") as root:
+    with saved_precision():
         synth_clip(root)
         val = os.path.join(root, "validation")
         reset_counts()
@@ -1283,39 +1329,35 @@ def serve_phase() -> dict:
                   "--gt_linear_RGB_Folder", f"gt_raw_linear_RGB_iso{SERVE_ISO}",
                   "--val_videos", "000", "--name", "serve", "--device", "cuda"]
         runs = {}
-        try:
-            for name, extra in SERVE_RUNS:
-                reset_counts()
-                ckpt = os.path.join(root, name)
-                r = validate.main(common + ["--checkpoints_dir", ckpt] + extra)
-                launches = {k.__name__: k.launches for k in KERNELS}
-                launches.update({k: v for k, v in mode_counts().items() if v})
-                result = os.path.join(ckpt, "serve", "val_visuals")
-                t0 = time.perf_counter()
-                sc = score.main(["--validation_path", val, "--result_folder", result,
-                                 "--videos", "0", "--first", "1", "--last", str(frames - 1),
-                                 "--step", "1", "--ISO", str(SERVE_ISO), "--device", "cuda"])
-                for f in ("PSNR.txt", "SSIM.txt"):
-                    with open(os.path.join(result, f)) as fh:
-                        if "###  Average:" not in fh.read():
-                            raise AssertionError(f"serve {name}: {f} holds no average")
-                runs[name] = dict(
-                    psnr=r["losses"]["PSNR_valLoss"], l1=r["losses"]["L1_valLoss"],
-                    srgb_psnr=sc["psnr"], srgb_ssim=sc["ssim"], frames=r["frames"],
-                    seconds=r["seconds"], flow_seconds=r["flow_seconds"],
-                    flows_computed=r["flows_computed"], score_s=time.perf_counter() - t0,
-                    fps=r["frames"] / (r["seconds"] - r["flow_seconds"]), launches=launches)
+        for name, extra in SERVE_RUNS:
+            reset_counts()
+            ckpt = os.path.join(root, name)
+            r = validate.main(common + ["--checkpoints_dir", ckpt] + extra)
+            launches = {k.__name__: k.launches for k in KERNELS}
+            launches.update({k: v for k, v in mode_counts().items() if v})
+            result = os.path.join(ckpt, "serve", "val_visuals")
             t0 = time.perf_counter()
-            for _ in InferenceDataset(val, f"gt_raw_linear_RGB_iso{SERVE_ISO}",
-                                      f"noisy_iso{SERVE_ISO}", videos="000",
-                                      flow_cache=FlowCache(val, f"noisy_iso{SERVE_ISO}",
-                                                           device="cuda")):
-                pass
-            rec["read_s"] = time.perf_counter() - t0
-            rec["noisy_psnr"] = noisy_input_psnr(val, range(1, frames))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
-            torch.set_float32_matmul_precision(saved[2])
+            sc = score.main(["--validation_path", val, "--result_folder", result,
+                             "--videos", "0", "--first", "1", "--last", str(frames - 1),
+                             "--step", "1", "--ISO", str(SERVE_ISO), "--device", "cuda"])
+            for f in ("PSNR.txt", "SSIM.txt"):
+                with open(os.path.join(result, f)) as fh:
+                    if "###  Average:" not in fh.read():
+                        raise AssertionError(f"serve {name}: {f} holds no average")
+            runs[name] = dict(
+                psnr=r["losses"]["PSNR_valLoss"], l1=r["losses"]["L1_valLoss"],
+                srgb_psnr=sc["psnr"], srgb_ssim=sc["ssim"], frames=r["frames"],
+                seconds=r["seconds"], flow_seconds=r["flow_seconds"],
+                flows_computed=r["flows_computed"], score_s=time.perf_counter() - t0,
+                fps=r["frames"] / (r["seconds"] - r["flow_seconds"]), launches=launches)
+        t0 = time.perf_counter()
+        for _ in InferenceDataset(val, f"gt_raw_linear_RGB_iso{SERVE_ISO}",
+                                  f"noisy_iso{SERVE_ISO}", videos="000",
+                                  flow_cache=FlowCache(val, f"noisy_iso{SERVE_ISO}",
+                                                       device="cuda")):
+            pass
+        rec["read_s"] = time.perf_counter() - t0
+        rec["noisy_psnr"] = noisy_input_psnr(val, range(1, frames))
     rec["runs"] = runs
     rec["flow_seconds"] = sum(r["flow_seconds"] for r in runs.values())
     rec["seconds"] = time.perf_counter() - t_phase
@@ -1335,6 +1377,271 @@ def serve_phase() -> dict:
             "warp_catmull_zero"] or any(not runs[n]["launches"][k] for n in ("fused", "fused_scan")
                                         for k in fused_kernels):
         raise AssertionError(f"serve: the fused runs did not go through the kernels: {runs}")
+    return rec
+
+
+#: the production convunet+feat training flags
+#: (scripts/train-recurrent-convunet-feat.sh: 48 filters, depth 4, batch 2,
+#: 136x136 raw = 272x272 RGB patches, patch_depth 5 = 4 unrollings), with
+#: every unrolling from epoch 1, one window of 5 frames an epoch and a
+#: stride of a patch: 21 keys, 10 steps an epoch on 540x960 raw
+TRAIN_ARCH = "convunet-mode=fixedfeatures+feat"
+TRAIN_ARGV = ["--netDenoiser", TRAIN_ARCH, "--feature_rec", "--batch_size", "2",
+              "--patch_width", "136", "--patch_depth", "5", "--unroll_focus", "all",
+              "--frames2load", "5", "--patch_stride", "136", "--warp_impl", "pallas",
+              "--print_freq", "2"]
+FLAGSHIP_ARCH = "newunet-mode=feat"
+OVERFIT_STEPS, OVERFIT_LR = 30, 1e-3
+#: the limits of overfit_clip, tests/test_overfit.py's: the last loss below
+#: 0.2 x the first, PSNR up by more than 10 dB.  Calibrated on the CPU
+#: (the same function, torch 2.13 on x86): 203.34 -> 7.74 (0.038), PSNR
+#: -0.13 -> 25.14 dB
+OVERFIT_RATIO, OVERFIT_GAIN_DB = 0.2, 10.0
+
+
+def overfit_clip(dev) -> tuple:
+    """OVERFIT_STEPS AdamW steps at OVERFIT_LR of the full-width
+    convunet+feat (48 filters, 4 unrollings, seeded kaiming weights, TF32
+    off) on one fixed batch: tests/test_overfit.py's static clip at 32x32
+    raw (a smooth texture, raw = its mosaic plus noise, zero flows).
+    Returns (first loss, last loss, first PSNR, last PSNR)."""
+    cfg = EngineConfig(patch_depth=5, feature_rec=True, warp_impl="plain")
+    net = build_network(TRAIN_ARCH, 6, 3, True, seed=0, device=dev)
+    state = set_learning_rate(create_train_state(net, "adamw"), OVERFIT_LR)
+    step = make_train_step(cfg)
+    h = w = 32
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:2 * h, 0:2 * w]
+    gt1 = np.stack([0.6 * np.sin(xx / 3 + k) * np.cos(yy / 4 - k / 2)
+                    + 0.2 * np.sin((xx + yy) / 7) for k in range(3)], -1).astype(np.float32)
+    t = cfg.patch_depth
+    gt = torch.from_numpy(np.broadcast_to(gt1, (1, t, 2 * h, 2 * w, 3)).copy()).to(dev)
+    raw = (remosaic(torch.from_numpy(gt1))[None, None]
+           + torch.from_numpy(rng.normal(0, 0.08, (1, t, h, w, 4)).astype(np.float32))).to(dev)
+    flows = torch.zeros(1, cfg.train_unrollings, cfg.d, h, w, 2, device=dev)
+    weights = torch.full((cfg.train_unrollings,), 1.0 / cfg.train_unrollings)
+    with exact_precision():
+        seen = [step(state, raw, flows, gt, weights)[1] for _ in range(OVERFIT_STEPS)]
+    return (float(seen[0]["Denoiser"]), float(seen[-1]["Denoiser"]), float(seen[0]["PSNR"]),
+            float(seen[-1]["PSNR"]))
+
+
+def train_inputs(cfg: EngineConfig, b: int, h: int, w: int, seed: int = 0) -> list:
+    """Seeded raw frames, smooth flows of a few pixels, a linear RGB ground
+    truth and uniform unrolling weights, as CPU tensors."""
+    rng = np.random.default_rng(seed)
+    t = cfg.patch_depth + cfg.future_patch_depth
+    raw = rng.uniform(-0.9, 0.9, (b, t, h, w, 4)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    nf = cfg.d + cfg.future_patch_depth
+    flows = np.zeros((b, cfg.train_unrollings, nf, h, w, 2), np.float32)
+    for a in range(cfg.train_unrollings):
+        flows[:, a, ..., 0] = 2.5 * np.sin(xx / 19 + a) + 1.0
+        flows[:, a, ..., 1] = 1.5 * np.cos(yy / 13 - a) - 0.5
+    gt = rng.uniform(-0.9, 0.9, (b, t, 2 * h, 2 * w, 3)).astype(np.float32)
+    weights = np.full(cfg.train_unrollings, 1.0 / cfg.train_unrollings, np.float32)
+    return [torch.from_numpy(a) for a in (raw, flows, gt, weights)]
+
+
+def grad_errors(got: dict, want: dict) -> tuple:
+    """(max over leaves of max|got - want| / the largest |want|, cosine of
+    the two gradient vectors), in float64 on the CPU."""
+    got = {k: v.double().cpu() for k, v in got.items()}
+    want = {k: v.double().cpu() for k, v in want.items()}
+    gscale = max(float(v.abs().max()) for v in want.values())
+    err = max(float((got[k] - want[k]).abs().max()) for k in want) / gscale
+    a = torch.cat([got[k].ravel() for k in sorted(want)])
+    b = torch.cat([want[k].ravel() for k in sorted(want)])
+    return err, float(a @ b / (a.norm() * b.norm()))
+
+
+def card_against_cpu() -> dict:
+    """One step of the full-width convunet+feat (batch 1, 2 unrollings,
+    272x272 RGB) on the card and on the CPU: the same seeded inputs, the
+    card net's weights through the flax layout into the CPU net, TF32 off.
+    The loss within 1e-5 relative, each gradient leaf within 2e-3 x the
+    largest CPU gradient, the cosine above 1 - 1e-6."""
+    cfg = EngineConfig(patch_depth=3, feature_rec=True, warp_impl="plain")
+    inputs = train_inputs(cfg, 1, 136, 136, seed=2)
+    net = build_network(TRAIN_ARCH, 6, 3, True, seed=3, device=DEV)
+    cpu_net = build_network(TRAIN_ARCH, 6, 3, True, seed=4, device="cpu")
+    cpu_net.load_state_dict(state_dict_from_flax(flax_params(net), cpu_net))
+    out = {}
+    with exact_precision():
+        t0 = time.perf_counter()
+        l_cpu, g_cpu = loss_and_grads(cfg, cpu_net, *inputs)
+        out["cpu_s"] = time.perf_counter() - t0
+        l_card, g_card = loss_and_grads(cfg, net, *[x.to(DEV) for x in inputs])
+    out["loss_card"], out["loss_cpu"] = float(l_card["Denoiser"]), float(l_cpu["Denoiser"])
+    out["grad_err"], out["cosine"] = grad_errors(g_card, g_cpu)
+    rel = abs(out["loss_card"] - out["loss_cpu"]) / abs(out["loss_cpu"])
+    if not (rel <= 1e-5 and out["grad_err"] <= 2e-3 and out["cosine"] > 1 - 1e-6):
+        raise AssertionError(f"train: the card's step is not the CPU's: {out}")
+    return out
+
+
+def flagship_remat() -> dict:
+    """The flagship's step (newunet-mode=feat, the future frame, batch 2,
+    272x272 RGB, 4 unrollings, TF32 off) without and with remat: gradients
+    within 1e-5 x the largest; each run's peak memory and seconds."""
+    cfg = EngineConfig(patch_depth=5, future_patch_depth=1, feature_rec=True, warp_impl="plain")
+    inputs = [x.to(DEV) for x in train_inputs(cfg, 2, 136, 136, seed=6)]
+    net = build_network(FLAGSHIP_ARCH, cfg.network_input_nc, 3, True, seed=0, device=DEV)
+    out, grads = {}, []
+    with exact_precision():
+        loss_and_grads(cfg, net, *inputs)  # warm-up (cuDNN's algorithm choices), not timed
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses, g = loss_and_grads(c, net, *inputs)
+            torch.cuda.synchronize()
+            key = "remat" if remat else "plain"
+            out[f"{key}_s"] = time.perf_counter() - t0
+            out[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            out[f"{key}_loss"] = float(losses["Denoiser"])
+            grads.append(g)
+    out["grad_err"], out["cosine"] = grad_errors(grads[1], grads[0])
+    if not out["grad_err"] <= 1e-5:
+        raise AssertionError(f"train: remat changed the flagship's gradients: {out}")
+    return out
+
+
+def train_profile(steps: int = 3) -> dict:
+    """Where a production train step's time goes: the trainer's step
+    (convunet+feat, batch 2, 272x272 RGB, 4 unrollings, AdamW, TF32 off) on
+    seeded inputs, two steps to warm up, then ``steps`` under torch.profiler:
+    wall and device-busy ms a step (busy = the sum of kernel durations, one
+    stream), kernel launches a step and the ten kernels of most device
+    time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    cfg = EngineConfig(patch_depth=5, feature_rec=True, warp_impl="plain")
+    inputs = [x.to(DEV) for x in train_inputs(cfg, 2, 136, 136, seed=7)]
+    net = build_network(TRAIN_ARCH, 6, 3, True, seed=0, device=DEV)
+    state = set_learning_rate(create_train_state(net, "adamw"), 1e-4)
+    step = make_train_step(cfg)
+    with exact_precision():
+        for _ in range(2):
+            step(state, *inputs)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(state, *inputs)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    by_name: dict = {}
+    for e in kernels:
+        g = by_name.setdefault(e.name[:80], [0.0, 0])
+        g[0] += e.time_range.elapsed_us() / 1e3 / steps
+        g[1] += 1
+    busy = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1.0 - busy / wall,
+                launches=len(kernels) / steps,
+                top=[dict(name=k, ms=v[0], launches=v[1] / steps) for k, v in top])
+
+
+def train_phase(root: str) -> dict:
+    """The port's trainer through cli.train.main on the card: the clip's
+    train split (generate_data), one epoch, then --autoresume into epoch 2,
+    in-loop validation on serve's validation split; then the overfit, the
+    card-against-CPU step, the flagship with and without remat, and the
+    epoch-2 net served by cli.validate --net_impl fused.  Checks and prints
+    one line."""
+    frames, sync = SERVE_FRAMES, torch.cuda.synchronize
+    rec = {"frames": frames, "height": H, "width": W, "iso": SERVE_ISO, "card": CARD}
+    t_phase = time.perf_counter()
+    train_root, val = os.path.join(root, "train"), os.path.join(root, "validation")
+    ckpt = os.path.join(root, "ckpt")
+    data = ["--gtFolder", f"gt_iso{SERVE_ISO}", "--nFolder", f"noisy_iso{SERVE_ISO}",
+            "--gt_linear_RGB_Folder", f"gt_raw_linear_RGB_iso{SERVE_ISO}",
+            "--val_dataroot", val, "--val_videos", "000", "--checkpoints_dir", ckpt,
+            "--name", "train", "--device", "cuda"]
+    with saved_precision():
+        t0 = time.perf_counter()
+        generate_data.main(["--input_train_dataset", os.path.join(root, "srgb", "%03d", "%08d.png"),
+                            "--output_train_dataset", train_root, "--nb_seq_train", "1",
+                            "--first", "0", "--last", str(frames - 1), "--step", "1",
+                            "--ISO", str(SERVE_ISO), "--device", "cuda"])
+        sync()
+        rec["generate_s"] = time.perf_counter() - t0
+        runs = []
+        for extra in (["--niter", "1", "--niter_decay", "0"],
+                      ["--niter", "1", "--niter_decay", "1", "--autoresume"]):
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            r = train.main(TRAIN_ARGV + ["--dataroot", train_root] + data + extra)
+            sync()
+            r["seconds"] = time.perf_counter() - t0
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            r["launches"] = {k.__name__: k.launches for k in KERNELS}
+            runs.append(r)
+        save_dir = os.path.join(ckpt, "train")
+        steps = [float(torch.load(os.path.join(save_dir, f"{e}_optim_Denoise.pt"))
+                       ["state"][0]["step"]) for e in (1, 2)]
+        reset_counts()
+        served = validate.main(["--netDenoiser", TRAIN_ARCH, "--feature_rec", "--epoch", "2",
+                                "--net_impl", "fused"] + data)
+        served_launches = {k.__name__: k.launches for k in KERNELS}
+        rec["overfit"] = overfit_clip(DEV)
+        rec["card_cpu"] = card_against_cpu()
+        rec["flagship_remat"] = flagship_remat()
+        rec["profile"] = train_profile()
+    epochs = [e for r in runs for e in r["epochs"]]
+    rec["epochs"] = [e["epoch"] for e in epochs]
+    rec["steps"] = [e["steps"] for e in epochs]
+    rec["ms_per_step"] = [e["step_ms"] for e in epochs]
+    rec["samples_per_s"] = [2e3 / e["step_ms"] for e in epochs]
+    rec["data_s"] = [e["data_s"] for e in epochs]
+    rec["val_s"] = [e["val_s"] for e in epochs]
+    rec["flow_s"] = [r["flow_seconds"] for r in runs]
+    rec["flows_computed"] = [r["flows_computed"] for r in runs]
+    rec["run_s"] = [r["seconds"] for r in runs]
+    rec["peak_gib"] = [r["peak_gib"] for r in runs]
+    rec["first_loss"] = epochs[0]["first"]["Denoiser"]
+    rec["last_loss"] = epochs[-1]["last"]["Denoiser"]
+    rec["val_psnr"] = [e["val"]["PSNR_valLoss"] for e in epochs]
+    rec["launches"] = [r["launches"] for r in runs]
+    rec["optimizer_steps"] = steps
+    rec["served"] = dict(psnr=served["losses"]["PSNR_valLoss"], frames=served["frames"],
+                         launches=served_launches)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"train": rec}))
+
+    if rec["epochs"] != [1, 2] or rec["steps"] != [10, 10] or steps != [10.0, 20.0]:
+        raise AssertionError(f"train: expected epochs 1 and 2 of 10 steps, the optimizer "
+                             f"state carried on: {rec['epochs']} {rec['steps']} {steps}")
+    if not all(e["finite"] for e in epochs) or not all(
+            np.isfinite(list(e["val"].values())).all() for e in epochs):
+        raise AssertionError("train: a loss is not finite")
+    names = set(os.listdir(save_dir))
+    want = {f"{e}_net_Denoise.msgpack" for e in ("0", "1", "2", "latest", "latest_val")}
+    if not want | {"status.json"} <= names:
+        raise AssertionError(f"train: missing {sorted(want | {'status.json'} - names)}")
+    p = FLOW_PRESETS["default"]
+    per_flow = p.nwarps * _num_scales(W // 2, H // 2, p)
+    for r in runs:
+        n = r["launches"]
+        if not (n["warp_catmull_zero"] == per_flow * r["flows_computed"] and n["warp_bicubic"]
+                == frames - 1 and n["warp_bicubic"] > 0 and n["conv_chain"] == 0):
+            raise AssertionError(f"train: launches {n}, flows {r['flows_computed']}")
+    if not runs[0]["launches"]["warp_catmull_zero"] > 0:
+        raise AssertionError("train: the training flows were not computed on the card")
+    first, last, p0, p1 = rec["overfit"]
+    if not (last <= OVERFIT_RATIO * first and p1 - p0 > OVERFIT_GAIN_DB):
+        raise AssertionError(f"train: {OVERFIT_STEPS} steps on one batch took the loss from "
+                             f"{first} to {last} and PSNR from {p0} to {p1} dB")
+    if not (np.isfinite(rec["served"]["psnr"]) and served_launches["conv_chain"]
+            == 21 * served["frames"]):
+        raise AssertionError(f"train: the epoch-2 net's fused serving: {rec['served']}")
     return rec
 
 
@@ -1444,7 +1751,9 @@ def main(argv=None):
 
     runs = [main_path(*path) for path in PATHS]
     total = {k.__name__: sum(r[k.__name__] for r in runs) for k in KERNELS}
-    serve_phase()
+    with tempfile.TemporaryDirectory(prefix="rvdd_smoke_") as root:
+        serve_phase(root)
+        train_phase(root)
 
     kernels = [
         dict(name="warp_bicubic", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",

@@ -6,10 +6,12 @@ The experiment name is generated as the reference does
 ("%s-%s%s-i%do%d%s"; reference: options/base_options.py:130-136), so
 checkpoint directories line up.  :meth:`Options.engine_config` maps
 rvdd_tpu's values onto the port's engine: ``--net_impl xla`` is the module
-path and ``fused`` the CUDA chains; ``--warp_impl auto|xla|pallas`` is
-``auto|plain|kernel`` (``shift``, a training warp, raises);
+path and ``fused`` the CUDA chains; ``--warp_impl auto|xla|pallas|shift``
+is ``auto|plain|kernel|plain`` (rvdd_tpu's ``shift`` is its banded TPU
+training warp; the port's is the exact plain warp);
 ``--fused_precision auto`` resolves through the port's
-``resolve_fused_precision``.  rvdd_tpu's ``--compilation_cache_dir`` is
+``resolve_fused_precision``.  The train step's warp is
+:meth:`Options.resolve_train_warp_impl`'s.  rvdd_tpu's ``--compilation_cache_dir`` is
 parsed and ignored; ``--mesh_shape``, ``--distributed`` and
 ``--profile_dir`` raise NotImplementedError when set to anything but their
 defaults (ROADMAP.md).
@@ -26,7 +28,8 @@ from dataclasses import dataclass
 from rvdd_tpu_torch.recurrent.engine import EngineConfig
 
 #: rvdd_tpu's --warp_impl values -> the port's EngineConfig.warp_impl
-WARP_IMPLS = {"auto": "auto", "xla": "plain", "pallas": "kernel"}
+#: outside the train step
+WARP_IMPLS = {"auto": "auto", "xla": "plain", "pallas": "kernel", "shift": "plain"}
 #: rvdd_tpu's --net_impl values -> the port's EngineConfig.net_impl
 NET_IMPLS = {"xla": "module", "fused": "fused"}
 
@@ -100,9 +103,9 @@ class Options:
     path2epoch: str = ""
     epoch: str = "latest_val"
     seed: int = 0
-    # rematerialize each unrolling in the training backward (exact grads,
-    # O(net) instead of O(unrollings*net) activation memory; needed for
-    # the ConvNeXt flagship's production config on a 16 GB chip)
+    # recompute each unrolling in the training backward
+    # (torch.utils.checkpoint): the same gradients, activation memory of
+    # one unrolling instead of all, about one more forward an unrolling
     remat: bool = False
 
     # validation
@@ -128,11 +131,13 @@ class Options:
     #: 'default' (1-pass bf16).  Applies to the train step (and in-loop
     #: validation); the validate CLI stays exact regardless.
     train_matmul_precision: str = "highest"
-    #: residual radius of the training shift warp's banded sweep (see
-    #: EngineConfig.shift_warp_radius)
+    #: residual radius of rvdd_tpu's banded training warp, for the clamp
+    #: telemetry under --warp_impl shift (EngineConfig.shift_warp_radius)
     shift_warp_radius: int = 8
     #: the state warp: auto | xla (the plain PyTorch warp) | pallas (the
-    #: CUDA warp kernel); 'shift' is a training warp and raises here
+    #: CUDA warp kernel) | shift (the plain warp; in the train step it also
+    #: logs what rvdd_tpu's banded sweep would clamp).  The train step
+    #: always warps with the exact plain warp (resolve_train_warp_impl)
     warp_impl: str = "auto"
     #: 'xla' (the port's module path, fp32) | 'fused' (the CUDA chains;
     #: PERF.md has their speed by preset)
@@ -179,9 +184,7 @@ class Options:
         from rvdd_tpu_torch.registry import get_model
 
         if self.warp_impl not in WARP_IMPLS:
-            raise NotImplementedError(
-                f"--warp_impl {self.warp_impl}: the port's inference warps are "
-                f"{sorted(WARP_IMPLS)} ('shift' is a training warp)")
+            raise ValueError(f"unknown --warp_impl {self.warp_impl!r}; have {sorted(WARP_IMPLS)}")
         if self.net_impl not in NET_IMPLS:
             raise ValueError(f"unknown --net_impl {self.net_impl!r}")
         return get_model(self.model)(
@@ -201,7 +204,21 @@ class Options:
             net_impl=NET_IMPLS[self.net_impl],
             state_dtype=self.state_dtype,
             fused_precision=self.resolve_fused_precision(),
+            shift_warp_radius=self.shift_warp_radius,
+            remat=self.remat,
         )
+
+    def resolve_train_warp_impl(self) -> str:
+        """The train step's warp (rvdd_tpu/config.py:resolve_train_warp_impl):
+        the exact plain warp whatever ``--warp_impl`` says, since the CUDA
+        warp is forward-only and the plain warp's gather backward is a
+        scatter-add on the card (rvdd_tpu trains on the TPU with its banded
+        'shift' warp because XLA:TPU serializes that scatter).  ``shift``
+        keeps its name, so the train step logs the clamp telemetry of
+        rvdd_tpu's sweep."""
+        if self.warp_impl not in WARP_IMPLS:
+            raise ValueError(f"unknown --warp_impl {self.warp_impl!r}; have {sorted(WARP_IMPLS)}")
+        return "shift" if self.warp_impl == "shift" else "plain"
 
     def resolve_fused_precision(self) -> str:
         from rvdd_tpu_torch.models.fast_unet import resolve_fused_precision

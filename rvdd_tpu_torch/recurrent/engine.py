@@ -56,8 +56,15 @@ around that kernel, a host loop of small launches with one read of the
 convergence measure an iteration, so its launches, not the card's
 arithmetic, bound it (PERF.md).
 
-Training (``unrolled_forward``, ``compute_losses``) waits for a later
-slice.
+Training: ``unrolled_forward`` runs a sample's unrollings on the module
+path under autograd and ``compute_losses`` weighs their L1 and PSNR.  The
+backward is PyTorch's: rvdd_tpu's train step differentiates its XLA net
+and warp, never a Pallas kernel, so the fused chains (forward-only here as
+there) refuse to train.  ``warp_impl='shift'`` is the exact plain warp,
+the gradient of whose gather is a scatter-add on the card; the train step
+only logs what rvdd_tpu's banded sweep would have clamped
+(ops/warp_shift.py).  ``remat`` recomputes each unrolling in the backward
+(``torch.utils.checkpoint``), as rvdd_tpu's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from rvdd_tpu_torch.models.convnext_unet import ConvNeXtUNet
 from rvdd_tpu_torch.models.fast_convnext import (
@@ -84,6 +92,7 @@ from rvdd_tpu_torch.models.fast_unet import (
 from rvdd_tpu_torch.ops.bayer import remosaic
 from rvdd_tpu_torch.ops.cuda.warp_bicubic import warp_bicubic, warp_bicubic_plain
 from rvdd_tpu_torch.ops.demosaic import hamilton_adams
+from rvdd_tpu_torch.ops.metrics import psnr
 from rvdd_tpu_torch.ops.tvl1 import TVL1Params, to_gray, tvl1_flow
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x, warp
 
@@ -109,8 +118,10 @@ class EngineConfig:
     raw_gt: bool = False
     lambda_l1: float = 100.0
     #: the state warp: 'auto' (the CUDA warp on the fused path, the plain
-    #: one on the module path), 'plain' (PyTorch) or 'kernel' (the CUDA
-    #: warp, which on CPU tensors runs its plain version)
+    #: one on the module path), 'plain' (PyTorch), 'kernel' (the CUDA
+    #: warp, which on CPU tensors runs its plain version) or 'shift' (the
+    #: plain warp, with the train step's clamp telemetry of rvdd_tpu's
+    #: banded training warp)
     warp_impl: str = "auto"
     #: carried state dtype: 'float32' (the production default) or
     #: 'bfloat16' (the module path's carry; the fused path's carry takes
@@ -122,6 +133,13 @@ class EngineConfig:
     #: models/fast_unet.py:FUSED_PRECISIONS or 'hybrid:<chains>'; ConvNeXtUNet:
     #: models/fast_convnext.py:CNX_PRECISIONS)
     fused_precision: str = "fast"
+    #: residual radius of rvdd_tpu's banded 'shift' warp, for the clamp
+    #: telemetry of ``warp_impl='shift'``
+    shift_warp_radius: int = 8
+    #: recompute each unrolling in the training backward
+    #: (torch.utils.checkpoint): the same gradients, activation memory of
+    #: one unrolling instead of all
+    remat: bool = False
 
     @property
     def d(self) -> int:
@@ -165,7 +183,7 @@ def _warp(cfg: EngineConfig, x: torch.Tensor, flow: torch.Tensor) -> torch.Tenso
     if cfg.warp_impl == "kernel":
         return warp_bicubic(x.float().contiguous(), flow.float().contiguous(),
                             out_dtype=torch.float32)
-    if cfg.warp_impl not in ("plain", "auto"):
+    if cfg.warp_impl not in ("plain", "auto", "shift"):
         raise ValueError(f"unknown warp_impl {cfg.warp_impl!r}")
     return warp(x, flow, "bicubic")[0]
 
@@ -359,6 +377,57 @@ def _fused_step(cfg, net, state, cur, future, flows, packed):
         keep[..., STATE_FEAT_OFF:] = nxt[..., STATE_FEAT_OFF:]
         nxt = keep
     return den, RecurrentState(nxt, None)
+
+
+def unrolled_forward(cfg: EngineConfig, net, frames: torch.Tensor,
+                     flows: Optional[torch.Tensor], unrollings: int,
+                     nil_feat=None) -> torch.Tensor:
+    """Training forward (rvdd_tpu/recurrent/engine.py:unrolled_forward):
+    run ``unrollings`` steps of the module path from the noisy previous
+    frames and return every output [B, unrollings, H, W, C_out].  frames
+    [B, T, H, W, C] prepared; flows [B, TD, D+fD, H, W, 2] prepared, or
+    None.  With ``cfg.remat`` each step is recomputed in the backward."""
+    if cfg.net_impl != "module":
+        raise ValueError(
+            f"net_impl={cfg.net_impl!r} cannot train: the fused chains are forward-only "
+            "(as rvdd_tpu's Pallas chains, which have no VJP); train with net_impl='module'")
+    d = cfg.d
+    state = init_state(cfg, frames, nil_feat, net)
+    outs = []
+    for a in range(unrollings):
+        cur = frames[:, a + d]
+        future = (frames[:, a + d + 1:a + d + 1 + cfg.future_patch_depth]
+                  if cfg.future_patch_depth else None)
+        fl = flows[:, a] if flows is not None else None
+        if cfg.remat:
+            den, state = checkpoint(step, cfg, net, state, cur, future, fl,
+                                    use_reentrant=False)
+        else:
+            den, state = step(cfg, net, state, cur, future, fl)
+        outs.append(den)
+    return torch.stack(outs, dim=1)
+
+
+def compute_losses(cfg: EngineConfig, outputs: torch.Tensor, gt: torch.Tensor,
+                   weights: torch.Tensor) -> dict:
+    """Weighted L1 (x ``lambda_l1``) and PSNR (peak 2.0) over the unrolling
+    outputs [B, A, H, W, C_out] against gt [B, T, H', W', C_gt], with
+    unrolling weights [A]; a raw ground truth scores the remosaicked output
+    (rvdd_tpu/recurrent/engine.py:compute_losses; reference:
+    recurrent_model.py:473-510)."""
+    d = cfg.d
+    l1s, psnrs = [], []
+    for a in range(outputs.shape[1]):
+        den = outputs[:, a].float()
+        target = gt[:, a + d]
+        if cfg.raw_gt and not cfg.no_predemosaic:
+            den = remosaic(den)
+        l1s.append((den - target).abs().mean() * cfg.lambda_l1)
+        psnrs.append(psnr(den, target, 2.0))
+    weights = weights.to(outputs.device, torch.float32)
+    loss_l1 = (weights * torch.stack(l1s)).sum()
+    loss_psnr = (weights * torch.stack(psnrs)).sum()
+    return {"L1": loss_l1, "PSNR": loss_psnr, "Denoiser": loss_l1}
 
 
 def inference_step(cfg: EngineConfig, net, state: Optional[RecurrentState],

@@ -1,6 +1,7 @@
 """Name registries for datasets and models (port of rvdd_tpu/registry.py):
-the CLI names ``--model recurrent`` and ``--val_dataset_mode infer4rec``
-resolve here, and user code can ``register_*`` its own."""
+the CLI names ``--model recurrent``, ``--dataset_mode axel4rec`` and
+``--val_dataset_mode infer4rec`` resolve here, and user code can
+``register_*`` its own."""
 
 from __future__ import annotations
 
@@ -30,17 +31,11 @@ def get_model(name: str) -> Callable:
     return _MODELS[name]
 
 
-def _train_dataset_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "dataset_mode 'axel4rec' (the training dataset, TrainWindowDataset) is not ported "
-        "yet; see ROADMAP.md")
-
-
 def _register_builtins() -> None:
-    from rvdd_tpu_torch.data.datasets import InferenceDataset
+    from rvdd_tpu_torch.data.datasets import InferenceDataset, TrainWindowDataset
     from rvdd_tpu_torch.recurrent.engine import EngineConfig
 
-    register_dataset("axel4rec", _train_dataset_not_ported)
+    register_dataset("axel4rec", TrainWindowDataset)
     register_dataset("infer4rec", InferenceDataset)
     register_model("recurrent", EngineConfig)
 

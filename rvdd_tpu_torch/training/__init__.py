@@ -1,2 +1,2 @@
-"""Checkpoint loading and the validation loop (port of rvdd_tpu/training;
-the training half waits for a later slice, ROADMAP.md)."""
+"""Training: optimizers and the train step, checkpoints, the epoch loop and
+the validation loop (port of rvdd_tpu/training)."""

@@ -1,19 +1,27 @@
-"""The validation loop, the serving half of rvdd_tpu/training/loop.py
-(reference: validate.py:54-114).
+"""The epoch loop and the validation loop (port of
+rvdd_tpu/training/loop.py; reference: train.py:67-130, validate.py:54-114).
+
+:func:`train` runs rvdd_tpu's epoch protocol on the options' device:
+windowed patches from ``TrainWindowDataset`` (flows from a
+:class:`FlowCache`, computed on the device where missing), one train step a
+batch (autograd through every unrolling, weighted by the ``--unroll_focus``
+schedule), checkpoints ('0', every epoch and 'latest', 'latest_val' at the
+best validation loss) with ``status.json`` for ``--autoresume``, and
+in-loop validation.
 
 Serial full-frame validation carries the recurrence state across frames
 with a FirstOfVideo reset (:func:`compute_validation`), or streams each clip
 through ``engine.scan_video`` (:func:`compute_validation_scan`, the
 ``--val_scan`` protocol: from frame 0 on, every frame sees a denoised
 previous frame, where the per-frame path's first window sees the noisy
-one).  Everything runs on the options' device; the fused path packs its
-weights once a run.  The epoch loop, the Logger and the train step wait for
-the training slice (ROADMAP.md).
+one).  The fused path packs its weights once a run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import time
 from os.path import basename, join
 from typing import Dict, Optional
 
@@ -37,6 +45,34 @@ from rvdd_tpu_torch.recurrent.engine import (
     prepare_frames,
     scan_video,
 )
+from rvdd_tpu_torch.recurrent.schedules import active_unrollings, unroll_weights
+from rvdd_tpu_torch.training.checkpoints import (
+    load_checkpoint,
+    load_status,
+    save_checkpoint,
+    save_status,
+)
+from rvdd_tpu_torch.training.train_state import (
+    create_train_state,
+    lr_for_epoch,
+    make_train_step,
+    set_learning_rate,
+)
+
+
+class Logger:
+    """loss_log.txt writer (reference: util/visualizer.py:36-102)."""
+
+    def __init__(self, save_dir: str):
+        os.makedirs(save_dir, exist_ok=True)
+        self.path = join(save_dir, "loss_log.txt")
+        with open(self.path, "a") as f:
+            f.write(f"================ Training Loss ({time.strftime('%c')}) ================\n")
+
+    def line(self, msg: str) -> None:
+        print(msg)
+        with open(self.path, "a") as f:
+            f.write(msg + "\n")
 
 
 def build_validation(opt: Options) -> InferenceDataset:
@@ -265,3 +301,192 @@ def compute_validation_scan(opt: Options, net, val_dataset: InferenceDataset,
             if save_visuals and val_image_dir is not None:
                 _save(dens[p], val_image_dir, seq, n_paths[p])
     return {f"{k}_valLoss": v / max(count, 1) for k, v in totals.items()}
+
+
+def prepare_host_batch(batch: Dict[str, np.ndarray], device):
+    """A numpy batch -> (frames, flows or None, gt) on ``device``; the
+    demosaic and the flow upsample run on the device inside the train step
+    (engine.prepare_frames)."""
+    frames = torch.from_numpy(batch["n"]).to(device)
+    flows = torch.from_numpy(batch["flow"]).to(device) if "flow" in batch else None
+    return frames, flows, torch.from_numpy(batch["gt"]).to(device)
+
+
+def _set_train_precision(name: str) -> None:
+    """``--train_matmul_precision``: 'highest' turns TF32 off in cuBLAS and
+    cuDNN; 'high' turns it on (the TF32 class the reference trains under on
+    Ampere); 'default' turns it on and the train step runs its forward
+    under bf16 autocast.  Process-wide, in-loop validation included, as in
+    rvdd_tpu; the validate CLI is a separate process."""
+    from rvdd_tpu_torch.precision import use_exact_precision, use_fast_precision
+
+    if name == "highest":
+        use_exact_precision()
+    elif name in ("high", "default"):
+        use_fast_precision()
+    else:
+        raise ValueError(f"unknown --train_matmul_precision {name!r}")
+
+
+def train(opt: Options) -> dict:
+    """Full training entry (reference: train.py).  Returns what the run
+    measured: per epoch its steps, learning rate, first and last losses,
+    whether every loss was finite, the milliseconds an optimizer step
+    (synchronized, the epoch's first step left out), the seconds the steps
+    waited for data and the validation losses and seconds; and the flows
+    the caches computed with their seconds."""
+    from rvdd_tpu_torch.models import build_network
+    from rvdd_tpu_torch.registry import get_dataset
+
+    dev = resolve_device(opt.device)
+    if opt.init_type != "kaiming":
+        raise NotImplementedError(f"--init_type {opt.init_type}: the port draws kaiming weights "
+                                  "only (models/factory.py)")
+    _set_train_precision(opt.train_matmul_precision)
+    cfg = dataclasses.replace(opt.engine_config(), warp_impl=opt.resolve_train_warp_impl())
+    save_dir = opt.save_dir
+    log = Logger(save_dir)
+    opt.save(join(save_dir, "opt_train.json"))
+    log.line(opt.dump())
+
+    cache = None
+    if not opt.no_warp:
+        cache = FlowCache(opt.dataroot, opt.nFolder, opt.flowFolder, opt.warp_method,
+                          persist=opt.persist_flows, device=dev)
+    train_ds = get_dataset(opt.dataset_mode)(
+        opt.dataroot, opt.gt_folder_for_mode(), opt.nFolder, patch_width=opt.patch_width,
+        patch_stride=opt.patch_stride, patch_depth=opt.patch_depth,
+        model_patch_depth=opt.model_patch_depth, future_patch_depth=opt.future_patch_depth,
+        frames2load=opt.frames2load, bit_depth=opt.bit_depth, raw_gt=opt.raw_gt,
+        no_predemosaic=opt.no_predemosaic, videos=opt.videos, flow_cache=cache,
+        no_warp=opt.no_warp, seed=opt.seed)
+    log.line(f"The number of training images = {len(train_ds)}")
+    val_ds = None if opt.no_val else build_validation(opt)
+    if val_ds is not None:
+        log.line(f"Number of validation images = {len(val_ds)}")
+
+    net = build_network(opt.netDenoiser, cfg.network_input_nc, opt.output_nc, cfg.feature_rec,
+                        seed=opt.seed, device=dev)
+    if opt.path2epoch:
+        load_checkpoint(opt.path2epoch, None, net)
+        log.line(f"loaded weights from {opt.path2epoch}")
+    state = create_train_state(net, opt.optimizer, opt.beta1, opt.weight_decay)
+    train_step = make_train_step(cfg, opt.train_matmul_precision)
+
+    # autoresume (reference: train.py:15-28), with the optimizer state
+    # where the run saved one (an rvdd_tpu run directory has none the port
+    # reads: its moments restart, as the reference's do)
+    epoch_start = 1
+    status = load_status(save_dir)
+    if opt.autoresume and status:
+        restored = load_checkpoint(save_dir, str(status["epoch"]), net, state.optimizer)
+        epoch_start = status["epoch"] + 1
+        log.line(f"autoresumed from epoch {status['epoch']}"
+                 + ("" if restored else " (no optimizer state: the moments restart)"))
+    else:
+        save_checkpoint(save_dir, "0", net)
+
+    best_val = float(status.get("best_val", "inf")) if status else float("inf")
+    td = opt.patch_depth - 1
+    total_iters = 0
+    val_image_dir = join(save_dir, "val_visuals")
+    # plateau policy state (reference: networks/__init__.py:39-46)
+    plateau_factor, plateau_best, plateau_wait = 1.0, float("inf"), 0
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    epochs = []
+
+    for epoch in range(epoch_start, opt.niter + opt.niter_decay + 1):
+        if opt.lr_policy == "plateau":
+            lr = opt.lr * plateau_factor
+        else:
+            lr = lr_for_epoch(epoch, opt.lr, opt.lr_policy, opt.niter, opt.niter_decay,
+                              opt.lr_decay_iters)
+        set_learning_rate(state, lr)
+        epoch_t0 = time.time()
+        epoch_len = max(len(train_ds) // opt.batch_size, 1)
+        rec = dict(epoch=epoch, lr=lr, data_s=0.0)
+        losses_seen, t_first = [], None
+        data_t0 = time.time()
+        for it, batch in enumerate(train_ds.batches(opt.batch_size)):
+            t_data = time.time() - data_t0
+            rec["data_s"] += t_data
+            w = unroll_weights(opt.unroll_focus, td, epoch, it, epoch_len)
+            frames, flows, gt = prepare_host_batch(batch, dev)
+            t0 = time.time()
+            state, losses = train_step(state, frames, flows, gt, torch.from_numpy(w))
+            losses_seen.append(losses)
+            if t_first is None:
+                sync()
+                t_first = time.perf_counter()
+            total_iters += opt.batch_size
+            if total_iters % opt.print_freq < opt.batch_size:
+                sync()
+                t_comp = (time.time() - t0) / opt.batch_size
+                msg = (f"(epoch: {epoch}, iters: {total_iters}, time: {t_comp:.3f}, "
+                       f"data: {t_data:.3f}) ")
+                msg += " ".join(f"{k}: {float(v):.3f}" for k, v in losses.items())
+                log.line(msg)
+                clamp = float(losses.get("warp_clamp", 0.0))
+                if clamp > 0.0:
+                    log.line(
+                        f"WARNING: rvdd_tpu's banded shift warp would have clamped "
+                        f"{100 * clamp:.2f}% of the warped pixels this step (flows beyond "
+                        f"its sweep radius {cfg.shift_warp_radius}), so its gradients "
+                        "there would be approximate; the port's warp is exact.  Raise "
+                        "--shift_warp_radius to match an rvdd_tpu run.")
+            data_t0 = time.time()
+        sync()
+        steps = len(losses_seen)
+        rec["steps"] = steps
+        rec["step_ms"] = ((time.perf_counter() - t_first) * 1e3 / (steps - 1)
+                          if steps > 1 else None)
+        if steps:
+            every = torch.stack([v for step in losses_seen for v in step.values()])
+            rec["finite"] = bool(torch.isfinite(every).all())
+            rec["first"] = {k: float(v) for k, v in losses_seen[0].items()}
+            rec["last"] = {k: float(v) for k, v in losses_seen[-1].items()}
+
+        if epoch % opt.save_epoch_freq == 0:
+            save_checkpoint(save_dir, "latest", net, state.optimizer)
+            save_checkpoint(save_dir, str(epoch), net, state.optimizer)
+            save_status(save_dir, {"epoch": epoch, "best_val": best_val})
+
+        if val_ds is not None and epoch % opt.val_epoch_freq == 0:
+            v0 = time.time()
+            # the reference validates non-recurrently while the gradual
+            # schedule still trains with 1 unrolling
+            # (recurrent_model.py:233-238,255-264)
+            val_losses = compute_validation(
+                opt, net, val_ds, val_image_dir,
+                carry_state=active_unrollings(opt.unroll_focus, td, epoch) > 1)
+            rec["val_s"] = time.time() - v0
+            rec["val"] = dict(val_losses)
+            val_losses["lr"] = lr
+            msg = (f"---> validation: (epoch: {epoch}, time: {rec['val_s']:.1f}, "
+                   f"#data: {len(val_ds)}) [")
+            msg += ", ".join(f"{k}: {v:.3f}" for k, v in val_losses.items()) + "]"
+            log.line(msg)
+            if val_losses["Denoiser_valLoss"] < best_val:
+                best_val = val_losses["Denoiser_valLoss"]
+                save_checkpoint(save_dir, "latest_val", net, state.optimizer)
+                save_status(save_dir, {"epoch": epoch, "best_val": best_val})
+
+            if opt.lr_policy == "plateau":
+                v = val_losses["Denoiser_valLoss"]
+                if v < plateau_best * (1.0 - 0.01):
+                    plateau_best, plateau_wait = v, 0
+                else:
+                    plateau_wait += 1
+                    if plateau_wait > 5:
+                        plateau_factor *= 0.2
+                        plateau_wait = 0
+                        log.line(f"plateau: lr factor -> {plateau_factor:.3e}")
+
+        train_ds.prepare_epoch()
+        epochs.append(rec)
+        log.line(f"End of epoch {epoch} / {opt.niter + opt.niter_decay} \t"
+                 f" Time Taken: {int(time.time() - epoch_t0)} sec (lr {lr:.7f})")
+
+    caches = [c for c in (cache, val_ds.flow_cache if val_ds is not None else None) if c]
+    return dict(epochs=epochs, flows_computed=sum(c.computed for c in caches),
+                flow_seconds=sum(c.seconds for c in caches))

@@ -12,7 +12,7 @@ pytest.importorskip("jax")
 
 from rvdd_tpu import config as jconfig  # noqa: E402
 from rvdd_tpu_torch import config, precision, registry  # noqa: E402
-from rvdd_tpu_torch.data.datasets import InferenceDataset  # noqa: E402
+from rvdd_tpu_torch.data.datasets import InferenceDataset, TrainWindowDataset  # noqa: E402
 from rvdd_tpu_torch.recurrent.engine import EngineConfig  # noqa: E402
 
 ARGV = ["--netDenoiser", "convunet-mode=fixedfeatures+feat", "--feature_rec",
@@ -69,15 +69,24 @@ def test_not_ported_flags_raise(flags):
 
 
 def test_shift_warp_raises():
-    with pytest.raises(NotImplementedError, match="shift"):
-        config.parse_options(["--warp_impl", "shift"]).engine_config()
+    """Since the training slice ``--warp_impl shift`` is accepted: outside
+    the train step it is the plain warp, in the train step the plain warp
+    that logs rvdd_tpu's clamp telemetry, and every other value trains with
+    the plain warp too.  A value neither package has raises."""
+    opt = config.parse_options(["--warp_impl", "shift"])
+    assert opt.engine_config().warp_impl == "plain"
+    assert opt.resolve_train_warp_impl() == "shift"
+    for w in ("auto", "xla", "pallas"):
+        assert config.parse_options(["--warp_impl", w]).resolve_train_warp_impl() == "plain"
+    for call in ("engine_config", "resolve_train_warp_impl"):
+        with pytest.raises(ValueError, match="bogus"):
+            getattr(config.parse_options(["--warp_impl", "bogus"]), call)()
 
 
 def test_registry():
     assert registry.get_model("recurrent") is EngineConfig
     assert registry.get_dataset("infer4rec") is InferenceDataset
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_dataset("axel4rec")("root", "gt", "noisy")
+    assert registry.get_dataset("axel4rec") is TrainWindowDataset
     with pytest.raises(KeyError):
         registry.get_model("nope")
     registry.register_model("mine", EngineConfig)
