@@ -4,10 +4,11 @@
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions.
-2. Builds every kernel of the main paths from rvdd_tpu_torch/csrc with nvcc
-   (one process per source, started together) and prints each build's time,
-   ptxas register, shared-memory and spill lines, and the C75xx notes
-   ("wgmma ... serialized" and the like) by kernel.
+2. Builds every kernel of the main paths from rvdd_tpu_torch/csrc with nvcc,
+   and the host decode pool csrc/rvdd_io.cpp with g++ (one process per
+   source, started together), and prints each build's time, ptxas
+   register, shared-memory and spill lines, and the C75xx notes ("wgmma ...
+   serialized" and the like) by kernel.
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (1080p; the TV-L1 solver's warp at its finest level, 540x960),
    TF32 off on the plain side, and times the kernel, the plain version and
@@ -75,6 +76,14 @@
    in another preset than 'fast' are also run under 'fast' and compared the
    same way: its max and mean errors must be below fast's at both steps
    (BEATS_FAST; 'wf32''s are printed only).
+   The ``streams`` paths run convunet+feat and the flagship under 'fast'
+   with two batched streams (bench's make_inputs(streams=2)) for 5 frames:
+   the kernels' launches a step must equal one stream's (the kernels take
+   the batch in one launch a layer), each stream's first two frames must
+   be within 'fast''s envelope of the plain module path, and each stream's
+   largest difference from its own single-stream run is printed.  Then one
+   short ``bench.run`` record each of convunet+feat with ``streams=2``,
+   ``scan=True`` and ``exact=True`` is printed (``{"bench": ...}``).
 6. The ``serve`` phase drives the port's serving entry points through their
    ``main(argv)``s, on the card: ``cli.generate_data`` writes a 1080p clip
    of 7 frames at ISO 3200 (a moving sRGB texture,
@@ -92,8 +101,11 @@
    that PSNR.txt and SSIM.txt hold their averages; it prints the fps of
    each run (host clock, synchronized; the flow solver's time taken out),
    the flow seconds, the seconds of one pass of the per-frame dataset's
-   reads (TIFFs and cached flows) and of each score, and the kernels'
-   launches in each run, on one line.
+   reads (TIFFs through the host decode pool, and cached flows) and of
+   each score, and the kernels' launches in each run, on one line.  Its
+   ``native`` entry loads the clip's noisy and ground-truth stacks by the
+   decode pool and by the numpy reader, which must be bit-equal, and gives
+   the seconds of each and the pool's threads.
 7. The ``train`` phase drives the port's trainer through
    ``cli.train.main(argv)`` on the card, in the same temporary directory:
    ``cli.generate_data`` writes the clip's train split; the trainer runs
@@ -164,6 +176,7 @@ from rvdd_tpu_torch.bench import (  # noqa: E402
     resolve_precision,
     step_fn,
 )
+from rvdd_tpu_torch.bench import run as bench_run  # noqa: E402
 from rvdd_tpu_torch.models.fast_unet import CHAINS  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
     MODES,
@@ -198,7 +211,14 @@ from rvdd_tpu_torch.ops.warp import flow_upsample_2x  # noqa: E402
 from rvdd_tpu_torch.cli import generate_data, score, train, validate  # noqa: E402
 from rvdd_tpu_torch.data.datasets import InferenceDataset  # noqa: E402
 from rvdd_tpu_torch.data.flow_cache import FlowCache  # noqa: E402
-from rvdd_tpu_torch.data.io import imwrite, list_video_files, load_image_stack  # noqa: E402
+from rvdd_tpu_torch.data.io import (  # noqa: E402
+    NATIVE_WORKERS,
+    imwrite,
+    list_video_files,
+    load_image,
+    load_image_stack,
+    native_shape,
+)
 from rvdd_tpu_torch.ops.demosaic import hamilton_adams  # noqa: E402
 from rvdd_tpu_torch.ops.metrics import psnr  # noqa: E402
 from rvdd_tpu_torch.models import build_network  # noqa: E402
@@ -1231,6 +1251,98 @@ def main_path(model: str, flow, n_frames: int, warm: int, precision: str) -> dic
     return launches
 
 
+# ---------------------------------------------------------------- streams
+
+STREAMS, STREAM_FRAMES = 2, 5
+#: the streams paths: the models bench batches most often, under 'fast'
+STREAM_MODELS = ("convunet+feat", "convnext+feat+future")
+
+
+def streams_path(model: str) -> dict:
+    """Drive ``model`` under 'fast' with STREAMS batched streams for
+    STREAM_FRAMES frames; returns its launch counts, which must be one
+    stream's a step (NET_LAUNCHES).  Each stream's first two frames are
+    held to 'fast''s envelope of the plain module path (fed the same
+    flows), and each stream's largest difference from its own
+    single-stream run is printed."""
+    preset = resolve_precision(model)
+    cfg, net, packed = make_model("fused", seed=0, device=DEV, model=model)
+    raw, flows = make_inputs(H // 2, W // 2, seed=0, device=DEV, model=model, streams=STREAMS)
+    name = f"{model} x{STREAMS} streams [{preset}]"
+    torch.cuda.synchronize()
+    reset_counts()
+    dens, state = [], None
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    for i in range(STREAM_FRAMES):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        den, state = step_fn(cfg, net, packed, state, raw, flows)
+        if tuple(den.shape) != (STREAMS, H, W, 3):
+            raise AssertionError(f"{name} frame {i}: output shape {tuple(den.shape)}")
+        finite &= torch.isfinite(den).all()
+        if i < 2:
+            dens.append(den)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (STREAM_FRAMES - 1)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    launches.update(mode_counts())
+    if not bool(finite):
+        raise AssertionError(f"a {name} output is not finite")
+    want = {k: n * STREAM_FRAMES for k, n in NET_LAUNCHES[model, preset].items()}
+    want["warp_catmull_zero"] = 0
+    log(f"main path {name}: {STREAM_FRAMES} steps, all finite, launches {launches} (one "
+        f"stream's a step: {NET_LAUNCHES[model, preset]})")
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+    alone = []
+    for b in range(STREAMS):
+        d0, st = step_fn(cfg, net, packed, None, raw[b:b + 1], flows[b:b + 1])
+        d1, _ = step_fn(cfg, net, packed, st, raw[b:b + 1], flows[b:b + 1])
+        alone.append(max(float((dens[0][b] - d0[0]).abs().max()),
+                         float((dens[1][b] - d1[0]).abs().max())))
+    del state, packed
+    with plain_mode():
+        refs = first_two(model, "auto", raw, [flows, flows], net_impl="module")
+    errs = [[float((g[b] - r[b]).abs().max()) / (float(r[b].std()) + 1e-6)
+             for g, r in zip(dens, refs)] for b in range(STREAMS)]
+    log(f"main path {name}: {STREAMS * 1e3 / ms:.2f} frames/s ({ms:.2f} ms a step of "
+        f"{STREAMS} frames, host clock, card {CARD}); each stream's largest difference from "
+        f"its own single-stream run over two steps: {alone}; normalized max err against the "
+        f"plain module path by stream (steps 1, 2): {errs} (limits {ENVELOPE[preset]})")
+    for b in range(STREAMS):
+        for i, lim in enumerate(ENVELOPE[preset]):
+            if not errs[b][i] < lim:
+                raise AssertionError(f"{name} stream {b} step {i + 1} outside the envelope")
+    del refs, dens
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: bench.run's modes of this slice, on convunet+feat at 1080p: (keyword
+#: arguments, the kernels each must launch, those it must not)
+BENCH_MODES = ((dict(streams=2, frames=5), ("warp_bicubic", "conv_chain"), ()),
+               (dict(scan=True, frames=6), ("warp_bicubic", "conv_chain"), ()),
+               (dict(exact=True, frames=3), ("warp_bicubic",), ("conv_chain",)))
+
+
+def bench_modes() -> list:
+    """One short bench.run record of each of BENCH_MODES, printed with the
+    kernels it launched (warm-up included)."""
+    recs = []
+    for kw, launched, not_launched in BENCH_MODES:
+        reset_counts()
+        with saved_precision():
+            rec = bench_run(model="convunet+feat", **kw)
+        rec["launches"] = {k.__name__: k.launches for k in KERNELS}
+        log(json.dumps({"bench": rec}))
+        if not (rec["value"] > 0 and all(rec["launches"][k] for k in launched)
+                and not any(rec["launches"][k] for k in not_launched)):
+            raise AssertionError(f"bench {kw}: {rec}")
+        recs.append(rec)
+    return recs
+
+
 # ---------------------------------------------------------------- serve
 
 
@@ -1288,6 +1400,30 @@ def noisy_input_psnr(val: str, frames) -> float:
         gt = torch.from_numpy(load_image_stack([gt_paths[t]])).to(DEV) * 2 - 1
         out.append(float(psnr(hamilton_adams(raw), gt, 2.0)))
     return sum(out) / len(out)
+
+
+def native_check(val: str) -> dict:
+    """The clip's noisy and ground-truth stacks, read by the host decode
+    pool (load_image_stack's route for them: their headers are in its
+    subset) and by the numpy reader: bit-equal; the seconds of each."""
+    out = {"workers": NATIVE_WORKERS}
+    for folder in (f"noisy_iso{SERVE_ISO}", f"gt_raw_linear_RGB_iso{SERVE_ISO}"):
+        paths = list_video_files(os.path.join(val, folder, "000"))
+        if native_shape(paths[0]) is None:
+            raise AssertionError(f"native: {paths[0]} is outside the pool's subset")
+        t0 = time.perf_counter()
+        pool = load_image_stack(paths)
+        t1 = time.perf_counter()
+        ref = np.stack([load_image(p) for p in paths])
+        t2 = time.perf_counter()
+        if pool.dtype != ref.dtype or pool.shape != ref.shape or not np.array_equal(
+                pool.view(np.uint32), ref.view(np.uint32)):
+            raise AssertionError(f"native: the pool's {folder} differs from the numpy reader's")
+        out[folder] = {"files": len(paths), "shape": list(ref.shape[1:]), "pool_s": t1 - t0,
+                       "numpy_s": t2 - t1}
+    log(f"native: the decode pool ({NATIVE_WORKERS} threads) equals the numpy reader bit for "
+        f"bit: {out}")
+    return out
 
 
 @contextlib.contextmanager
@@ -1357,6 +1493,9 @@ def serve_phase(root: str) -> dict:
                                                        device="cuda")):
             pass
         rec["read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["native"] = native_check(val)
+        rec["native"]["seconds"] = time.perf_counter() - t0
         rec["noisy_psnr"] = noisy_input_psnr(val, range(1, frames))
     rec["runs"] = runs
     rec["flow_seconds"] = sum(r["flow_seconds"] for r in runs.values())
@@ -1708,10 +1847,10 @@ def main(argv=None):
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    info = _build.build()
+    info = _build.build(_build.SOURCES + _build.HOST_SOURCES)
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(info)} sources")
     for name, rec in info.items():
-        log(f"  {name}.cu: nvcc {rec['seconds']:.1f} s")
+        log(f"  {_build.source_path(name).name}: {rec['seconds']:.1f} s")
         for line in ptxas_lines(rec["ptxas"]):
             log(f"    {line}")
 
@@ -1750,7 +1889,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     runs = [main_path(*path) for path in PATHS]
+    t0 = time.perf_counter()
+    runs += [streams_path(model) for model in STREAM_MODELS]
+    t1 = time.perf_counter()
     total = {k.__name__: sum(r[k.__name__] for r in runs) for k in KERNELS}
+    bench_modes()
+    log(f"streams paths {t1 - t0:.1f} s, bench records {time.perf_counter() - t1:.1f} s "
+        "(host clock)")
     with tempfile.TemporaryDirectory(prefix="rvdd_smoke_") as root:
         serve_phase(root)
         train_phase(root)

@@ -1,7 +1,9 @@
 """Streaming 1080p throughput of the port's main paths on one card.
 
-Port of bench.py's inference mode for three models:
+Port of bench.py's inference mode for four models:
 
+* ``convunet``: recurrent convunet without feature recurrence
+  (``convunet-mode=fixedfeatures``);
 * ``convunet+feat`` (the default): recurrent convunet+feat;
 * ``convunet+feat+future``: the same net with the future frame (a window
   of 3 raw frames and 2 flows a step, 9 input channels);
@@ -16,7 +18,17 @@ resolves as bench.py:152-156 does: ``hybrid:glue+A+dec2`` for
 convunet+feat+future (chains A and dec2 in the kernel's fp32 mode, fp32
 warps), ``fast`` for the others.
 
-One stream, packed GBRG raw 540x960x4 in and RGB 1080x1920x3 out.  Per
+``--streams N`` batches N independent streams into each step (the kernels
+take the batch in one launch a layer); ``--scan`` times a whole clip of
+``frames`` frames through ``engine.scan_video`` (the clip's demosaic and
+flow upsample included, the weights packed once) after one untimed pass of
+it; ``--exact`` runs the fp32 module path with TF32 off and the kernel warp
+(the validate CLI's parity configuration, bench.py:127-137);
+``--state_dtype`` picks the carry's dtype; ``--no_split`` drops the dec2
+split from the 'fast' preset for the run; ``--trace_dir DIR`` exports a
+torch.profiler trace of 5 streamed steps there as a Chrome trace.
+
+One stream by default, packed GBRG raw 540x960x4 in and RGB 1080x1920x3 out.  Per
 frame: Hamilton-Adams demosaic of the current (and future) frame and the
 flow upsample (plain PyTorch), then the fused step: the CUDA warp of the
 fp32 recurrence state (and of the future frame) and the CUDA chains of the
@@ -41,14 +53,18 @@ Flows come in one of two ways:
   solver is launch-bound plain PyTorch around its kernel (PERF.md).
 
     python -m rvdd_tpu_torch.bench [--model convunet+feat] [--frames 30]
-                                   [--precision auto]
-                                   [--with_flow [--fast_flow]]
+                                   [--precision auto] [--streams 1]
+                                   [--with_flow [--fast_flow]] [--scan]
+                                   [--exact] [--state_dtype float32]
+                                   [--no_split] [--trace_dir DIR]
                                    [--height 540] [--width 960] [--profile]
 
-Prints one JSON line: metric (``1080p_fps_per_chip_<model>``, with
-``_online_flow`` or ``_online_flow_fast`` appended for online flows, and
-``_<preset>`` for a ``--precision`` other than ``auto``), value
-(frames/s), unit, ms per frame, the resolved preset, with online flows
+Prints one JSON line: metric (built from its parts as bench.py builds it:
+``1080p_fps_per_chip_<model>``, then ``_scan``, then ``_x<N>streams`` for
+N > 1, then ``_online_flow`` or ``_online_flow_fast`` for online flows,
+then ``_exact``, or else ``_<preset>`` for a ``--precision`` other than
+``auto``), value (frames/s: frames x streams / time), unit, ms per step,
+the resolved preset, with online flows
 ``flow_ms_per_frame``
 (CUDA events around compute_window_flows) and
 ``flow_iterations_per_frame``, and the card's name and power limit.
@@ -60,8 +76,10 @@ number.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import time
 from typing import Optional
@@ -72,40 +90,57 @@ import torch
 from rvdd_tpu_torch.device import resolve_device
 from rvdd_tpu_torch.models import build_network
 from rvdd_tpu_torch.models.fast_convnext import cnx_precision
-from rvdd_tpu_torch.models.fast_unet import resolve_fused_precision
+from rvdd_tpu_torch.models.fast_unet import FUSED_PRECISIONS, resolve_fused_precision
+from rvdd_tpu_torch.precision import exact_precision
 from rvdd_tpu_torch.recurrent.engine import (
     EngineConfig,
     compute_window_flows,
     fused_pack,
     inference_step,
     prepare_frames,
+    scan_video,
     step,
 )
 
-#: --model -> (architecture string, future_patch_depth), as bench.py:144-151
+#: --model -> (architecture string, future_patch_depth, feature recurrence),
+#: as bench.py:144-151
 MODELS = {
-    "convunet+feat": ("convunet-mode=fixedfeatures+feat", 0),
-    "convunet+feat+future": ("convunet-mode=fixedfeatures+feat", 1),
-    "convnext+feat+future": ("newunet-mode=feat", 1),
+    "convunet": ("convunet-mode=fixedfeatures", 0, False),
+    "convunet+feat": ("convunet-mode=fixedfeatures+feat", 0, True),
+    "convunet+feat+future": ("convunet-mode=fixedfeatures+feat", 1, True),
+    "convnext+feat+future": ("newunet-mode=feat", 1, True),
 }
 
 
 def resolve_precision(model: str, precision: str = "auto") -> str:
     """The fused preset ``model`` runs under ``precision`` ('auto' resolves
     as bench.py:152-156), checked against the presets of its family."""
-    arch, fd = MODELS[model]
-    name = resolve_fused_precision(precision, arch=arch, feature_rec=True, future=fd > 0) \
+    arch, fd, feat = MODELS[model]
+    name = resolve_fused_precision(precision, arch=arch, feature_rec=feat, future=fd > 0) \
         if precision == "auto" else precision
     if arch.startswith("newunet"):
         cnx_precision(name)
         return name
-    return resolve_fused_precision(name, arch=arch, feature_rec=True, future=fd > 0)
+    return resolve_fused_precision(name, arch=arch, feature_rec=feat, future=fd > 0)
+
+
+@contextlib.contextmanager
+def no_split():
+    """bench.py's --no_split (bench.py:157-159): the 'fast' preset without
+    its dec2 weight split, for the scope (chains packed inside it keep it)."""
+    saved = FUSED_PRECISIONS["fast"]
+    FUSED_PRECISIONS["fast"] = dict(saved, weight_split={})
+    try:
+        yield
+    finally:
+        FUSED_PRECISIONS["fast"] = saved
 
 
 def make_inputs(height: int = 540, width: int = 960, seed: int = 0, device="cuda",
-                model: str = "convunet+feat", with_flow: bool = False):
-    """A raw window [1, 2 + fD, h, w, 4] and flows [1, 1, 1 + fD, h, w, 2]
-    from numpy seed ``seed``.
+                model: str = "convunet+feat", with_flow: bool = False, streams: int = 1):
+    """A raw window [N, 2 + fD, h, w, 4] and flows [N, 1, 1 + fD, h, w, 2]
+    for N = ``streams`` independent streams, from numpy seed ``seed`` (one
+    stream draws what it drew before streams existed).
 
     The flow field is bench.py's smooth one (gaussian-filtered noise, sigma
     40 px, x25, offset (+2, -1) px at raw resolution).  Cached mode: the raw
@@ -116,46 +151,55 @@ def make_inputs(height: int = 540, width: int = 960, seed: int = 0, device="cuda
     x - k * field(x) with k = 1 before the current frame and -1 after it,
     and every frame gets noise of sigma 0.02; the returned flows are the
     true ones, k * field (up to the field's second-order change over k px).
+    Each stream has frames of its own (with ``with_flow`` a texture of its
+    own) and the same field.
     """
     from scipy.ndimage import gaussian_filter, map_coordinates
 
     fd = MODELS[model][1]
     rng = np.random.default_rng(seed)
-    raw = rng.uniform(-1, 1, (1, 2 + fd, height, width, 4)).astype(np.float32)
+    raw = rng.uniform(-1, 1, (streams, 2 + fd, height, width, 4)).astype(np.float32)
     fl = np.stack([
         gaussian_filter(rng.standard_normal((height, width)), 40) * 25 + 2,
         gaussian_filter(rng.standard_normal((height, width)), 40) * 25 - 1,
     ], -1).astype(np.float32)
+    ks = [1] + [0] + [-1] * fd  # frame displacement in fields, current = 0
     if with_flow:
-        tex = gaussian_filter(rng.standard_normal((height, width)), 2)
-        tex *= 0.25 / tex.std()
         gains = np.array([1.0, 0.9, 1.1, 0.95])
         yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
-        ks = [1] + [0] + [-1] * fd  # frame displacement in fields, current = 0
-        for i, k in enumerate(ks):
-            img = tex if k == 0 else map_coordinates(
-                tex, [yy - k * fl[..., 1], xx - k * fl[..., 0]], order=3, mode="mirror")
-            raw[0, i] = (img[..., None] * gains
-                         + 0.02 * rng.standard_normal((height, width, 4)))
+        for n in range(streams):
+            tex = gaussian_filter(rng.standard_normal((height, width)), 2)
+            tex *= 0.25 / tex.std()
+            for i, k in enumerate(ks):
+                img = tex if k == 0 else map_coordinates(
+                    tex, [yy - k * fl[..., 1], xx - k * fl[..., 0]], order=3, mode="mirror")
+                raw[n, i] = (img[..., None] * gains
+                             + 0.02 * rng.standard_normal((height, width, 4)))
         flows = np.stack([k * fl for k in ks if k != 0])[None, None]
     else:
-        flows = np.broadcast_to(fl, (1, 1, 1 + fd, height, width, 2)).copy()
+        flows = np.broadcast_to(fl, (1, 1, 1 + fd, height, width, 2))
+    flows = np.broadcast_to(flows, (streams,) + flows.shape[1:]).copy()
     dev = torch.device(device)
     return (torch.from_numpy(raw).to(dev),
             torch.from_numpy(flows.astype(np.float32)).to(dev))
 
 
 def make_model(net_impl: str = "fused", seed: int = 0, device="cuda",
-               model: str = "convunet+feat", precision: str = "auto"):
+               model: str = "convunet+feat", precision: str = "auto",
+               warp_impl: Optional[str] = None, state_dtype: str = "float32"):
     """(cfg, net, packed) for ``model`` with seeded kaiming weights, the
-    fused path in the preset ``precision`` resolves to.  The ConvNeXt
-    module path runs the exact GELU; its fused path runs the tanh GELU of
-    'fast' in its bf16 chains and the exact one in its fp32 chains."""
-    arch, fd = MODELS[model]
-    cfg = EngineConfig(model_patch_depth=2, future_patch_depth=fd, feature_rec=True,
-                       warp_impl="kernel" if net_impl == "fused" else "plain",
-                       net_impl=net_impl, fused_precision=resolve_precision(model, precision))
-    net = build_network(arch, cfg.network_input_nc, 3, True, seed=seed, device=device)
+    fused path in the preset ``precision`` resolves to.  The state warp is
+    the kernel on the fused path and the plain warp on the module path
+    unless ``warp_impl`` says otherwise.  The ConvNeXt module path runs the
+    exact GELU; its fused path runs the tanh GELU of 'fast' in its bf16
+    chains and the exact one in its fp32 chains."""
+    arch, fd, feat = MODELS[model]
+    if warp_impl is None:
+        warp_impl = "kernel" if net_impl == "fused" else "plain"
+    cfg = EngineConfig(model_patch_depth=2, future_patch_depth=fd, feature_rec=feat,
+                       warp_impl=warp_impl, net_impl=net_impl, state_dtype=state_dtype,
+                       fused_precision=resolve_precision(model, precision))
+    net = build_network(arch, cfg.network_input_nc, 3, feat, seed=seed, device=device)
     packed = fused_pack(cfg, net) if net_impl == "fused" else None
     return cfg, net, packed
 
@@ -230,22 +274,72 @@ WARMUP_FRAMES = 2  # streamed frames before timing: the allocator settles
 
 
 def metric_name(height: int, width: int, model: str, flow: Optional[str] = None,
-                precision: str = "auto") -> str:
+                precision: str = "auto", streams: int = 1, scan: bool = False,
+                exact: bool = False) -> str:
+    """The metric's name from its parts, in bench.py's order
+    (bench.py:316, :353): the model, ``_scan``, ``_x<N>streams``, the
+    online flow, then ``_exact`` or else a preset other than 'auto'."""
     res = f"{2 * height}p" if (height, width) == (540, 960) else f"{2 * height}x{2 * width}"
-    suffix = {None: "", "default": "_online_flow", "fast": "_online_flow_fast"}[flow]
-    if precision != "auto":
-        suffix += f"_{resolve_precision(model, precision)}"
-    return f"{res}_fps_per_chip_{model.replace('+', '_')}{suffix}"
+    name = f"{res}_fps_per_chip_{model.replace('+', '_')}"
+    if scan:
+        name += "_scan"
+    if streams != 1:
+        name += f"_x{streams}streams"
+    name += {None: "", "default": "_online_flow", "fast": "_online_flow_fast"}[flow]
+    if exact:
+        name += "_exact"
+    elif precision != "auto":
+        name += f"_{resolve_precision(model, precision)}"
+    return name
 
 
-def _warm_stream(height, width, seed, device, model, flow, precision="auto"):
-    """The fused main path on the card after the first frame (state=None)
-    and the warm-up frames: (dev, frame, state, flow_log)."""
+@dataclasses.dataclass(frozen=True)
+class Mode:
+    """What a run streams besides its model: ``streams`` batched streams;
+    ``exact``: the fp32 module path with TF32 off and the kernel warp
+    (bench.py:127-137, the validate CLI's parity configuration);
+    ``state_dtype`` of the carry; ``no_split``: 'fast' without its dec2
+    split."""
+
+    streams: int = 1
+    exact: bool = False
+    state_dtype: str = "float32"
+    no_split: bool = False
+
+    def model(self, seed, dev, model, precision):
+        """(cfg, net, packed) of the run."""
+        if self.exact:
+            return make_model("module", seed, dev, model, precision, warp_impl="kernel",
+                              state_dtype=self.state_dtype)
+        return make_model("fused", seed, dev, model, precision, state_dtype=self.state_dtype)
+
+    @contextlib.contextmanager
+    def numerics(self):
+        """TF32 off for ``exact`` (precision.py), 'fast' without its split
+        for ``no_split``; as before after the scope."""
+        with contextlib.ExitStack() as stack:
+            if self.exact:
+                stack.enter_context(exact_precision())
+            if self.no_split:
+                stack.enter_context(no_split())
+            yield
+
+
+def _card(device) -> torch.device:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("the benchmark measures the card; it has no CPU mode")
-    cfg, net, packed = make_model("fused", seed, dev, model, precision)
-    raw, flows = make_inputs(height, width, seed, dev, model, with_flow=flow is not None)
+    return dev
+
+
+def _warm_stream(height, width, seed, device, model, flow, precision="auto", mode=Mode()):
+    """The main path on the card after the first frame (state=None) and the
+    warm-up frames: (dev, frame, state, flow_log).  Call inside
+    ``mode.numerics()``."""
+    dev = _card(device)
+    cfg, net, packed = mode.model(seed, dev, model, precision)
+    raw, flows = make_inputs(height, width, seed, dev, model, with_flow=flow is not None,
+                             streams=mode.streams)
     log = FlowLog() if flow is not None else None
 
     def frame(state):
@@ -261,33 +355,106 @@ def _warm_stream(height, width, seed, device, model, flow, precision="auto"):
     return dev, frame, state, log
 
 
+def _scan_clip(frames, height, width, seed, device, model, precision, mode):
+    """The whole-clip mode (bench.py:286-318): raw clip [N, T, h, w, 4] with
+    bench's flow field on every frame; returns (dev, clip), where clip()
+    demosaics the clip, upsamples its flows and streams it through
+    ``scan_video`` (the weights packed once a call), returning the outputs
+    [T, N, 2h, 2w, 3]."""
+    dev = _card(device)
+    cfg, net, _ = mode.model(seed, dev, model, precision)
+    fd = cfg.future_patch_depth
+    rng = np.random.default_rng(seed)
+    raw = torch.from_numpy(rng.uniform(-1, 1, (mode.streams, frames, height, width, 4))
+                           .astype(np.float32)).to(dev)
+    _, window_flows = make_inputs(height, width, seed, dev, model, streams=mode.streams)
+    flows = window_flows.expand(mode.streams, frames, 1 + fd, height, width, 2)
+    nil = (net.nil_features(mode.streams, 2 * height, 2 * width) if cfg.feature_rec
+           else None)
+
+    def clip():
+        rgb, flows2 = prepare_frames(cfg, raw, flows)
+        return scan_video(cfg, net, rgb.transpose(0, 1), flows2.transpose(0, 1), nil)
+
+    return dev, clip
+
+
 def run(frames: int = 30, height: int = 540, width: int = 960, seed: int = 0,
         device="cuda", model: str = "convunet+feat", flow: Optional[str] = None,
-        precision: str = "auto") -> dict:
-    """Time ``frames`` streamed frames on the card; returns the JSON record.
-    ``flow``: None (cached flows) or a preset name for online flows;
-    ``precision``: the fused preset ('auto': the model's own)."""
-    dev, frame, state, log = _warm_stream(height, width, seed, device, model, flow, precision)
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        den, state = frame(state)
-    torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
+        precision: str = "auto", streams: int = 1, scan: bool = False, exact: bool = False,
+        state_dtype: str = "float32", no_split: bool = False,
+        trace_dir: Optional[str] = None) -> dict:
+    """Time ``frames`` streamed frames (``scan``: a clip of ``frames``
+    frames through scan_video) of ``streams`` streams on the card; returns
+    the JSON record.  ``flow``: None (cached flows) or a preset name for
+    online flows; ``precision``: the fused preset ('auto': the model's
+    own); ``exact``, ``state_dtype``, ``no_split``: see :class:`Mode`;
+    ``trace_dir``: export a torch.profiler trace of 5 streamed steps
+    there first."""
+    if scan and (flow is not None or trace_dir):
+        raise ValueError("scan streams a clip with cached flows, untraced (as bench.py)")
+    mode = Mode(streams, exact, state_dtype, no_split)
+    with mode.numerics():
+        if scan:
+            dev, clip = _scan_clip(frames, height, width, seed, device, model, precision, mode)
+            clip()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            den = clip()
+        else:
+            dev, frame, state, log = _warm_stream(height, width, seed, device, model, flow,
+                                                  precision, mode)
+            if trace_dir:
+                trace_file = export_trace(trace_dir, frame, state,
+                                          metric_name(height, width, model, flow, precision,
+                                                      streams, exact=exact))
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                den, state = frame(state)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
     if not torch.isfinite(den).all():
         raise RuntimeError("non-finite output")
     rec = {
-        "metric": metric_name(height, width, model, flow, precision),
-        "value": frames / dt,
+        "metric": metric_name(height, width, model, flow, precision, streams, scan, exact),
+        "value": frames * streams / dt,
         "unit": "frames/sec",
         "ms_per_frame": 1e3 * dt / frames,
-        "precision": resolve_precision(model, precision),
+        "precision": "exact" if exact else resolve_precision(model, precision),
+        "streams": streams,
+        "state_dtype": state_dtype,
     }
-    if log is not None:
+    if no_split:
+        rec["no_split"] = True
+    if not scan and log is not None:
         rec["flow_ms_per_frame"] = sum(log.ms()) / frames
         rec["flow_iterations_per_frame"] = sum(log.iterations) / frames
+    if trace_dir:
+        rec["trace"] = trace_file
     rec["device"] = torch.cuda.get_device_name(dev)
     rec["card"] = card_info()
     return rec
+
+
+#: streamed steps a --trace_dir trace holds (bench.py:335-337)
+TRACE_STEPS = 5
+
+
+def export_trace(trace_dir: str, frame, state, name: str) -> str:
+    """A torch.profiler trace (CPU and CUDA activity) of TRACE_STEPS
+    streamed steps, exported as ``<trace_dir>/<name>.json`` (Chrome trace
+    format); returns the path.  The stream goes on from the state it had."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"{name}.json")
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_STEPS):
+            _, state = frame(state)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    return path
 
 
 def _kernel_group(name: str, in_solver: bool) -> str:
@@ -317,7 +484,8 @@ def _device_events(events):
 
 def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
             device="cuda", model: str = "convunet+feat", flow: Optional[str] = None,
-            precision: str = "auto") -> dict:
+            precision: str = "auto", streams: int = 1, exact: bool = False,
+            state_dtype: str = "float32", no_split: bool = False) -> dict:
     """Device time by kernel over ``frames`` streamed frames (torch.profiler,
     CUDA activity), per frame; busy = the sum of kernel durations (one
     stream, so they do not overlap), idle share = 1 - busy / wall.  With
@@ -325,13 +493,16 @@ def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    dev, frame, state, _ = _warm_stream(height, width, seed, device, model, flow, precision)
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            _, state = frame(state)
-        torch.cuda.synchronize(dev)
-        wall_ms = 1e3 * (time.perf_counter() - t0) / frames
+    mode = Mode(streams, exact, state_dtype, no_split)
+    with mode.numerics():
+        dev, frame, state, _ = _warm_stream(height, width, seed, device, model, flow,
+                                            precision, mode)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                _, state = frame(state)
+            torch.cuda.synchronize(dev)
+            wall_ms = 1e3 * (time.perf_counter() - t0) / frames
     kernels, spans = _device_events(prof.events())
     groups: dict = {}
     for evt in kernels:
@@ -342,7 +513,7 @@ def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
     busy = sum(v[0] for v in groups.values())
     rows = sorted(((k, v[0], v[1] / frames) for k, v in groups.items()),
                   key=lambda r: -r[1])
-    return {"metric": metric_name(height, width, model, flow, precision),
+    return {"metric": metric_name(height, width, model, flow, precision, streams, exact=exact),
             "wall_ms_per_frame": wall_ms, "busy_ms_per_frame": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "solver_busy_ms_per_frame": sum(ms for k, ms, _ in rows if k.startswith("tvl1")),
@@ -367,22 +538,44 @@ def main(argv=None):
                     help="self-contained mode: compute TV-L1 flows on the card every frame")
     ap.add_argument("--fast_flow", action="store_true",
                     help="with --with_flow: the fast solver preset (2 warps, 75 iterations)")
+    ap.add_argument("--streams", type=int, default=1,
+                    help="batched independent video streams (throughput mode)")
+    ap.add_argument("--scan", action="store_true",
+                    help="time a whole clip of --frames frames through scan_video")
+    ap.add_argument("--exact", action="store_true",
+                    help="the fp32 module path, TF32 off, with the kernel warp (the validate "
+                         "CLI's parity configuration)")
+    ap.add_argument("--state_dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="recurrence-carry dtype (float32 is the production default)")
+    ap.add_argument("--no_split", action="store_true",
+                    help="drop the dec2 weight split from the 'fast' preset")
+    ap.add_argument("--trace_dir", default=None,
+                    help="export a torch.profiler trace of 5 streamed steps here (Chrome "
+                         "trace JSON)")
     ap.add_argument("--profile", action="store_true",
                     help="print device time by kernel (torch.profiler) instead of fps")
     args = ap.parse_args(argv)
     if args.fast_flow and not args.with_flow:
         ap.error("--fast_flow needs --with_flow")
+    if args.streams < 1:
+        ap.error("--streams must be at least 1")
+    if args.scan and (args.with_flow or args.trace_dir or args.profile):
+        ap.error("--scan streams a clip with cached flows: not with --with_flow, --trace_dir "
+                 "or --profile")
     flow = ("fast" if args.fast_flow else "default") if args.with_flow else None
+    mode = dict(streams=args.streams, exact=args.exact, state_dtype=args.state_dtype,
+                no_split=args.no_split)
     if args.profile:
         rec = profile(min(args.frames, 10), args.height, args.width, args.seed,
-                      model=args.model, flow=flow, precision=args.precision)
+                      model=args.model, flow=flow, precision=args.precision, **mode)
         for k in rec["kernels"]:
             print(f"{k['ms_per_frame']:9.3f} ms/frame {k['launches_per_frame']:8.1f} x  "
                   f"{k['name']}")
         print(json.dumps({k: v for k, v in rec.items() if k != "kernels"}))
         return
     print(json.dumps(run(args.frames, args.height, args.width, args.seed, model=args.model,
-                         flow=flow, precision=args.precision)))
+                         flow=flow, precision=args.precision, scan=args.scan,
+                         trace_dir=args.trace_dir, **mode)))
 
 
 if __name__ == "__main__":

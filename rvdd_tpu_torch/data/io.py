@@ -12,16 +12,19 @@ written bit for bit as imageio reads and writes them.
   filters; the writer uses filter 0.  Other PNGs raise.
 
 ``imread`` returns [H, W, C] (a channel axis added to a single-channel
-image).  The native decode pool of rvdd_tpu (data/native.py) is not ported.
+image).  ``load_image_stack`` decodes a stack through the host decode pool
+(data/native.py) when its first file's header is in the pool's subset
+(``native_shape``), else through these readers.
 """
 
 from __future__ import annotations
 
 import fnmatch
+import mmap
 import os
 import struct
 import zlib
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -53,7 +56,9 @@ def _tiff_entries(d: bytes, bo: str, off: int):
     return tags, nxt
 
 
-def _tiff_page(d: bytes, bo: str, tags: dict) -> np.ndarray:
+def _tiff_layout(tags: dict):
+    """(h, w, c, (sample format, bits), strip offsets, strip counts) of a
+    page in the readable flavour; raises ValueError for any other."""
     def one(tag, default=None):
         v = tags.get(tag)
         if v is None:
@@ -76,10 +81,15 @@ def _tiff_page(d: bytes, bo: str, tags: dict) -> np.ndarray:
     key = (one(339, 1), one(258, 1))
     if key not in _TIFF_SAMPLES or not 1 <= c <= 4:
         raise ValueError(f"TIFF: unsupported samples (format, bits) {key} x {c}")
-    dt = np.dtype(_TIFF_SAMPLES[key]).newbyteorder(bo)
     offsets, counts = tags.get(273, []), tags.get(279, [])
     if not offsets or len(offsets) != len(counts):
         raise ValueError("TIFF: bad strip tables")
+    return h, w, c, key, offsets, counts
+
+
+def _tiff_page(d: bytes, bo: str, tags: dict) -> np.ndarray:
+    h, w, c, key, offsets, counts = _tiff_layout(tags)
+    dt = np.dtype(_TIFF_SAMPLES[key]).newbyteorder(bo)
     need = h * w * c * dt.itemsize
     if len(offsets) == 1 or all(o + n == o2 for o, n, o2 in zip(offsets, counts, offsets[1:])):
         data = d[offsets[0]:offsets[0] + sum(counts)]  # contiguous strips: no copy
@@ -286,9 +296,54 @@ def load_image(path: str, bit_depth: int = 12) -> np.ndarray:
     return imread(path).astype(np.float32) / (2.0 ** float(bit_depth) - 1.0)
 
 
+def native_shape(path: str) -> Optional[Tuple[int, int, int]]:
+    """(h, w, c) when the file's header is in the host decode pool's subset
+    (csrc/rvdd_io.cpp: a classic little-endian TIFF of one page in the
+    readable flavour), else None: PNG, big-endian TIFF, several pages (the
+    2-channel flows imageio's Pillow writer makes).  Reads the header only."""
+    if _kind(path) != "tiff" or os.path.getsize(path) < 8:
+        return None
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as d:
+        magic, off = struct.unpack_from("<HI", d, 2)
+        if d[:2] != b"II" or magic != 42:
+            return None
+        try:  # a header the numpy reader cannot read either: it raises there
+            tags, nxt = _tiff_entries(d, "<", off)
+            h, w, c, *_ = _tiff_layout(tags)
+        except (ValueError, struct.error):
+            return None
+        return None if nxt else (h, w, c)
+
+
+_loader = None  # (pid, NativeLoader): one pool a process
+
+
+def native_loader():
+    """The process's host decode pool (NATIVE_WORKERS threads), made at
+    first use; a forked child makes its own."""
+    global _loader
+    if _loader is None or _loader[0] != os.getpid():
+        from rvdd_tpu_torch.data.native import NativeLoader
+
+        _loader = (os.getpid(), NativeLoader(NATIVE_WORKERS))
+    return _loader[1]
+
+
+#: the pool's threads, as rvdd_tpu's load_image_stack
+NATIVE_WORKERS = 4
+
+
 def load_image_stack(paths: List[str], bit_depth: int = 12) -> np.ndarray:
-    """A same-shape frame stack -> [N, H, W, C] float32 in [0, 1]."""
-    return np.stack([load_image(p, bit_depth) for p in paths])
+    """A same-shape frame stack -> [N, H, W, C] float32 in [0, 1].
+
+    The first file's header picks the route: in the host pool's subset
+    (``native_shape``), the whole stack is decoded by the pool (its values
+    equal the numpy readers' bit for bit; a file the pool then fails on
+    raises IOError); otherwise each file goes through ``load_image``."""
+    shape = native_shape(paths[0])
+    if shape is None:
+        return np.stack([load_image(p, bit_depth) for p in paths])
+    return native_loader().read_batch(paths, shape, scale=2.0 ** float(bit_depth) - 1.0)
 
 
 _EXTS = ["*.tiff", "*.tif", "*.png", "*.jpg", "*.jpeg", "*.raw"]

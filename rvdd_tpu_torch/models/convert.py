@@ -9,7 +9,11 @@ to one: ``{"enc_conv0": {"conv0": {"kernel", "bias"}}}`` <->
 ``enc_conv0.conv0.weight`` / ``enc_conv0.conv0.bias``.  Kernels go HWIO ->
 OIHW, the depthwise ``[7, 7, 1, 48]`` to ``[48, 1, 7, 7]`` included.
 ConvNeXt also has 1-D leaves that copy through: ``ln/{weight,bias}`` and
-``layerscale/layerscale``.
+``layerscale/layerscale`` (``fuse_scale{i}/layerscale`` under
+``fusion_mode='sum'``).  ConvUNet's ablation leaves copy through as they
+are: the parameters a module declares itself, ``{conv}_bn_scale`` and
+``{conv}_bn_offset`` (1-D), and ``up_transposed{i}_kernel`` (4-D, kept in
+flax's HWIO layout by the port) and ``up_transposed{i}_bias``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,15 @@ import torch
 
 #: ConvNeXt's 1-D leaves besides biases (LayerNorm weight, LayerScale)
 _CNX_LEAVES = ("weight", "layerscale")
+#: 1-D leaves a module declares itself (ConvUNet's ablations)
+_OWN_1D = ("_bias", "_bn_scale", "_bn_offset")
+
+
+def _copies_through(name: str, ndim: int, leaves) -> bool:
+    """A leaf both packages hold in one layout under one name."""
+    if ndim == 1:
+        return name == "bias" or name in leaves or name.endswith(_OWN_1D)
+    return ndim == 4 and name.endswith("_kernel")
 
 
 def _from_flax(params: Mapping, leaves=()) -> Dict[str, torch.Tensor]:
@@ -36,7 +49,7 @@ def _from_flax(params: Mapping, leaves=()) -> Dict[str, torch.Tensor]:
             if k == "kernel":
                 sd[".".join(prefix + ("weight",))] = torch.from_numpy(
                     np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
-            elif k == "bias" or (k in leaves and a.ndim == 1):
+            elif _copies_through(k, a.ndim, leaves):
                 sd[".".join(prefix + (k,))] = torch.from_numpy(a.copy())
             else:
                 raise ValueError(f"unexpected flax leaf {'/'.join(prefix + (k,))}")
@@ -55,7 +68,7 @@ def _to_flax(state_dict: Mapping[str, torch.Tensor], leaves=()) -> dict:
             node = node.setdefault(p, {})
         if kind == "weight" and a.ndim == 4:
             node["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
-        elif kind == "bias" or (kind in leaves and a.ndim == 1):
+        elif _copies_through(kind, a.ndim, leaves):
             node[kind] = a.copy()
         else:
             raise ValueError(f"unexpected state_dict key {key}")

@@ -15,9 +15,12 @@ here the 1x1s are ``nn.Conv2d(k=1)`` (applied as a matmul over the channel
 axis) and the depthwise conv is ``nn.Conv2d(groups=features)``, with the
 same parameter shapes.
 
-Supported: maxpool downsampling, bilinear upsampling, ``cat`` fusion, exact
-or tanh GELU (``fast_act``).  ``fusion_mode='sum'``, avgpool and nearest
-raise NotImplementedError.
+The knobs of rvdd_tpu's ConvNeXtUNet (rvdd_tpu/models/convnext_unet.py:
+180-210): ``downsampling_mode`` ``maxpool`` (the default) or ``avgpool``;
+``upsampling_mode`` ``bilinear`` (the default) or ``nearest``;
+``fusion_mode`` ``cat`` (the default: ``[up, skip]`` into the decoder
+block) or ``sum`` (``up + fuse_scale{i}(skip)``, a LayerScale on the skip);
+and the exact or tanh GELU (``fast_act``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from rvdd_tpu_torch.models.unet import zero_pad_to
-from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
+from rvdd_tpu_torch.ops.resize import (
+    avgpool2x2,
+    maxpool2x2,
+    upsample2x_bilinear,
+    upsample2x_nearest,
+)
 
 
 def conv1x1_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +65,7 @@ class LayerScale(nn.Module):
 
     def __init__(self, features: int, init: float = 0.1):
         super().__init__()
+        self.init = float(init)
         self.layerscale = nn.Parameter(torch.full((features,), float(init)))
 
     def forward(self, x):
@@ -123,14 +132,12 @@ class ConvNeXtUNet(nn.Module):
                  layerscale_init: float = 0.1, feature_rec: bool = False,
                  fast_act: bool = False):
         super().__init__()
-        unsupported = {
-            "downsampling_mode": downsampling_mode != "maxpool",
-            "upsampling_mode": upsampling_mode != "bilinear",
-            "fusion_mode": fusion_mode != "cat",
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(f"ConvNeXtUNet: {bad} not ported (see ROADMAP.md)")
+        if downsampling_mode not in ("maxpool", "avgpool"):
+            raise NotImplementedError(f"downsampling_mode {downsampling_mode}")
+        if upsampling_mode not in ("bilinear", "nearest"):
+            raise NotImplementedError(f"upsampling_mode {upsampling_mode}")
+        if fusion_mode not in ("cat", "sum"):
+            raise NotImplementedError(f"fusion_mode {fusion_mode}")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.filters = filters
@@ -165,7 +172,10 @@ class ConvNeXtUNet(nn.Module):
         self.bottleneck = nconv(f, n_blocks_bottleneck)
         for i in range(depth - 1):
             self.add_module(f"dec_up{i}", block())
-            self.add_module(f"dec_conv{i}", nconv(2 * f, n_blocks_decoder))
+            if fusion_mode == "sum":
+                self.add_module(f"fuse_scale{i}", LayerScale(f, layerscale_init))
+            self.add_module(f"dec_conv{i}", nconv(f if fusion_mode == "sum" else 2 * f,
+                                                  n_blocks_decoder))
         self.post = nconv(f, n_blocks_postprocessing)
         self.post_final = nn.Conv2d(f, out_channels, 1)
 
@@ -190,13 +200,22 @@ class ConvNeXtUNet(nn.Module):
             h = getattr(self, f"enc_conv{i}")(h)
             skips.append(h)
             if i < self.depth - 1:
-                h = getattr(self, f"enc_down{i}")(maxpool2x2(h))
+                pool = avgpool2x2 if self.downsampling_mode == "avgpool" else maxpool2x2
+                h = getattr(self, f"enc_down{i}")(pool(h))
         h = self.bottleneck(h)
         for i in range(self.depth - 1):
-            h = getattr(self, f"dec_up{i}")(upsample2x_bilinear(h, align_corners=True))
+            if self.upsampling_mode == "nearest":
+                h = upsample2x_nearest(h)
+            else:  # align_corners=True here, unlike convunet
+                h = upsample2x_bilinear(h, align_corners=True)
+            h = getattr(self, f"dec_up{i}")(h)
             skip = skips[-(i + 2)]
             h = zero_pad_to(h, skip.shape[-3], skip.shape[-2])
-            h = getattr(self, f"dec_conv{i}")(torch.cat([h, skip], dim=-1))
+            if self.fusion_mode == "sum":
+                h = h + getattr(self, f"fuse_scale{i}")(skip)
+            else:
+                h = torch.cat([h, skip], dim=-1)
+            h = getattr(self, f"dec_conv{i}")(h)
         h = self.post(h)
         new_feat = h.float() if self.feature_rec else None
         return conv1x1_nhwc(self.post_final, h).float(), new_feat

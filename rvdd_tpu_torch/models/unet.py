@@ -8,10 +8,29 @@ takes and returns NHWC: ``(x [B, H, W, Cin], feat [B, H, W, F] or None) ->
 (y [B, H, W, Cout] fp32, new_feat [B, H, W, F] fp32 or None)``, where
 ``new_feat`` is the activation before the final 1x1 conv.
 
-Supported: convmax downsampling (a conv with no activation, then a 2x2 max
-pool), bilinear align_corners=False upsampling, relu, no normalization,
-bias, fixed or doubling features, any depth.  The other ablation knobs of
-rvdd_tpu's ConvUNet raise NotImplementedError.
+The ablation knobs of rvdd_tpu's ConvUNet (rvdd_tpu/models/unet.py:45-80,
+160-287), with its parameters:
+
+* ``downsampling_mode``: ``convmax`` (a conv with no activation, then a 2x2
+  max pool; the default), ``convavg`` (the same with an average pool),
+  ``maxpool`` (no conv), ``stridedconv`` (a 2x2 conv of stride 2, flax's
+  'SAME' padding);
+* ``upsampling_mode``: ``bilinear`` (align_corners=False; the default),
+  ``nearest``, ``transposedconv<k>`` (k = 2 when absent): the parameters
+  ``up_transposed{i}_kernel`` [k, k, ch, ch] in flax's HWIO layout and
+  ``up_transposed{i}_bias``, applied as ``nn.ConvTranspose2d(ch, ch, k,
+  stride=2, padding=(k-1)//2)`` with the weight ``kernel.permute(2, 3, 0,
+  1)``;
+* ``activation``: ``relu`` (the default; any name but ``silu``) or ``silu``;
+* ``normalization`` after each conv but the bottleneck's, the
+  downsampling's and the last: ``none``, ``instance`` (no affine, eps
+  1e-5) or ``batch`` (batch statistics over N, H, W in training and in eval
+  alike, no running statistics, eps 1e-5, with the affine parameters
+  ``{conv}_bn_scale`` and ``{conv}_bn_offset`` on the module that calls the
+  conv: ``enc_conv0.conv0_bn_scale``, ``dec_up0_bn_offset``, ...);
+* ``bottleneck_dilation``: bottleneck conv i dilated (and padded) by 2^i;
+* ``use_bias=False``: no conv has a bias;
+* ``residual``: the output is ``x[..., 4:] - y``.
 """
 
 from __future__ import annotations
@@ -22,7 +41,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from rvdd_tpu_torch.ops.resize import maxpool2x2, upsample2x_bilinear
+from rvdd_tpu_torch.ops.resize import (
+    avgpool2x2,
+    maxpool2x2,
+    upsample2x_bilinear,
+    upsample2x_nearest,
+)
+
+DOWNSAMPLING = ("convmax", "convavg", "maxpool", "stridedconv")
+NORMALIZATIONS = (None, "none", "instance", "batch")
 
 
 def zero_pad_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -32,27 +59,60 @@ def zero_pad_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.pad(x, (0, 0, dw, w - x.shape[-2] - dw, dh, h - x.shape[-3] - dh))
 
 
-def _conv3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
+def _conv3(cin: int, cout: int, bias: bool = True, dilation: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, padding=dilation, dilation=dilation, bias=bias)
+
+
+def _activation(name: str):
+    return F.silu if name == "silu" else torch.relu
+
+
+def _add_norm_params(mod: nn.Module, kind, name: str, c: int) -> None:
+    """Register the affine parameters of batch normalization after the conv
+    ``name`` on ``mod`` (flax: ``mod.param(f"{name}_bn_scale")``)."""
+    if kind == "batch":
+        mod.register_parameter(f"{name}_bn_scale", nn.Parameter(torch.ones(c)))
+        mod.register_parameter(f"{name}_bn_offset", nn.Parameter(torch.zeros(c)))
+
+
+def _normalize(x: torch.Tensor, kind, mod: nn.Module, name: str) -> torch.Tensor:
+    """The conv -> norm -> act slot on NCHW ``x`` (rvdd_tpu/models/unet.py:
+    _normalize): biased variances, eps 1e-5."""
+    if kind in (None, "none"):
+        return x
+    dims = (2, 3) if kind == "instance" else (0, 2, 3)
+    mean = x.mean(dim=dims, keepdim=True)
+    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + 1e-5)
+    if kind == "instance":
+        return y
+    scale = getattr(mod, f"{name}_bn_scale")
+    offset = getattr(mod, f"{name}_bn_offset")
+    return y * scale[:, None, None] + offset[:, None, None]
 
 
 class NConvBlock(nn.Module):
-    """n x (3x3 conv + relu), parameters conv0, conv1, ..."""
+    """n x (3x3 conv + norm + activation), parameters conv0, conv1, ..."""
 
-    def __init__(self, cin: int, features: int, n_blocks: int = 2):
+    def __init__(self, cin: int, features: int, n_blocks: int = 2, activation: str = "relu",
+                 use_bias: bool = True, normalization: Optional[str] = "none"):
         super().__init__()
         for j in range(n_blocks):
-            self.add_module(f"conv{j}", _conv3(cin if j == 0 else features, features))
+            self.add_module(f"conv{j}", _conv3(cin if j == 0 else features, features, use_bias))
+            _add_norm_params(self, normalization, f"conv{j}", features)
         self.n_blocks = n_blocks
+        self.act = _activation(activation)
+        self.normalization = normalization
 
     def forward(self, x):
         for j in range(self.n_blocks):
-            x = torch.relu(getattr(self, f"conv{j}")(x))
+            x = getattr(self, f"conv{j}")(x)
+            x = self.act(_normalize(x, self.normalization, self, f"conv{j}"))
         return x
 
 
 class ConvUNet(nn.Module):
-    """U-Net with conv+maxpool downsampling and a bilinear-up decoder."""
+    """U-Net with conv(+pool) downsampling and an upsampling decoder."""
 
     def __init__(self, in_channels: int, out_channels: int, filters: int = 48,
                  depth: int = 4, bottleneck_depth: int = 2, post_depth: int = 2,
@@ -64,18 +124,13 @@ class ConvUNet(nn.Module):
                  residual: bool = False, fixed_features: bool = True,
                  feature_rec: bool = False):
         super().__init__()
-        unsupported = {
-            "downsampling_mode": downsampling_mode != "convmax",
-            "upsampling_mode": upsampling_mode != "bilinear",
-            "activation": activation != "relu",
-            "normalization": normalization not in (None, "none"),
-            "bottleneck_dilation": bool(bottleneck_dilation),
-            "use_bias": not use_bias,
-            "residual": bool(residual),
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(f"ConvUNet: {bad} not ported (see ROADMAP.md)")
+        if downsampling_mode not in DOWNSAMPLING:
+            raise NotImplementedError(f"downsampling_mode {downsampling_mode}")
+        if normalization not in NORMALIZATIONS:
+            raise NotImplementedError(f"normalization '{normalization}'")
+        up_k = self._transposed_k(upsampling_mode)
+        if up_k is None and upsampling_mode not in ("bilinear", "nearest"):
+            raise NotImplementedError(f"upsampling_mode {upsampling_mode}")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.filters = filters
@@ -93,31 +148,53 @@ class ConvUNet(nn.Module):
         self.residual = residual
         self.fixed_features = fixed_features
         self.feature_rec = feature_rec
+        self.act = _activation(activation)
+        norm, bias = normalization, use_bias
 
         if feature_rec:
-            self.pre = _conv3(in_channels, filters)
+            self.pre = _conv3(in_channels, filters, bias)
             cin = 2 * filters
         else:
             cin = in_channels
         for i in range(depth):
             f = self._enc_features(i)
-            self.add_module(f"enc_conv{i}", NConvBlock(cin, f, n_blocks_encoder))
-            if i < depth - 1:
-                self.add_module(f"enc_down{i}", _conv3(f, f))
+            self.add_module(f"enc_conv{i}", NConvBlock(cin, f, n_blocks_encoder, activation,
+                                                       bias, norm))
+            if i < depth - 1 and downsampling_mode in ("convmax", "convavg"):
+                self.add_module(f"enc_down{i}", _conv3(f, f, bias))
+            elif i < depth - 1 and downsampling_mode == "stridedconv":
+                self.add_module(f"enc_down{i}", nn.Conv2d(f, f, 2, stride=2, bias=bias))
             cin = f
         fb = self._enc_features(depth - 1)
         for i in range(bottleneck_depth):
-            self.add_module(f"bottleneck{i}", _conv3(fb, fb))
+            dil = 2**i if bottleneck_dilation else 1
+            self.add_module(f"bottleneck{i}", _conv3(fb, fb, bias, dil))
         d = fb
         for i in range(depth - 1):
             f = self._enc_features(depth - 2 - i)
-            self.add_module(f"dec_up{i}", _conv3(d, f))
-            self.add_module(f"dec_conv{i}", NConvBlock(2 * f, f, n_blocks_decoder))
+            if up_k is not None:
+                kernel = torch.randn(up_k, up_k, d, d) * (up_k * up_k * d) ** -0.5
+                self.register_parameter(f"up_transposed{i}_kernel", nn.Parameter(kernel))
+                if bias:
+                    self.register_parameter(f"up_transposed{i}_bias",
+                                            nn.Parameter(torch.zeros(d)))
+            self.add_module(f"dec_up{i}", _conv3(d, f, bias))
+            _add_norm_params(self, norm, f"dec_up{i}", f)
+            self.add_module(f"dec_conv{i}", NConvBlock(2 * f, f, n_blocks_decoder, activation,
+                                                       bias, norm))
             d = f
         for i in range(post_depth - 1):
-            self.add_module(f"post{i}", _conv3(d, filters))
+            self.add_module(f"post{i}", _conv3(d, filters, bias))
+            _add_norm_params(self, norm, f"post{i}", filters)
             d = filters
-        self.post_final = nn.Conv2d(d, out_channels, 1)
+        self.post_final = nn.Conv2d(d, out_channels, 1, bias=bias)
+
+    @staticmethod
+    def _transposed_k(mode: str) -> Optional[int]:
+        """k of ``transposedconv<k>`` (2 when absent), else None."""
+        if mode[:14].lower() != "transposedconv":
+            return None
+        return int(mode[14:]) if len(mode) > 14 else 2
 
     def _enc_features(self, i: int) -> int:
         return self.filters if self.fixed_features else self.filters * 2**i
@@ -129,9 +206,35 @@ class ConvUNet(nn.Module):
             device = self.post_final.weight.device
         return torch.zeros(batch, h, w, self.filters, dtype=dtype, device=device)
 
+    def _downsample(self, h: torch.Tensor, i: int) -> torch.Tensor:
+        """NCHW in and out."""
+        mode = self.downsampling_mode
+        if mode == "stridedconv":
+            # flax's 'SAME' for a 2x2 window of stride 2: one row (column)
+            # after an odd size, none before
+            h = F.pad(h, (0, h.shape[-1] % 2, 0, h.shape[-2] % 2))
+            return getattr(self, f"enc_down{i}")(h)
+        if mode in ("convmax", "convavg"):
+            h = getattr(self, f"enc_down{i}")(h)
+        pool = avgpool2x2 if mode == "convavg" else maxpool2x2
+        return pool(h.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+    def _upsample(self, d: torch.Tensor, i: int) -> torch.Tensor:
+        """NCHW in and out."""
+        k = self._transposed_k(self.upsampling_mode)
+        if k is not None:
+            w = getattr(self, f"up_transposed{i}_kernel").permute(2, 3, 0, 1)
+            b = getattr(self, f"up_transposed{i}_bias", None)
+            return F.conv_transpose2d(d, w, b, stride=2, padding=(k - 1) // 2)
+        nhwc = d.permute(0, 2, 3, 1)
+        if self.upsampling_mode == "nearest":
+            return upsample2x_nearest(nhwc).permute(0, 3, 1, 2)
+        return upsample2x_bilinear(nhwc, align_corners=False).permute(0, 3, 1, 2)
+
     def forward(self, x: torch.Tensor, feat: Optional[torch.Tensor] = None):
         to_nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
         to_nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+        norm = self.normalization
         if self.feature_rec:
             if feat is None:
                 raise ValueError("feature-recurrent net needs a feat input")
@@ -145,27 +248,31 @@ class ConvUNet(nn.Module):
             h = getattr(self, f"enc_conv{i}")(h)
             skips.append(h)
             if i < self.depth - 1:
-                # convmax: a conv with no activation, then the 2x2 max pool
-                h = getattr(self, f"enc_down{i}")(h)
-                h = to_nchw(maxpool2x2(to_nhwc(h)))
+                h = self._downsample(h, i)
 
+        # bottleneck with a running residual sum; no norm in the bottleneck
         d = skips[-1]
         s = d
         for i in range(self.bottleneck_depth):
-            d = torch.relu(getattr(self, f"bottleneck{i}")(d))
+            d = self.act(getattr(self, f"bottleneck{i}")(d))
             s = s + d
         d = s
 
         for i in range(self.depth - 1):
             skip = skips[self.depth - 2 - i]
-            d = to_nchw(upsample2x_bilinear(to_nhwc(d), align_corners=False))
-            d = torch.relu(getattr(self, f"dec_up{i}")(d))
+            d = self._upsample(d, i)
+            d = getattr(self, f"dec_up{i}")(d)
+            d = self.act(_normalize(d, norm, self, f"dec_up{i}"))
             d = to_nchw(zero_pad_to(to_nhwc(d), skip.shape[-2], skip.shape[-1]))
             d = torch.cat([skip, d], dim=1)  # [skip, d], as rvdd_tpu
             d = getattr(self, f"dec_conv{i}")(d)
 
         for i in range(self.post_depth - 1):
-            d = torch.relu(getattr(self, f"post{i}")(d))
+            d = getattr(self, f"post{i}")(d)
+            d = self.act(_normalize(d, norm, self, f"post{i}"))
         new_feat = to_nhwc(d).float() if self.feature_rec else None
         y = to_nhwc(self.post_final(d)).float()
+        if self.residual:
+            # the first 4 input channels are raw (rvdd_tpu/models/unet.py:232-235)
+            y = x[..., 4:] - y
         return y, new_feat

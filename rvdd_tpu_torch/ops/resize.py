@@ -1,7 +1,7 @@
 """Spatial resampling with torch-parity semantics, NHWC (port of
 rvdd_tpu/ops/resize.py): bilinear resize with align_corners True or False,
-the 2x align_corners=False upsample of the convunet decoder, and the 2x2
-max pool with floor semantics."""
+the 2x align_corners=False upsample of the convunet decoder, the 2x nearest
+upsample, and the 2x2 max and average pools with floor semantics."""
 
 from __future__ import annotations
 
@@ -70,3 +70,17 @@ def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     h2, w2 = h // 2, w // 2
     x = x[..., : 2 * h2, : 2 * w2, :].reshape(*lead, h2, 2, w2, 2, c)
     return x.amax(dim=(-4, -2))
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest x2 upsample of [..., H, W, C] (torch nn.Upsample(mode='nearest'))."""
+    return x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
+
+
+def avgpool2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 average pool with floor semantics: the mean over W of
+    each pair, then over H, as rvdd_tpu sums them."""
+    *lead, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    x = x[..., : 2 * h2, : 2 * w2, :].reshape(*lead, h2, 2, w2, 2, c)
+    return x.mean(dim=-2).mean(dim=-3)

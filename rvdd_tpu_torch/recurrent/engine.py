@@ -8,7 +8,10 @@ rvdd_tpu/recurrent/engine.py).
 
 Frames are stacked on a time axis ([B, T, H, W, C]); flows are
 [B, D+fD, H, W, 2] for one step.  The recurrence state is an explicit value
-the caller carries.
+the caller carries.  B is any number of independent streams: each stream's
+result is its own single-stream run's, and the fused path launches each
+kernel once a layer for the whole batch (rvdd_tpu's fused step loops over
+the samples, rvdd_tpu/recurrent/engine.py:402).
 
 Two step implementations, chosen by ``EngineConfig.net_impl``:
 

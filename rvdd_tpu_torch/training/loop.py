@@ -339,9 +339,6 @@ def train(opt: Options) -> dict:
     from rvdd_tpu_torch.registry import get_dataset
 
     dev = resolve_device(opt.device)
-    if opt.init_type != "kaiming":
-        raise NotImplementedError(f"--init_type {opt.init_type}: the port draws kaiming weights "
-                                  "only (models/factory.py)")
     _set_train_precision(opt.train_matmul_precision)
     cfg = dataclasses.replace(opt.engine_config(), warp_impl=opt.resolve_train_warp_impl())
     save_dir = opt.save_dir
@@ -366,7 +363,7 @@ def train(opt: Options) -> dict:
         log.line(f"Number of validation images = {len(val_ds)}")
 
     net = build_network(opt.netDenoiser, cfg.network_input_nc, opt.output_nc, cfg.feature_rec,
-                        seed=opt.seed, device=dev)
+                        seed=opt.seed, device=dev, init_type=opt.init_type)
     if opt.path2epoch:
         load_checkpoint(opt.path2epoch, None, net)
         log.line(f"loaded weights from {opt.path2epoch}")

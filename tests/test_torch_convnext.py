@@ -99,7 +99,11 @@ def test_build_network_seeded_kaiming():
 
 
 def test_unsupported_knobs_raise():
+    """The three knobs are ported (tests/test_torch_ablations.py); values
+    rvdd_tpu's net has not raise."""
     for knob in ("fusion_mode=sum", "downsampling_mode=avgpool", "upsampling_mode=nearest"):
+        build_network(f"{ARCH}-{knob}", IN_NC, 3, device="cpu")
+    for knob in ("fusion_mode=mul", "downsampling_mode=stridedconv", "upsampling_mode=bicubic"):
         with pytest.raises(NotImplementedError):
             build_network(f"{ARCH}-{knob}", IN_NC, 3, device="cpu")
 

@@ -115,10 +115,15 @@ def test_build_network_seeded_kaiming():
 def test_unsupported_knobs_raise():
     assert parse_arch("convunet-mode=fixedfeatures-depth=3") == (
         "convunet", {"mode": "fixedfeatures", "depth": 3})
+    # the ablation knobs are ported (tests/test_torch_ablations.py); a value
+    # neither package has raises, as rvdd_tpu's nets raise when applied
+    assert build_network("convunet-mode=fixedfeatures-residual=true", 7, 3, device="cpu").residual
+    assert build_network("newunet-mode=feat-fusion_mode=sum", 6, 3,
+                         device="cpu").fusion_mode == "sum"
     with pytest.raises(NotImplementedError):
-        build_network("convunet-mode=fixedfeatures-residual=true", 6, 3, device="cpu")
+        build_network("convunet-mode=fixedfeatures-downsampling_mode=blur", 6, 3, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_network("newunet-mode=feat-fusion_mode=sum", 6, 3, device="cpu")
+        build_network("newunet-mode=feat-fusion_mode=mul", 6, 3, device="cpu")
     assert resolve_fused_precision("mixed", arch="convunet", feature_rec=True,
                                    future=False) == "mixed"
     assert resolve_fused_precision("auto", arch="convunet", feature_rec=True,
