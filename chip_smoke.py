@@ -130,7 +130,23 @@
    ms a step and samples/s (synchronized, the first step of each epoch
    left out), data, flow and validation seconds, peak memory, the first
    and last loss and the launches.
-8. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
+8. The ``dist`` phase runs the trainer's data-parallel path on the card:
+   ``cli.train.main`` with ``--distributed --profile_dir`` in torchrun's
+   environment of a one-process job (NCCL at world size 1, a free
+   ``MASTER_PORT``), one epoch of the train phase's flags on its data and
+   persisted flows.  It checks the backend and world size, 10 finite
+   steps, the first loss within 1e-4 relative of the train phase's first
+   (same seed, data and flags), the '0', '1', 'latest' and 'latest_val'
+   nets and status.json, one ``warp_bicubic`` launch a validation frame
+   and no ``conv_chain``, and that the profile (``rank0.json``) holds the
+   device span of NCCL's all-reduce with NCCL's kernel in it and the
+   kernels of the conv ops; it prints one ``{"dist": ...}`` line (ms a
+   step and samples/s beside the train phase's, the trace's size and its
+   kernels of most device time).
+9. Prints two ``{"bench": ...}`` records of ``bench.run_train``:
+   convunet+feat at the production patch (batch 2, 136 raw, 4 unrollings,
+   highest) and the flagship with remat, 10 timed steps each.
+10. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
    the ``fp32_*`` ('high'), ``highest_*`` and ``w32_*`` times, bounds and
    errors of its other modes, the convnext_chain entry its fp32 mode's
    ``fp32_*``), the card line and,
@@ -150,6 +166,7 @@ import dataclasses
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -177,6 +194,7 @@ from rvdd_tpu_torch.bench import (  # noqa: E402
     step_fn,
 )
 from rvdd_tpu_torch.bench import run as bench_run  # noqa: E402
+from rvdd_tpu_torch.bench import run_train  # noqa: E402
 from rvdd_tpu_torch.models.fast_unet import CHAINS  # noqa: E402
 from rvdd_tpu_torch.ops.cuda.conv_chain import (  # noqa: E402
     MODES,
@@ -1686,6 +1704,16 @@ def train_profile(steps: int = 3) -> dict:
                 top=[dict(name=k, ms=v[0], launches=v[1] / steps) for k, v in top])
 
 
+def train_data_flags(root: str, name: str) -> list:
+    """The trainer's data flags in ``root``: the clip's train split,
+    serve's validation split, checkpoints under ckpt/<name>, the card."""
+    return ["--dataroot", os.path.join(root, "train"), "--gtFolder", f"gt_iso{SERVE_ISO}",
+            "--nFolder", f"noisy_iso{SERVE_ISO}",
+            "--gt_linear_RGB_Folder", f"gt_raw_linear_RGB_iso{SERVE_ISO}",
+            "--val_dataroot", os.path.join(root, "validation"), "--val_videos", "000",
+            "--checkpoints_dir", os.path.join(root, "ckpt"), "--name", name, "--device", "cuda"]
+
+
 def train_phase(root: str) -> dict:
     """The port's trainer through cli.train.main on the card: the clip's
     train split (generate_data), one epoch, then --autoresume into epoch 2,
@@ -1696,12 +1724,8 @@ def train_phase(root: str) -> dict:
     frames, sync = SERVE_FRAMES, torch.cuda.synchronize
     rec = {"frames": frames, "height": H, "width": W, "iso": SERVE_ISO, "card": CARD}
     t_phase = time.perf_counter()
-    train_root, val = os.path.join(root, "train"), os.path.join(root, "validation")
-    ckpt = os.path.join(root, "ckpt")
-    data = ["--gtFolder", f"gt_iso{SERVE_ISO}", "--nFolder", f"noisy_iso{SERVE_ISO}",
-            "--gt_linear_RGB_Folder", f"gt_raw_linear_RGB_iso{SERVE_ISO}",
-            "--val_dataroot", val, "--val_videos", "000", "--checkpoints_dir", ckpt,
-            "--name", "train", "--device", "cuda"]
+    train_root, ckpt = os.path.join(root, "train"), os.path.join(root, "ckpt")
+    data = train_data_flags(root, "train")
     with saved_precision():
         t0 = time.perf_counter()
         generate_data.main(["--input_train_dataset", os.path.join(root, "srgb", "%03d", "%08d.png"),
@@ -1717,7 +1741,7 @@ def train_phase(root: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             sync()
             t0 = time.perf_counter()
-            r = train.main(TRAIN_ARGV + ["--dataroot", train_root] + data + extra)
+            r = train.main(TRAIN_ARGV + data + extra)
             sync()
             r["seconds"] = time.perf_counter() - t0
             r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1782,6 +1806,133 @@ def train_phase(root: str) -> dict:
             == 21 * served["frames"]):
         raise AssertionError(f"train: the epoch-2 net's fused serving: {rec['served']}")
     return rec
+
+
+# ---------------------------------------------------------------- dist
+
+
+#: the trace's conv ops, whose kernels are the step's convolutions
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
+
+
+def trace_kernels(path: str) -> dict:
+    """What a torch.profiler Chrome trace shows of the device: its kernel
+    events, the device-side spans of NCCL collectives (gpu_user_annotation
+    'nccl:...') with the kernels inside them, and the kernels launched by
+    the conv ops (by the trace's External id)."""
+    events = json.load(open(path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [e for e in events if e.get("cat") == "gpu_user_annotation"
+            and "nccl" in e.get("name", "").lower()]
+    in_nccl = [k for k in kernels for n in nccl
+               if n["ts"] <= k["ts"] and k["ts"] + k["dur"] <= n["ts"] + n["dur"]]
+    conv_ids = {e["args"]["External id"] for e in events if e.get("cat") == "cpu_op"
+                and e.get("name") in CONV_OPS and "External id" in e.get("args", {})}
+    conv = [k for k in kernels if k.get("args", {}).get("External id") in conv_ids]
+    by_name: dict = {}
+    for k in kernels:
+        by_name[k["name"][:80]] = by_name.get(k["name"][:80], 0.0) + k["dur"] / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(kernels=len(kernels), nccl_spans=len(nccl),
+                nccl_kernels=sorted({k["name"][:120] for k in in_nccl}),
+                conv_kernels=len(conv), top_ms=[dict(name=n, ms=ms) for n, ms in top])
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_phase(root: str, train_rec: dict) -> dict:
+    """The trainer's data-parallel path on the card: cli.train.main with
+    --distributed in torchrun's environment of a one-process job (NCCL,
+    world size 1) and --profile_dir, one epoch on the train phase's data
+    (its persisted flows) with TRAIN_ARGV.  Checks the backend, the steps,
+    the first loss against the train phase's (same seed, data and flags),
+    the files, the launches and that the trace holds NCCL's all-reduce on
+    the device and the step's convolutions; prints one line."""
+    sync = torch.cuda.synchronize
+    prof_dir = os.path.join(root, "dist_profile")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with saved_precision():
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            r = train.main(TRAIN_ARGV + train_data_flags(root, "dist")
+                           + ["--distributed", "--profile_dir", prof_dir, "--niter", "1",
+                              "--niter_decay", "0"])
+            sync()
+            seconds = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = {k.__name__: k.launches for k in KERNELS}
+    (epoch,) = r["epochs"]
+    trace = os.path.join(prof_dir, "rank0.json")
+    rec = dict(backend=r["backend"], world_size=r["world_size"], steps=epoch["steps"],
+               ms_per_step=epoch["step_ms"], samples_per_s=2e3 / epoch["step_ms"],
+               train_ms_per_step=train_rec["ms_per_step"],
+               train_samples_per_s=train_rec["samples_per_s"],
+               first_loss=epoch["first"]["Denoiser"], train_first_loss=train_rec["first_loss"],
+               last_loss=epoch["last"]["Denoiser"], val_psnr=epoch["val"]["PSNR_valLoss"],
+               flows_computed=r["flows_computed"], launches=launches, run_s=seconds,
+               trace_s=epoch.get("trace_s"),
+               trace_bytes=os.path.getsize(trace) if os.path.exists(trace) else None,
+               card=CARD)
+    if rec["trace_bytes"]:
+        rec["trace"] = trace_kernels(trace)
+    log(json.dumps({"dist": rec}))
+
+    if not (r["backend"] == "nccl" and r["world_size"] == 1 and r["trace"] == trace):
+        raise AssertionError(f"dist: backend {r['backend']}, world {r['world_size']}, "
+                             f"trace {r['trace']}")
+    if not (epoch["steps"] == 10 and epoch["finite"]):
+        raise AssertionError(f"dist: expected 10 finite steps: {epoch}")
+    rel = abs(rec["first_loss"] - rec["train_first_loss"]) / abs(rec["train_first_loss"])
+    if not rel <= 1e-4:
+        raise AssertionError(f"dist: the first loss {rec['first_loss']} is {rel:.2e} from the "
+                             f"train phase's {rec['train_first_loss']}")
+    want = {f"{e}_net_Denoise.msgpack" for e in ("0", "1", "latest", "latest_val")}
+    names = set(os.listdir(os.path.join(root, "ckpt", "dist")))
+    if not want | {"status.json"} <= names:
+        raise AssertionError(f"dist: missing {sorted(want | {'status.json'} - names)}")
+    p = FLOW_PRESETS["default"]
+    per_flow = p.nwarps * _num_scales(W // 2, H // 2, p)
+    if not (launches["warp_bicubic"] == SERVE_FRAMES - 1 and launches["conv_chain"] == 0
+            and launches["warp_catmull_zero"] == per_flow * r["flows_computed"]):
+        raise AssertionError(f"dist: launches {launches}, flows {r['flows_computed']}")
+    t = rec.get("trace", {})
+    if not (t.get("nccl_spans") and t.get("nccl_kernels") and t.get("conv_kernels")):
+        raise AssertionError(f"dist: the trace shows no NCCL all-reduce kernel on the device "
+                             f"or no convolution kernel: {t}")
+    return rec
+
+
+#: bench --train records: the production convunet+feat (batch 2, patch 136,
+#: 4 unrollings, highest) and the flagship (remat forced)
+TRAIN_BENCH = ("convunet+feat", "convnext+feat+future")
+
+
+def bench_train() -> list:
+    """One bench.run_train record of each of TRAIN_BENCH, 10 timed steps."""
+    recs = []
+    for model in TRAIN_BENCH:
+        with saved_precision():
+            rec = run_train(steps=10, model=model)
+        log(json.dumps({"bench": rec}))
+        if not (np.isfinite(rec["value"]) and rec["value"] > 0
+                and rec["remat"] == model.startswith("convnext")):
+            raise AssertionError(f"bench --train {model}: {rec}")
+        recs.append(rec)
+    return recs
 
 
 #: conv_chain's warp-specialized numerics (ws::HighNum, ...) by mode
@@ -1898,7 +2049,13 @@ def main(argv=None):
         "(host clock)")
     with tempfile.TemporaryDirectory(prefix="rvdd_smoke_") as root:
         serve_phase(root)
-        train_phase(root)
+        train_rec = train_phase(root)
+        t0 = time.perf_counter()
+        dist_phase(root, train_rec)
+        t1 = time.perf_counter()
+        bench_train()
+        log(f"dist phase {t1 - t0:.1f} s, bench train records {time.perf_counter() - t1:.1f} s "
+            "(host clock)")
 
     kernels = [
         dict(name="warp_bicubic", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",

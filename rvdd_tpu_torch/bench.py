@@ -28,6 +28,14 @@ it; ``--exact`` runs the fp32 module path with TF32 off and the kernel warp
 split from the 'fast' preset for the run; ``--trace_dir DIR`` exports a
 torch.profiler trace of 5 streamed steps there as a Chrome trace.
 
+``--train`` times the train step instead (bench.py:175-241, :func:`run_train`):
+the model's module path under autograd with AdamW, batch ``--batch_size``
+(2) of ``--train_patch`` (136) raw patches and ``--train_unrollings`` (4)
+unrollings on seeded uniform draws, at ``--train_precision`` (highest), for
+``--frames`` steps; it prints ``train_samples_per_sec_<model>`` in
+samples/s with ms a step and the card.  ``--train_remat`` recomputes each
+unrolling in the backward (always on for the flagship).
+
 One stream by default, packed GBRG raw 540x960x4 in and RGB 1080x1920x3 out.  Per
 frame: Hamilton-Adams demosaic of the current (and future) frame and the
 flow upsample (plain PyTorch), then the fused step: the CUDA warp of the
@@ -58,6 +66,10 @@ Flows come in one of two ways:
                                    [--exact] [--state_dtype float32]
                                    [--no_split] [--trace_dir DIR]
                                    [--height 540] [--width 960] [--profile]
+    python -m rvdd_tpu_torch.bench --train [--model convunet+feat] [--frames 30]
+                                   [--batch_size 2] [--train_patch 136]
+                                   [--train_unrollings 4] [--train_precision highest]
+                                   [--train_radius 8] [--train_remat]
 
 Prints one JSON line: metric (built from its parts as bench.py builds it:
 ``1080p_fps_per_chip_<model>``, then ``_scan``, then ``_x<N>streams`` for
@@ -91,7 +103,7 @@ from rvdd_tpu_torch.device import resolve_device
 from rvdd_tpu_torch.models import build_network
 from rvdd_tpu_torch.models.fast_convnext import cnx_precision
 from rvdd_tpu_torch.models.fast_unet import FUSED_PRECISIONS, resolve_fused_precision
-from rvdd_tpu_torch.precision import exact_precision
+from rvdd_tpu_torch.precision import exact_precision, fast_precision
 from rvdd_tpu_torch.recurrent.engine import (
     EngineConfig,
     compute_window_flows,
@@ -522,6 +534,78 @@ def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
             "device": torch.cuda.get_device_name(dev), "card": card_info()}
 
 
+# ---------------------------------------------------------------- train
+
+
+def train_metric_name(model: str) -> str:
+    """The --train record's name (bench.py:229-230)."""
+    return f"train_samples_per_sec_{model.replace('+', '_')}"
+
+
+def train_setup(model: str = "convunet+feat", batch_size: int = 2, patch: int = 136,
+                unrollings: int = 4, precision: str = "highest", radius: int = 8,
+                remat: bool = False, seed: int = 0, device="cuda"):
+    """bench.py:191-221's train step on ``device``: (cfg, state, step,
+    inputs).  The module path with seeded kaiming weights, AdamW at lr 1e-4,
+    the port's train warp (the exact plain warp; ``radius`` only sets
+    ``shift_warp_radius``), remat forced for the ConvNeXt flagship;
+    ``inputs`` are bench.py's seeded uniform draws, frames [B, td+1+fD, p,
+    p, 4], flows [B, td, 1+fD, p, p, 2] and gt [B, td+1+fD, 2p, 2p, 3], and
+    the unrolling weights 1/td."""
+    from rvdd_tpu_torch.training.train_state import (
+        create_train_state,
+        make_train_step,
+        set_learning_rate,
+    )
+
+    arch, fd, feat = MODELS[model]
+    td = unrollings
+    cfg = EngineConfig(model_patch_depth=2, patch_depth=td + 1, future_patch_depth=fd,
+                       feature_rec=feat, warp_impl="plain", net_impl="module",
+                       shift_warp_radius=radius,
+                       remat=remat or arch.startswith("newunet"))
+    dev = torch.device(device)
+    net = build_network(arch, cfg.network_input_nc, 3, feat, seed=seed, device=dev)
+    state = set_learning_rate(create_train_state(net, "adamw"), 1e-4)
+    rng = np.random.default_rng(seed)
+    t = cfg.patch_depth + fd
+    draws = [rng.uniform(-1, 1, (batch_size, t, patch, patch, 4)),
+             rng.uniform(-1, 1, (batch_size, td, cfg.d + fd, patch, patch, 2)),
+             rng.uniform(-1, 1, (batch_size, t, 2 * patch, 2 * patch, 3)),
+             np.full(td, 1.0 / td)]
+    inputs = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in draws]
+    return cfg, state, make_train_step(cfg, precision), inputs
+
+
+def run_train(steps: int = 10, model: str = "convunet+feat", batch_size: int = 2,
+              patch: int = 136, unrollings: int = 4, precision: str = "highest",
+              radius: int = 8, remat: bool = False, seed: int = 0, device="cuda") -> dict:
+    """bench.py's --train mode on the card: :func:`train_setup`'s step, one
+    untimed step and one warm step, then ``steps`` timed steps ended by
+    reading a loss back; returns the JSON record.  ``precision`` 'highest'
+    turns TF32 off for the run, 'high' and 'default' turn it on ('default'
+    also runs the forward under bf16 autocast)."""
+    dev = _card(device)
+    with exact_precision() if precision == "highest" else fast_precision():
+        cfg, state, step, inputs = train_setup(model, batch_size, patch, unrollings,
+                                               precision, radius, remat, seed, dev)
+        for _ in range(2):
+            _, losses = step(state, *inputs)
+            float(losses["Denoiser"])
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, losses = step(state, *inputs)
+        loss = float(losses["Denoiser"])
+        dt = time.perf_counter() - t0
+    if not np.isfinite(loss):
+        raise RuntimeError(f"non-finite training loss {loss}")
+    return {"metric": train_metric_name(model), "value": steps * batch_size / dt,
+            "unit": "samples/sec", "ms_per_step": 1e3 * dt / steps, "batch_size": batch_size,
+            "patch": patch, "unrollings": unrollings, "precision": precision,
+            "remat": cfg.remat, "loss": loss, "device": torch.cuda.get_device_name(dev),
+            "card": card_info()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="convunet+feat", choices=list(MODELS))
@@ -554,7 +638,32 @@ def main(argv=None):
                          "trace JSON)")
     ap.add_argument("--profile", action="store_true",
                     help="print device time by kernel (torch.profiler) instead of fps")
+    ap.add_argument("--train", action="store_true",
+                    help="time the train step instead of inference (--frames steps)")
+    ap.add_argument("--batch_size", type=int, default=2, help="--train: batch size")
+    ap.add_argument("--train_patch", type=int, default=136, help="--train: raw patch width")
+    ap.add_argument("--train_unrollings", type=int, default=4, help="--train: unrollings")
+    ap.add_argument("--train_precision", default="highest",
+                    choices=["highest", "high", "default"],
+                    help="--train: matmul precision (highest: TF32 off; high: TF32; "
+                         "default: TF32 and a bf16 autocast forward)")
+    ap.add_argument("--train_radius", type=int, default=8,
+                    help="--train: shift_warp_radius (the port trains with the exact warp)")
+    ap.add_argument("--train_remat", action="store_true",
+                    help="--train: recompute each unrolling in the backward (always on for "
+                         "convnext+feat+future)")
     args = ap.parse_args(argv)
+    if args.train:
+        inference_only = {"--streams": args.streams != 1, "--scan": args.scan,
+                          "--with_flow": args.with_flow, "--exact": args.exact,
+                          "--profile": args.profile, "--trace_dir": bool(args.trace_dir)}
+        refused = [k for k, v in inference_only.items() if v]
+        if refused:
+            ap.error(f"--train times the train step: not with {', '.join(refused)}")
+        print(json.dumps(run_train(args.frames, args.model, args.batch_size, args.train_patch,
+                                   args.train_unrollings, args.train_precision,
+                                   args.train_radius, args.train_remat, args.seed)))
+        return
     if args.fast_flow and not args.with_flow:
         ap.error("--fast_flow needs --with_flow")
     if args.streams < 1:

@@ -12,9 +12,9 @@ training warp; the port's is the exact plain warp);
 ``--fused_precision auto`` resolves through the port's
 ``resolve_fused_precision``.  The train step's warp is
 :meth:`Options.resolve_train_warp_impl`'s.  rvdd_tpu's ``--compilation_cache_dir`` is
-parsed and ignored; ``--mesh_shape``, ``--distributed`` and
-``--profile_dir`` raise NotImplementedError when set to anything but their
-defaults (ROADMAP.md).
+parsed and ignored.  ``--mesh_shape``'s grammar is checked by
+``parallel/mesh.py:make_mesh`` when training starts, not here; its
+``space`` axis is not ported and raises there (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -123,7 +123,10 @@ class Options:
     val_scan: bool = False
 
     # rvdd_tpu's accelerator flags
-    mesh_shape: str = "data"  # not ported: any other value raises (ROADMAP.md)
+    #: 'data', 'data<N>' or 'data<N>xspace<M>' (parallel/mesh.py:make_mesh;
+    #: the data axis must equal the number of processes, the space axis is
+    #: not ported and raises)
+    mesh_shape: str = "data"
     exact_precision: bool = True  # fp32 convs and matmuls, no TF32 (precision.py)
     #: training matmul precision: 'highest' (fp32-exact, 6-pass MXU — the
     #: default, strictest), 'high' (3-pass bf16 decomposition — the
@@ -151,20 +154,18 @@ class Options:
     #: fused-path recurrence-carry storage; bf16 carry rounding feeds back
     #: through the recurrence and accumulates over a clip (drift)
     state_dtype: str = "float32"
-    profile_dir: str = ""  # not ported: raises when set (ROADMAP.md)
-    distributed: bool = False  # not ported: raises when set (ROADMAP.md)
+    #: a torch.profiler Chrome trace of steps 2..5 of the first epoch,
+    #: <profile_dir>/rank<r>.json
+    profile_dir: str = ""
+    #: data parallelism from torchrun's environment: NCCL on the cards, gloo
+    #: with --device cpu (parallel/mesh.py:init_distributed)
+    distributed: bool = False
     #: where the port runs: 'cuda' (the card; raises without one) or 'cpu'
     device: str = "cuda"
 
     isTrain: bool = True
 
     def finalize(self) -> "Options":
-        not_ported = {"--mesh_shape": self.mesh_shape != "data",
-                      "--distributed": self.distributed,
-                      "--profile_dir": bool(self.profile_dir)}
-        what = [k for k, v in not_ported.items() if v]
-        if what:
-            raise NotImplementedError(f"{what} are not ported yet (ROADMAP.md)")
         if not self.name:
             warpstr = "-warp" if not self.no_warp else ""
             sufstr = f"-{self.suffix}" if self.suffix else ""

@@ -6,7 +6,9 @@ One ``<from>_<to>.tif`` per frame pair under
 data/base_dataset.py:134-249, library.py:140-141).  Missing flows are
 computed by the port's solver (ops/tvl1.py, whose warp on the card is the
 ``warp_catmull_zero`` kernel) on the cache's device and persisted in that
-layout, so a cache written by either package serves the other.
+layout, so a cache written by either package serves the other.  A file
+is written whole (a temporary file renamed into place); in a data-parallel
+run only rank 0's cache persists (training/loop.py).
 """
 
 from __future__ import annotations
@@ -96,10 +98,18 @@ class FlowCache:
                 if self.persist:
                     i, j = pairs[k]
                     os.makedirs(fdir, exist_ok=True)
-                    imwrite(flow_filename(fdir, frame_code(frame_paths[i]),
-                                          frame_code(frame_paths[j])),
-                            flows[n].astype(np.float32))
+                    self._persist(flow_filename(fdir, frame_code(frame_paths[i]),
+                                                frame_code(frame_paths[j])), flows[n])
         return np.stack(out)
+
+    @staticmethod
+    def _persist(path: str, flow: np.ndarray) -> None:
+        """Write through a temporary file and rename it into place, so that
+        a reader (another process of a data-parallel run) finds the whole
+        file or none."""
+        tmp = f"{path[:-4]}.tmp{os.getpid()}.tif"
+        imwrite(tmp, flow.astype(np.float32))
+        os.replace(tmp, path)
 
     def window_pairs(self, t0: int, patch_depth: int, future_patch_depth: int):
         """(from, to) indices for one window whose current frame is

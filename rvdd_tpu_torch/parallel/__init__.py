@@ -1,0 +1,9 @@
+"""Data parallelism over torch.distributed (port of rvdd_tpu/parallel)."""
+
+from rvdd_tpu_torch.parallel.mesh import (
+    Mesh,
+    init_distributed,
+    make_mesh,
+    replicate,
+    shard_batch,
+)

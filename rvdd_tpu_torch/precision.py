@@ -42,10 +42,21 @@ def use_fast_precision() -> None:
 
 
 @contextlib.contextmanager
-def exact_precision():
+def _scoped(use):
     saved = _flags()
-    use_exact_precision()
+    use()
     try:
         yield
     finally:
         _set(*saved)
+
+
+def exact_precision():
+    """:func:`use_exact_precision` for a ``with`` block; the flags are
+    restored after it."""
+    return _scoped(use_exact_precision)
+
+
+def fast_precision():
+    """:func:`use_fast_precision` for a ``with`` block."""
+    return _scoped(use_fast_precision)

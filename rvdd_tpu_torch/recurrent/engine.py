@@ -412,12 +412,14 @@ def unrolled_forward(cfg: EngineConfig, net, frames: torch.Tensor,
 
 
 def compute_losses(cfg: EngineConfig, outputs: torch.Tensor, gt: torch.Tensor,
-                   weights: torch.Tensor) -> dict:
+                   weights: torch.Tensor, mses: Optional[list] = None) -> dict:
     """Weighted L1 (x ``lambda_l1``) and PSNR (peak 2.0) over the unrolling
     outputs [B, A, H, W, C_out] against gt [B, T, H', W', C_gt], with
     unrolling weights [A]; a raw ground truth scores the remosaicked output
     (rvdd_tpu/recurrent/engine.py:compute_losses; reference:
-    recurrent_model.py:473-510)."""
+    recurrent_model.py:473-510).  Given a list, ``mses`` receives each
+    unrolling's mean squared error (detached), from which a data-parallel
+    step computes the global batch's PSNR."""
     d = cfg.d
     l1s, psnrs = [], []
     for a in range(outputs.shape[1]):
@@ -427,6 +429,8 @@ def compute_losses(cfg: EngineConfig, outputs: torch.Tensor, gt: torch.Tensor,
             den = remosaic(den)
         l1s.append((den - target).abs().mean() * cfg.lambda_l1)
         psnrs.append(psnr(den, target, 2.0))
+        if mses is not None:
+            mses.append(((den.detach() - target) ** 2).mean())
     weights = weights.to(outputs.device, torch.float32)
     loss_l1 = (weights * torch.stack(l1s)).sum()
     loss_psnr = (weights * torch.stack(psnrs)).sum()

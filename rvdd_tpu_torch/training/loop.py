@@ -7,7 +7,10 @@ windowed patches from ``TrainWindowDataset`` (flows from a
 batch (autograd through every unrolling, weighted by the ``--unroll_focus``
 schedule), checkpoints ('0', every epoch and 'latest', 'latest_val' at the
 best validation loss) with ``status.json`` for ``--autoresume``, and
-in-loop validation.
+in-loop validation.  ``--distributed`` trains data-parallel over the
+processes torchrun starts (the mesh's ``data`` axis, parallel/mesh.py), and
+``--profile_dir`` exports a torch.profiler trace of steps 2..5 of the first
+epoch.
 
 Serial full-frame validation carries the recurrence state across frames
 with a FirstOfVideo reset (:func:`compute_validation`), or streams each clip
@@ -27,6 +30,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from rvdd_tpu_torch.config import Options
@@ -37,6 +41,7 @@ from rvdd_tpu_torch.device import resolve_device
 from rvdd_tpu_torch.ops.bayer import remosaic
 from rvdd_tpu_torch.ops.metrics import psnr
 from rvdd_tpu_torch.ops.tvl1 import FLOW_PRESETS, to_gray, tvl1_flow
+from rvdd_tpu_torch.parallel.mesh import init_distributed, make_mesh, replicate, shard_batch
 from rvdd_tpu_torch.recurrent.engine import (
     EngineConfig,
     compute_window_flows,
@@ -61,15 +66,21 @@ from rvdd_tpu_torch.training.train_state import (
 
 
 class Logger:
-    """loss_log.txt writer (reference: util/visualizer.py:36-102)."""
+    """loss_log.txt writer (reference: util/visualizer.py:36-102); a logger
+    not ``enabled`` (a data-parallel rank other than 0) neither prints nor
+    writes."""
 
-    def __init__(self, save_dir: str):
-        os.makedirs(save_dir, exist_ok=True)
-        self.path = join(save_dir, "loss_log.txt")
-        with open(self.path, "a") as f:
-            f.write(f"================ Training Loss ({time.strftime('%c')}) ================\n")
+    def __init__(self, save_dir: str, enabled: bool = True):
+        self.path = join(save_dir, "loss_log.txt") if enabled else None
+        if enabled:
+            os.makedirs(save_dir, exist_ok=True)
+            with open(self.path, "a") as f:
+                f.write(f"================ Training Loss ({time.strftime('%c')}) "
+                        "================\n")
 
     def line(self, msg: str) -> None:
+        if self.path is None:
+            return
         print(msg)
         with open(self.path, "a") as f:
             f.write(msg + "\n")
@@ -328,28 +339,81 @@ def _set_train_precision(name: str) -> None:
         raise ValueError(f"unknown --train_matmul_precision {name!r}")
 
 
+def _start_trace(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU]
+                   + ([ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, profile_dir: str, rank: int, sync):
+    """Stop a trace after the device has finished its steps and export it
+    as ``<profile_dir>/rank<r>.json`` (Chrome trace); returns the path and
+    the seconds the stop and export took (after the synchronize)."""
+    sync()
+    t0 = time.perf_counter()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = join(profile_dir, f"rank{rank}.json")
+    prof.export_chrome_trace(path)
+    return path, time.perf_counter() - t0
+
+
+#: --profile_dir traces these steps of the first epoch, both included
+#: (rvdd_tpu/training/loop.py:530-543)
+TRACE_FIRST, TRACE_LAST = 2, 5
+
+
 def train(opt: Options) -> dict:
     """Full training entry (reference: train.py).  Returns what the run
     measured: per epoch its steps, learning rate, first and last losses,
     whether every loss was finite, the milliseconds an optimizer step
-    (synchronized, the epoch's first step left out), the seconds the steps
-    waited for data and the validation losses and seconds; and the flows
-    the caches computed with their seconds."""
+    (synchronized, the epoch's first step left out, and the profile's
+    stop and export, ``trace_s``, taken out), the seconds the steps waited
+    for data and the validation losses and seconds; the flows the caches
+    computed with their seconds; this process's rank, the processes and
+    their backend; the profile's path.
+
+    With ``--distributed`` the process group starts first, from torchrun's
+    environment (parallel/mesh.py:init_distributed), and is destroyed when
+    training ends or fails."""
+    if not opt.distributed:
+        return _train(opt, resolve_device(opt.device))
+    dev = init_distributed(opt.device)
+    try:
+        return _train(opt, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(opt: Options, dev: torch.device) -> dict:
+    """:func:`train` on ``dev``.  In a data-parallel run every process
+    builds the same dataset and net from the seed, iterates the same global
+    batches and trains on its shard of each; rank 0 alone writes (the log,
+    the options, checkpoints, status.json, flows and validation visuals),
+    with a barrier after each save, and validates: its validation loss is
+    broadcast, so that every rank takes the same best-checkpoint and
+    plateau decisions."""
     from rvdd_tpu_torch.models import build_network
     from rvdd_tpu_torch.registry import get_dataset
 
-    dev = resolve_device(opt.device)
+    rank = dist.get_rank() if opt.distributed else 0
+    writer = rank == 0
+    barrier = dist.barrier if opt.distributed else (lambda: None)
     _set_train_precision(opt.train_matmul_precision)
     cfg = dataclasses.replace(opt.engine_config(), warp_impl=opt.resolve_train_warp_impl())
     save_dir = opt.save_dir
-    log = Logger(save_dir)
-    opt.save(join(save_dir, "opt_train.json"))
+    log = Logger(save_dir, enabled=writer)
+    if writer:
+        opt.save(join(save_dir, "opt_train.json"))
     log.line(opt.dump())
 
     cache = None
     if not opt.no_warp:
         cache = FlowCache(opt.dataroot, opt.nFolder, opt.flowFolder, opt.warp_method,
-                          persist=opt.persist_flows, device=dev)
+                          persist=opt.persist_flows and writer, device=dev)
     train_ds = get_dataset(opt.dataset_mode)(
         opt.dataroot, opt.gt_folder_for_mode(), opt.nFolder, patch_width=opt.patch_width,
         patch_stride=opt.patch_stride, patch_depth=opt.patch_depth,
@@ -358,7 +422,7 @@ def train(opt: Options) -> dict:
         no_predemosaic=opt.no_predemosaic, videos=opt.videos, flow_cache=cache,
         no_warp=opt.no_warp, seed=opt.seed)
     log.line(f"The number of training images = {len(train_ds)}")
-    val_ds = None if opt.no_val else build_validation(opt)
+    val_ds = None if opt.no_val or not writer else build_validation(opt)
     if val_ds is not None:
         log.line(f"Number of validation images = {len(val_ds)}")
 
@@ -368,7 +432,14 @@ def train(opt: Options) -> dict:
         load_checkpoint(opt.path2epoch, None, net)
         log.line(f"loaded weights from {opt.path2epoch}")
     state = create_train_state(net, opt.optimizer, opt.beta1, opt.weight_decay)
-    train_step = make_train_step(cfg, opt.train_matmul_precision)
+
+    mesh = make_mesh(opt.mesh_shape, batch_size=opt.batch_size)
+    replicate(mesh, net)
+    train_step = make_train_step(cfg, opt.train_matmul_precision,
+                                 mesh if opt.distributed else None)
+    if opt.distributed:
+        log.line(f"data-parallel: {mesh.world_size} process(es) on {dist.get_backend()}, "
+                 f"{opt.batch_size // mesh.data} of each batch's {opt.batch_size} rows a process")
 
     # autoresume (reference: train.py:15-28), with the optimizer state
     # where the run saved one (an rvdd_tpu run directory has none the port
@@ -377,11 +448,14 @@ def train(opt: Options) -> dict:
     status = load_status(save_dir)
     if opt.autoresume and status:
         restored = load_checkpoint(save_dir, str(status["epoch"]), net, state.optimizer)
+        replicate(mesh, net)
         epoch_start = status["epoch"] + 1
         log.line(f"autoresumed from epoch {status['epoch']}"
                  + ("" if restored else " (no optimizer state: the moments restart)"))
     else:
-        save_checkpoint(save_dir, "0", net)
+        if writer:
+            save_checkpoint(save_dir, "0", net)
+        barrier()
 
     best_val = float(status.get("best_val", "inf")) if status else float("inf")
     td = opt.patch_depth - 1
@@ -391,6 +465,7 @@ def train(opt: Options) -> dict:
     plateau_factor, plateau_best, plateau_wait = 1.0, float("inf"), 0
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     epochs = []
+    trace, prof = None, None
 
     for epoch in range(epoch_start, opt.niter + opt.niter_decay + 1):
         if opt.lr_policy == "plateau":
@@ -408,10 +483,17 @@ def train(opt: Options) -> dict:
             t_data = time.time() - data_t0
             rec["data_s"] += t_data
             w = unroll_weights(opt.unroll_focus, td, epoch, it, epoch_len)
-            frames, flows, gt = prepare_host_batch(batch, dev)
+            frames, flows, gt = prepare_host_batch(
+                shard_batch(mesh, {k: batch[k] for k in ("n", "flow", "gt") if k in batch}),
+                dev)
+            if opt.profile_dir and epoch == epoch_start and it == TRACE_FIRST:
+                prof = _start_trace(dev)
             t0 = time.time()
             state, losses = train_step(state, frames, flows, gt, torch.from_numpy(w))
             losses_seen.append(losses)
+            if prof is not None and it == TRACE_LAST:
+                trace, rec["trace_s"] = _stop_trace(prof, opt.profile_dir, rank, sync)
+                prof = None
             if t_first is None:
                 sync()
                 t_first = time.perf_counter()
@@ -432,11 +514,15 @@ def train(opt: Options) -> dict:
                         "there would be approximate; the port's warp is exact.  Raise "
                         "--shift_warp_radius to match an rvdd_tpu run.")
             data_t0 = time.time()
+        if prof is not None:  # the epoch ended before TRACE_LAST
+            trace, rec["trace_s"] = _stop_trace(prof, opt.profile_dir, rank, sync)
+            prof = None
         sync()
         steps = len(losses_seen)
         rec["steps"] = steps
-        rec["step_ms"] = ((time.perf_counter() - t_first) * 1e3 / (steps - 1)
-                          if steps > 1 else None)
+        # the trace's stop and export are not a step's time
+        rec["step_ms"] = ((time.perf_counter() - t_first - rec.get("trace_s", 0.0)) * 1e3
+                          / (steps - 1) if steps > 1 else None)
         if steps:
             every = torch.stack([v for step in losses_seen for v in step.values()])
             rec["finite"] = bool(torch.isfinite(every).all())
@@ -444,29 +530,41 @@ def train(opt: Options) -> dict:
             rec["last"] = {k: float(v) for k, v in losses_seen[-1].items()}
 
         if epoch % opt.save_epoch_freq == 0:
-            save_checkpoint(save_dir, "latest", net, state.optimizer)
-            save_checkpoint(save_dir, str(epoch), net, state.optimizer)
-            save_status(save_dir, {"epoch": epoch, "best_val": best_val})
+            if writer:
+                save_checkpoint(save_dir, "latest", net, state.optimizer)
+                save_checkpoint(save_dir, str(epoch), net, state.optimizer)
+                save_status(save_dir, {"epoch": epoch, "best_val": best_val})
+            barrier()
 
-        if val_ds is not None and epoch % opt.val_epoch_freq == 0:
+        if not opt.no_val and epoch % opt.val_epoch_freq == 0:
             v0 = time.time()
-            # the reference validates non-recurrently while the gradual
-            # schedule still trains with 1 unrolling
-            # (recurrent_model.py:233-238,255-264)
-            val_losses = compute_validation(
-                opt, net, val_ds, val_image_dir,
-                carry_state=active_unrollings(opt.unroll_focus, td, epoch) > 1)
+            val_losses = {}
+            if writer:
+                # the reference validates non-recurrently while the gradual
+                # schedule still trains with 1 unrolling
+                # (recurrent_model.py:233-238,255-264)
+                val_losses = compute_validation(
+                    opt, net, val_ds, val_image_dir,
+                    carry_state=active_unrollings(opt.unroll_focus, td, epoch) > 1)
+            if opt.distributed:
+                v = torch.tensor([val_losses.get("Denoiser_valLoss", 0.0)],
+                                 dtype=torch.float64, device=dev)
+                dist.broadcast(v, src=0)
+                val_losses["Denoiser_valLoss"] = float(v)
             rec["val_s"] = time.time() - v0
             rec["val"] = dict(val_losses)
             val_losses["lr"] = lr
-            msg = (f"---> validation: (epoch: {epoch}, time: {rec['val_s']:.1f}, "
-                   f"#data: {len(val_ds)}) [")
-            msg += ", ".join(f"{k}: {v:.3f}" for k, v in val_losses.items()) + "]"
-            log.line(msg)
+            if writer:
+                msg = (f"---> validation: (epoch: {epoch}, time: {rec['val_s']:.1f}, "
+                       f"#data: {len(val_ds)}) [")
+                msg += ", ".join(f"{k}: {v:.3f}" for k, v in val_losses.items()) + "]"
+                log.line(msg)
             if val_losses["Denoiser_valLoss"] < best_val:
                 best_val = val_losses["Denoiser_valLoss"]
-                save_checkpoint(save_dir, "latest_val", net, state.optimizer)
-                save_status(save_dir, {"epoch": epoch, "best_val": best_val})
+                if writer:
+                    save_checkpoint(save_dir, "latest_val", net, state.optimizer)
+                    save_status(save_dir, {"epoch": epoch, "best_val": best_val})
+                barrier()
 
             if opt.lr_policy == "plateau":
                 v = val_losses["Denoiser_valLoss"]
@@ -486,4 +584,6 @@ def train(opt: Options) -> dict:
 
     caches = [c for c in (cache, val_ds.flow_cache if val_ds is not None else None) if c]
     return dict(epochs=epochs, flows_computed=sum(c.computed for c in caches),
-                flow_seconds=sum(c.seconds for c in caches))
+                flow_seconds=sum(c.seconds for c in caches), rank=rank,
+                world_size=mesh.world_size,
+                backend=dist.get_backend() if opt.distributed else None, trace=trace)

@@ -23,6 +23,20 @@ over its XLA net and warp) and steps the optimizer; it runs on the device of
 the net.  ``matmul_precision`` is rvdd_tpu's ``--train_matmul_precision``:
 'highest' and 'high' are the process's TF32 setting (precision.py, set by
 the training loop), 'default' runs the forward under bf16 autocast.
+
+Given a mesh (parallel/mesh.py), each process holds its shard of the
+global batch and the step averages the gradients over the data axis between
+``backward()`` and the optimizer step, as XLA's all-reduce does in
+rvdd_tpu's sharded step: one ``all_reduce`` a step, of one flat bucket that
+holds every gradient and the shard's loss statistics (L1, each unrolling's
+mean squared error, the clamp fraction), so the losses returned are the
+global batch's.  The shards are equal in size, so the mean over processes
+is the mean over the batch; PSNR is recomputed from the averaged squared
+errors, as rvdd_tpu's PSNR takes the mean over the whole batch.  An
+explicit collective rather than ``DistributedDataParallel``: the step calls
+the net once an unrolling before its one backward (and again under
+``remat``), which DDP's reducer does not expect, and the trainer is bound by
+its host, so one collective a step beats one a parameter bucket.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rvdd_tpu_torch.ops.warp_shift import clamp_fraction
 from rvdd_tpu_torch.recurrent.engine import (
@@ -267,8 +282,9 @@ def _check_precision(matmul_precision: str) -> None:
 
 
 def _losses(cfg: EngineConfig, net, raw_frames, raw_flows, gt, weights,
-            matmul_precision: str):
-    """The train step's forward: (losses with the graph, prepared flows)."""
+            matmul_precision: str, mses: Optional[list] = None):
+    """The train step's forward: (losses with the graph, prepared flows);
+    ``mses`` as compute_losses's."""
     autocast = (torch.autocast(raw_frames.device.type, dtype=torch.bfloat16)
                 if matmul_precision == "default" else contextlib.nullcontext())
     with autocast:
@@ -280,27 +296,64 @@ def _losses(cfg: EngineConfig, net, raw_frames, raw_flows, gt, weights,
             b, _, h, w, _ = frames.shape
             nil_feat = net.nil_features(b, h, w, device=frames.device)
         outs = unrolled_forward(cfg, net, frames, flows, len(weights), nil_feat)
-    return compute_losses(cfg, outs, gt, torch.as_tensor(weights)), flows
+    return compute_losses(cfg, outs, gt, torch.as_tensor(weights), mses), flows
 
 
-def make_train_step(cfg: EngineConfig, matmul_precision: str = "highest"):
+def _average(mesh, flat: torch.Tensor) -> None:
+    """``flat`` <- its mean over the mesh's processes, in place, with one
+    collective: NCCL's AVG (at one process NCCL still runs its one-rank
+    reduction kernel, where a SUM is a no-op), gloo's SUM then a division
+    (gloo has no AVG)."""
+    if dist.get_backend(mesh.group) == "nccl":
+        dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=mesh.group)
+    else:
+        dist.all_reduce(flat, group=mesh.group)
+        flat.div_(mesh.world_size)
+
+
+def _reduce(mesh, net, losses: dict, mses: list, weights) -> Dict[str, torch.Tensor]:
+    """Average the gradients and the shard's loss statistics over the mesh
+    (one bucket, one collective); returns the global batch's losses."""
+    params = [p for p in net.parameters() if p.grad is not None]
+    stats = torch.stack([losses["L1"].detach().float()] + mses
+                        + ([losses["warp_clamp"].float()] if "warp_clamp" in losses else []))
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [stats])
+    _average(mesh, flat)
+    for p, g in zip(params, flat.split([p.numel() for p in params] + [len(stats)])):
+        p.grad.copy_(g.view_as(p.grad))
+    stats = flat[-len(stats):]
+    w = torch.as_tensor(weights).to(stats.device, torch.float32)
+    out = {"L1": stats[0],
+           "PSNR": (w * (10.0 * torch.log10(4.0 / stats[1:1 + len(mses)]))).sum(),
+           "Denoiser": stats[0]}
+    if "warp_clamp" in losses:
+        out["warp_clamp"] = stats[-1]
+    return out
+
+
+def make_train_step(cfg: EngineConfig, matmul_precision: str = "highest", mesh=None):
     """The train step: (state, raw_frames [B, T, h, w, 4], raw_flows
     [B, TD, D+fD, h, w, 2] or None, gt [B, T, H', W', C_gt], weights [A])
     -> (state, losses).  ``len(weights)`` unrollings run; the losses are
     detached device tensors ('L1', 'PSNR', 'Denoiser', and under
-    ``warp_impl='shift'`` 'warp_clamp')."""
+    ``warp_impl='shift'`` 'warp_clamp').  With a ``mesh`` (parallel/mesh.py)
+    the batch is this process's shard, and the gradients and losses are
+    averaged over the data axis before the optimizer steps."""
     _check_precision(matmul_precision)
 
     def train_step(state: TrainState, raw_frames, raw_flows, gt, weights):
         state.optimizer.zero_grad(set_to_none=True)
+        mses = [] if mesh is not None else None
         losses, flows = _losses(cfg, state.net, raw_frames, raw_flows, gt, weights,
-                                matmul_precision)
+                                matmul_precision, mses)
         losses["Denoiser"].backward()
-        state.optimizer.step()
         out: Dict[str, torch.Tensor] = {k: v.detach() for k, v in losses.items()}
         if cfg.warp_impl == "shift" and flows is not None and not cfg.no_warp:
             r = cfg.shift_warp_radius
             out["warp_clamp"] = clamp_fraction(flows, radius_v=r, radius_h=r)
+        if mesh is not None:
+            out = _reduce(mesh, state.net, out, mses, weights)
+        state.optimizer.step()
         state.step += 1
         return state, out
 

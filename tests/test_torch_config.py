@@ -61,11 +61,31 @@ def test_engine_config_maps_rvdd_tpu_values(flags, net_impl, warp_impl, preset):
     assert cfg.train_unrollings == jcfg.train_unrollings
 
 
-@pytest.mark.parametrize("flags", [["--mesh_shape", "data,space"], ["--distributed"],
-                                   ["--profile_dir", "/tmp/p"]])
+@pytest.mark.parametrize("flags", [["--mesh_shape", "data,space"],
+                                   ["--mesh_shape", "data1xspace2"],
+                                   ["--distributed", "--profile_dir", "/tmp/p"]])
 def test_not_ported_flags_raise(flags):
-    with pytest.raises(NotImplementedError):
-        config.parse_options(flags)
+    """Since the data-parallel slice the options parse as rvdd_tpu's, and
+    the mesh spec is checked where training builds the mesh: a bad spec
+    raises ValueError there, as rvdd_tpu's make_mesh does; the space axis
+    is still not ported and raises NotImplementedError."""
+    from rvdd_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from rvdd_tpu_torch.parallel.mesh import make_mesh
+
+    opt = config.parse_options(flags + ["--device", "cpu"])
+    want = jconfig.parse_options(flags)
+    assert (opt.mesh_shape, opt.distributed, opt.profile_dir) == (
+        want.mesh_shape, want.distributed, want.profile_dir)
+    if opt.mesh_shape == "data,space":
+        for build in (make_mesh, jmake_mesh):
+            with pytest.raises(ValueError, match="bad mesh spec"):
+                build(opt.mesh_shape)
+    elif opt.mesh_shape == "data1xspace2":
+        with pytest.raises(NotImplementedError, match="space axis"):
+            make_mesh(opt.mesh_shape, world_size=2)
+    else:
+        assert opt.distributed and opt.profile_dir == "/tmp/p"
+        assert make_mesh(opt.mesh_shape).data == 1
 
 
 def test_shift_warp_raises():
