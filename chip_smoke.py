@@ -143,10 +143,26 @@
    kernels of the conv ops; it prints one ``{"dist": ...}`` line (ms a
    step and samples/s beside the train phase's, the trace's size and its
    kernels of most device time).
-9. Prints two ``{"bench": ...}`` records of ``bench.run_train``:
+9. The ``space`` phase runs the mesh's space axis through
+   ``cli.train.main --distributed --mesh_shape data1xspace2`` in a
+   two-process torchrun (``python -m torch.distributed.run --standalone``).
+   With two cards or more: NCCL, a card a rank, one epoch of the train
+   phase's flags on its data; it checks 10 finite steps, the first loss
+   within 1e-4 relative of the train phase's and the files of one writer.
+   With one card (two NCCL ranks cannot share it) the same command runs
+   as two gloo processes on the CPU at a 16-row raw patch without
+   validation, held to a one-process CPU run of the same flags; its line
+   says so (backend, device, cards) and is never the card's result.  It
+   prints one ``{"space": ...}`` line: backend, device, cards, world size,
+   mesh, steps, ms a step, peak memory a rank (on cards), the first and
+   last loss beside the unsharded run's, the card.  ``--space-only``
+   runs this phase alone (its data and its one-process reference first,
+   with ``--space-meshes`` listing the meshes, e.g.
+   ``data1xspace2,data2xspace2`` on four cards) and prints no result line.
+10. Prints two ``{"bench": ...}`` records of ``bench.run_train``:
    convunet+feat at the production patch (batch 2, 136 raw, 4 unrollings,
    highest) and the flagship with remat, 10 timed steps each.
-10. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
+11. Prints a ``{"kernels": [...]}`` JSON line (the conv_chain entry adds
    the ``fp32_*`` ('high'), ``highest_*`` and ``w32_*`` times, bounds and
    errors of its other modes, the convnext_chain entry its fp32 mode's
    ``fp32_*``), the card line and,
@@ -1771,6 +1787,7 @@ def train_phase(root: str) -> dict:
     rec["peak_gib"] = [r["peak_gib"] for r in runs]
     rec["first_loss"] = epochs[0]["first"]["Denoiser"]
     rec["last_loss"] = epochs[-1]["last"]["Denoiser"]
+    rec["last_losses"] = [e["last"]["Denoiser"] for e in epochs]
     rec["val_psnr"] = [e["val"]["PSNR_valLoss"] for e in epochs]
     rec["launches"] = [r["launches"] for r in runs]
     rec["optimizer_steps"] = steps
@@ -1916,6 +1933,259 @@ def dist_phase(root: str, train_rec: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- space
+
+
+#: the meshes of the space phase in a run without arguments
+SPACE_MESHES = ("data1xspace2",)
+#: the one-card fallback's size: a 16-row raw patch (two blocks of 8 for
+#: depth 4), the train phase's stride, no validation (whole 1080p frames
+#: through 48 filters on the CPU would dominate the phase)
+SPACE_CPU_ARGV = ["--patch_width", "16", "--no_val", "--device", "cpu"]
+SPACE_TIMEOUT = 900  # seconds a torchrun of the phase may take
+#: a rank of the phase: cli.train.main, then what it returned (and its
+#: card's peak memory) in <out>/rank<r>.json
+SPACE_WORKER = """import json, os, sys
+import torch
+from rvdd_tpu_torch.cli import train
+from rvdd_tpu_torch.config import parse_options
+cuda = parse_options(sys.argv[2:], train=True).device != "cpu"
+if cuda:
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    torch.cuda.reset_peak_memory_stats()
+res = train.main(sys.argv[2:])
+res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+with open(os.path.join(sys.argv[1], "rank%d.json" % res["rank"]), "w") as f:
+    json.dump(res, f)
+"""
+
+
+#: ``--space-flagship``: the flagship's train step with remat on whole
+#: 1080p frames (raw 540x960, batch 2, 4 unrollings, seeded draws), a size
+#: whose step no card holds alone (4.35 GiB with remat at 272x272 on one
+#: card, 28x fewer pixels; PERF.md), over ``data1xspace<M>``
+SPACE_FLAGSHIP_WORKER = """import json, os, sys, time
+import torch
+from rvdd_tpu_torch.models import build_network
+from rvdd_tpu_torch.parallel.mesh import init_distributed, make_mesh, replicate, shard_batch
+from rvdd_tpu_torch.precision import exact_precision
+from rvdd_tpu_torch.recurrent.engine import EngineConfig
+from rvdd_tpu_torch.training.train_state import (create_train_state, make_train_step,
+                                                 set_learning_rate)
+out, spec, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
+dev = init_distributed("cuda")
+cfg = EngineConfig(model_patch_depth=2, patch_depth=5, future_patch_depth=1, feature_rec=True,
+                   warp_impl="plain", remat=True)
+net = build_network("newunet-mode=feat", cfg.network_input_nc, 3, True, seed=0, device=dev)
+mesh = make_mesh(spec, batch_size=2, row_align=2 ** (net.depth - 1))
+replicate(mesh, net)
+state = set_learning_rate(create_train_state(net, "adamw"), 1e-4)
+g = torch.Generator().manual_seed(0)
+b, t, h, w, td = 2, 6, 540, 960, 4
+batch = {"n": torch.rand(b, t, h, w, 4, generator=g) * 2 - 1,
+         "flow": torch.rand(b, td, 2, h, w, 2, generator=g) * 4 - 2,
+         "gt": torch.rand(b, t, 2 * h, 2 * w, 3, generator=g) * 2 - 1}
+sh = {k: v.to(dev) for k, v in shard_batch(mesh, batch, spatial_axis=-3).items()}
+weights = torch.full((td,), 1.0 / td)
+step = make_train_step(cfg, "highest", mesh)
+torch.cuda.reset_peak_memory_stats()
+times, losses = [], []
+with exact_precision():
+    for i in range(steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, l = step(state, sh["n"], sh["flow"], sh["gt"], weights, height=h)
+        losses.append(float(l["Denoiser"]))
+        times.append(time.perf_counter() - t0)
+rows = mesh.space_rows(h).scale(2)
+rec = dict(rank=mesh.rank, mesh=spec, rows=[rows.start, rows.stop],
+           ms_per_step=[1e3 * x for x in times[1:]], first_step_ms=1e3 * times[0], losses=losses,
+           peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+with open(os.path.join(out, "rank%d.json" % mesh.rank), "w") as f:
+    json.dump(rec, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def space_flagship(root: str, spec: str, steps: int = 2) -> dict:
+    """SPACE_FLAGSHIP_WORKER in a torchrun of the mesh's processes, a card
+    a rank; checks finite losses equal on every rank and prints one line."""
+    nproc = mesh_processes(spec)
+    out = os.path.join(root, f"flagship_{spec}")
+    os.makedirs(out)
+    script = os.path.join(root, "space_flagship.py")
+    with open(script, "w") as f:
+        f.write(SPACE_FLAGSHIP_WORKER)
+    seconds = run_torchrun(root, f"flagship {spec}", nproc, [script, out, spec, str(steps)], 4)
+    ranks = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(nproc)]
+    rec = dict(mesh=spec, backend="nccl", cards=torch.cuda.device_count(), batch=2,
+               raw=[540, 960], unrollings=4, remat=True,
+               rows=[r["rows"] for r in ranks], ms_per_step=[r["ms_per_step"] for r in ranks],
+               first_step_ms=[r["first_step_ms"] for r in ranks],
+               peak_gib=[r["peak_gib"] for r in ranks], losses=ranks[0]["losses"],
+               run_s=seconds, card=CARD)
+    log(json.dumps({"space_flagship": rec}))
+    if not (np.isfinite(rec["losses"]).all() and all(r["losses"] == rec["losses"] for r in ranks)):
+        raise AssertionError(f"space flagship {spec}: losses {[r['losses'] for r in ranks]}")
+    return rec
+
+
+def mesh_processes(spec: str) -> int:
+    m = re.fullmatch(r"data(\d+)xspace(\d+)", spec)
+    return int(m.group(1)) * int(m.group(2))
+
+
+def run_torchrun(root: str, name: str, nproc: int, args: list, threads: int) -> float:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc args...`` from the repo's root, in a process group of its own
+    killed whole after SPACE_TIMEOUT; raises if it fails; returns its
+    seconds."""
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+               PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")])))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=SPACE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"space: {name} did not finish in {SPACE_TIMEOUT} s")
+    if proc.returncode:
+        raise AssertionError(f"space: {name} exited {proc.returncode}:\n{text[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def torchrun_train(root: str, name: str, nproc: int, argv: list, threads: int) -> tuple:
+    """``cli.train.main(argv)`` in a torchrun of ``nproc`` processes
+    (SPACE_WORKER); returns each rank's result and the seconds."""
+    out = os.path.join(root, f"{name}_ranks")
+    os.makedirs(out)
+    script = os.path.join(root, "space_worker.py")
+    with open(script, "w") as f:
+        f.write(SPACE_WORKER)
+    seconds = run_torchrun(root, name, nproc, [script, out, *argv], threads)
+    return [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(nproc)], seconds
+
+
+def train_once(argv: list, cuda: bool) -> dict:
+    """One process of ``cli.train.main(argv)``: its epoch, seconds and the
+    card's peak memory."""
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = train.main(argv)
+    if cuda:
+        torch.cuda.synchronize()
+    (epoch,) = r["epochs"]
+    return dict(epoch=epoch, seconds=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None)
+
+
+def space_phase(root: str, ref: dict, meshes=SPACE_MESHES) -> list:
+    """The mesh's space axis through cli.train.main --distributed
+    --mesh_shape <mesh> in a torchrun: NCCL with a card a rank where the
+    machine has the cards, against ``ref`` (the one-process run of the
+    same flags on the card: its epoch and peak memory); else gloo on the
+    CPU at SPACE_CPU_ARGV's size against a one-process CPU run.  Checks
+    the steps, the first loss within 1e-4 relative and the files of one
+    writer; prints one line a mesh."""
+    cards = torch.cuda.device_count()
+    recs = []
+    for spec in meshes:
+        nproc = mesh_processes(spec)
+        on_cards = cards >= nproc
+        name = f"space_{spec}" + ("" if on_cards else "_cpu")
+        argv = TRAIN_ARGV + train_data_flags(root, name) + ["--niter", "1", "--niter_decay", "0"]
+        if on_cards:
+            want = ref
+        else:
+            argv += SPACE_CPU_ARGV
+            want = train_once(TRAIN_ARGV + train_data_flags(root, name + "_one")
+                              + ["--niter", "1", "--niter_decay", "0"] + SPACE_CPU_ARGV,
+                              cuda=False)
+        torch.cuda.empty_cache()
+        ranks, seconds = torchrun_train(root, name, nproc,
+                                        argv + ["--distributed", "--mesh_shape", spec],
+                                        threads=4 if on_cards else max(1, 8 // nproc))
+        epochs = [r["epochs"][0] for r in ranks]
+        e0, w = epochs[0], want["epoch"]
+        rec = dict(backend=ranks[0]["backend"], device="cuda" if on_cards else "cpu",
+                   cards=cards, world_size=ranks[0]["world_size"], mesh=spec,
+                   steps=e0["steps"], ms_per_step=[e["step_ms"] for e in epochs],
+                   peak_gib=[r["peak_gib"] for r in ranks], first_loss=e0["first"]["Denoiser"],
+                   last_loss=e0["last"]["Denoiser"], one_process_first_loss=w["first"]["Denoiser"],
+                   one_process_last_loss=w["last"]["Denoiser"],
+                   one_process_ms_per_step=w["step_ms"], one_process_peak_gib=want["peak_gib"],
+                   run_s=seconds, card=CARD if on_cards else None)
+        if not on_cards:
+            rec["note"] = (f"gloo on the CPU: {cards} card(s) here, two NCCL ranks need a card "
+                           "each; not the card's result")
+        log(json.dumps({"space": rec}))
+
+        if [r["rank"] for r in ranks] != list(range(nproc)) or {
+                (r["world_size"], r["backend"]) for r in ranks} != {
+                (nproc, "nccl" if on_cards else "gloo")}:
+            seen = [(r["rank"], r["world_size"], r["backend"]) for r in ranks]
+            raise AssertionError(f"space {spec}: ranks {seen}")
+        if not all(e["steps"] == w["steps"] and e["steps"] >= 2 and e["finite"]
+                   for e in epochs) or (on_cards and w["steps"] != 10):
+            raise AssertionError(f"space {spec}: steps {[e['steps'] for e in epochs]}, "
+                                 f"one process {w['steps']}")
+        rel = abs(rec["first_loss"] - rec["one_process_first_loss"]) / abs(
+            rec["one_process_first_loss"])
+        if not rel <= 1e-4:
+            raise AssertionError(f"space {spec}: the first loss {rec['first_loss']} is "
+                                 f"{rel:.2e} from one process's {rec['one_process_first_loss']}")
+        save_dir = os.path.join(root, "ckpt", name)
+        nets = {f"{e}_net_Denoise.msgpack" for e in ("0", "1", "latest")}
+        if on_cards:
+            nets.add("latest_val_net_Denoise.msgpack")
+        names = set(os.listdir(save_dir))
+        log_text = open(os.path.join(save_dir, "loss_log.txt")).read()
+        if not (nets | {"status.json"} <= names
+                and log_text.count("================ Training Loss") == 1
+                and f"(mesh {spec}: each patch's rows in blocks of" in log_text):
+            raise AssertionError(f"space {spec}: the files of one writer: {sorted(names)}")
+        recs.append(rec)
+    return recs
+
+
+def space_only(meshes, flagship=None) -> None:
+    """``--space-only``: the clip's train and validation splits, the
+    one-process reference epoch on the card (which computes and persists
+    the flows), then :func:`space_phase`, and with ``flagship`` (a mesh)
+    :func:`space_flagship`."""
+    with tempfile.TemporaryDirectory(prefix="rvdd_space_") as root, saved_precision():
+        synth_clip(root)
+        src = os.path.join(root, "srgb", "%03d", "%08d.png")
+        generate_data.main(["--input_train_dataset", src, "--input_val_dataset", src,
+                            "--output_train_dataset", os.path.join(root, "train"),
+                            "--output_val_dataset", os.path.join(root, "validation"),
+                            "--nb_seq_train", "1", "--nb_seq_val", "1", "--first", "0",
+                            "--last", str(SERVE_FRAMES - 1), "--step", "1",
+                            "--ISO", str(SERVE_ISO), "--device", "cuda"])
+        ref = train_once(TRAIN_ARGV + train_data_flags(root, "train")
+                         + ["--niter", "1", "--niter_decay", "0"], cuda=True)
+        log(json.dumps({"space_reference": dict(steps=ref["epoch"]["steps"],
+                                                ms_per_step=ref["epoch"]["step_ms"],
+                                                peak_gib=ref["peak_gib"],
+                                                first_loss=ref["epoch"]["first"]["Denoiser"],
+                                                card=CARD)}))
+        space_phase(root, ref, meshes)
+        if flagship:
+            torch.cuda.empty_cache()
+            space_flagship(root, flagship)
+    log(CARD)
+
+
 #: bench --train records: the production convunet+feat (batch 2, patch 136,
 #: 4 unrollings, highest) and the flagship (remat forced)
 TRAIN_BENCH = ("convunet+feat", "convnext+feat+future")
@@ -1991,12 +2261,23 @@ def main(argv=None):
     ap.add_argument("--conv-source", metavar="DIR",
                     help="also time the conv_chain kernel of the checkout at DIR against this "
                          "one (bit-identical outputs in the unchanged modes)")
+    ap.add_argument("--space-only", action="store_true",
+                    help="run the space phase alone (its data and one-process reference "
+                         "first); prints no result line")
+    ap.add_argument("--space-meshes", default=",".join(SPACE_MESHES),
+                    help="the space phase's meshes, comma-separated")
+    ap.add_argument("--space-flagship", metavar="MESH",
+                    help="with --space-only, also the flagship's step with remat on whole "
+                         "1080p frames over MESH (e.g. data1xspace4)")
     args = ap.parse_args(argv)
+    meshes = tuple(args.space_meshes.split(","))
     global CARD
     card = CARD = card_info()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    if args.space_only:
+        return space_only(meshes, args.space_flagship)
     t0 = time.perf_counter()
     info = _build.build(_build.SOURCES + _build.HOST_SOURCES)
     log(f"build: {time.perf_counter() - t0:.1f} s wall for {len(info)} sources")
@@ -2053,9 +2334,15 @@ def main(argv=None):
         t0 = time.perf_counter()
         dist_phase(root, train_rec)
         t1 = time.perf_counter()
+        space_phase(root, dict(epoch=dict(steps=train_rec["steps"][0],
+                                          first=dict(Denoiser=train_rec["first_loss"]),
+                                          last=dict(Denoiser=train_rec["last_losses"][0]),
+                                          step_ms=train_rec["ms_per_step"][0]),
+                               peak_gib=train_rec["peak_gib"][0]), meshes)
+        t2 = time.perf_counter()
         bench_train()
-        log(f"dist phase {t1 - t0:.1f} s, bench train records {time.perf_counter() - t1:.1f} s "
-            "(host clock)")
+        log(f"dist phase {t1 - t0:.1f} s, space phase {t2 - t1:.1f} s, bench train records "
+            f"{time.perf_counter() - t2:.1f} s (host clock)")
 
     kernels = [
         dict(name="warp_bicubic", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",

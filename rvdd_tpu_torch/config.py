@@ -14,7 +14,8 @@ training warp; the port's is the exact plain warp);
 :meth:`Options.resolve_train_warp_impl`'s.  rvdd_tpu's ``--compilation_cache_dir`` is
 parsed and ignored.  ``--mesh_shape``'s grammar is checked by
 ``parallel/mesh.py:make_mesh`` when training starts, not here; its
-``space`` axis is not ported and raises there (ROADMAP.md).
+``space`` axis cuts each patch's rows over the processes of a data index
+(parallel/space.py).
 """
 
 from __future__ import annotations
@@ -124,8 +125,8 @@ class Options:
 
     # rvdd_tpu's accelerator flags
     #: 'data', 'data<N>' or 'data<N>xspace<M>' (parallel/mesh.py:make_mesh;
-    #: the data axis must equal the number of processes, the space axis is
-    #: not ported and raises)
+    #: N x M must equal the number of processes; M > 1 cuts each patch's
+    #: rows over M of them)
     mesh_shape: str = "data"
     exact_precision: bool = True  # fp32 convs and matmuls, no TF32 (precision.py)
     #: training matmul precision: 'highest' (fp32-exact, 6-pass MXU — the

@@ -21,6 +21,12 @@ The knobs of rvdd_tpu's ConvNeXtUNet (rvdd_tpu/models/convnext_unet.py:
 ``fusion_mode`` ``cat`` (the default: ``[up, skip]`` into the decoder
 block) or ``sum`` (``up + fuse_scale{i}(skip)``, a LayerScale on the skip);
 and the exact or tanh GELU (``fast_act``).
+
+On a shard of the mesh's space axis (parallel/space.py:scope) each level
+runs on this process's rows: the depthwise conv reads ``kernel_size // 2``
+rows of its neighbours on each side (zeros beyond the sample), the
+align_corners=True upsample reads the rows its taps reach in the sample,
+the pools stay local and the LayerNorm and the 1x1s are per pixel.
 """
 
 from __future__ import annotations
@@ -31,13 +37,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from rvdd_tpu_torch.models.unet import zero_pad_to
+from rvdd_tpu_torch.models.unet import conv2d, zero_pad_to
 from rvdd_tpu_torch.ops.resize import (
     avgpool2x2,
     maxpool2x2,
     upsample2x_bilinear,
     upsample2x_nearest,
 )
+from rvdd_tpu_torch.parallel import space
+from rvdd_tpu_torch.parallel.space import Rows
 
 
 def conv1x1_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -91,10 +99,10 @@ class ConvNeXtBlock(nn.Module):
         self.pw2 = nn.Conv2d(4 * features, features, 1)
         self.layerscale = LayerScale(features, layerscale_init)
 
-    def forward(self, x):
+    def forward(self, x, rows: Optional[Rows] = None):
         if self.in_features != self.features:
             x = conv1x1_nhwc(self.proj, x)
-        h = self.dw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        h = conv2d(self.dw, x.permute(0, 3, 1, 2), rows).permute(0, 2, 3, 1)
         h = self.ln(h)
         h = conv1x1_nhwc(self.pw1, h)
         h = F.gelu(h, approximate="tanh" if self.fast_act else "none")
@@ -115,9 +123,9 @@ class NConvNeXtBlock(nn.Module):
                 in_features if j == 0 else features, features, kernel_size,
                 layerscale_init, fast_act))
 
-    def forward(self, x):
+    def forward(self, x, rows: Optional[Rows] = None):
         for j in range(self.n_blocks):
-            x = getattr(self, f"block{j}")(x)
+            x = getattr(self, f"block{j}")(x, rows)
         return x
 
 
@@ -189,33 +197,39 @@ class ConvNeXtUNet(nn.Module):
     def forward(self, x: torch.Tensor, feat: Optional[torch.Tensor] = None):
         """(x [B, H, W, Cin], feat [B, H, W, F] or None) -> (y [B, H, W, Cout]
         fp32, new_feat [B, H, W, F] fp32 or None)."""
+        # this shard's rows at each level (None: the whole sample)
+        rows = [space.rows_of(x)]
+        for _ in range(self.depth - 1):
+            rows.append(None if rows[-1] is None else rows[-1].down())
         if self.feature_rec:
             if feat is None:
                 raise ValueError("feature-recurrent net needs a feat input")
-            h = torch.cat([self.pre(x), feat], dim=-1)
+            h = torch.cat([self.pre(x, rows[0]), feat], dim=-1)
         else:
             h = x
         skips = []
         for i in range(self.depth):
-            h = getattr(self, f"enc_conv{i}")(h)
+            h = getattr(self, f"enc_conv{i}")(h, rows[i])
             skips.append(h)
             if i < self.depth - 1:
                 pool = avgpool2x2 if self.downsampling_mode == "avgpool" else maxpool2x2
-                h = getattr(self, f"enc_down{i}")(pool(h))
-        h = self.bottleneck(h)
+                h = getattr(self, f"enc_down{i}")(pool(h), rows[i + 1])
+        h = self.bottleneck(h, rows[-1])
         for i in range(self.depth - 1):
+            low = rows[self.depth - 1 - i]
             if self.upsampling_mode == "nearest":
                 h = upsample2x_nearest(h)
             else:  # align_corners=True here, unlike convunet
-                h = upsample2x_bilinear(h, align_corners=True)
-            h = getattr(self, f"dec_up{i}")(h)
+                h = upsample2x_bilinear(h, align_corners=True, rows=low)
+            up = None if low is None else low.scale(2)
+            h = getattr(self, f"dec_up{i}")(h, up)
             skip = skips[-(i + 2)]
-            h = zero_pad_to(h, skip.shape[-3], skip.shape[-2])
+            h = zero_pad_to(h, skip.shape[-3], skip.shape[-2], up, rows[self.depth - 2 - i])
             if self.fusion_mode == "sum":
                 h = h + getattr(self, f"fuse_scale{i}")(skip)
             else:
                 h = torch.cat([h, skip], dim=-1)
-            h = getattr(self, f"dec_conv{i}")(h)
-        h = self.post(h)
+            h = getattr(self, f"dec_conv{i}")(h, rows[self.depth - 2 - i])
+        h = self.post(h, rows[0])
         new_feat = h.float() if self.feature_rec else None
         return conv1x1_nhwc(self.post_final, h).float(), new_feat

@@ -31,6 +31,15 @@ The ablation knobs of rvdd_tpu's ConvUNet (rvdd_tpu/models/unet.py:45-80,
 * ``bottleneck_dilation``: bottleneck conv i dilated (and padded) by 2^i;
 * ``use_bias=False``: no conv has a bias;
 * ``residual``: the output is ``x[..., 4:] - y``.
+
+On a shard of the mesh's space axis (parallel/space.py:scope) each level
+runs on this process's rows: a 3x3 conv reads ``dilation`` rows of its
+neighbours on each side (zeros beyond the sample) and runs unpadded in H,
+a transposed conv reads the rows its taps reach and keeps its own output
+rows, the pools and ``stridedconv`` stay local (the row cut is aligned to
+the levels), ``zero_pad_to`` centres in the sample's height, instance norm
+takes its statistics over the sample's shards and batch norm over the
+whole mesh (also under a data axis alone).
 """
 
 from __future__ import annotations
@@ -47,16 +56,39 @@ from rvdd_tpu_torch.ops.resize import (
     upsample2x_bilinear,
     upsample2x_nearest,
 )
+from rvdd_tpu_torch.parallel import space
+from rvdd_tpu_torch.parallel.space import Rows
 
 DOWNSAMPLING = ("convmax", "convavg", "maxpool", "stridedconv")
 NORMALIZATIONS = (None, "none", "instance", "batch")
 
 
-def zero_pad_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Center an NHWC feature map in a zero canvas of (h, w)."""
-    dh = (h - x.shape[-3]) // 2
+def zero_pad_to(x: torch.Tensor, h: int, w: int, rows: Optional[Rows] = None,
+                out_rows: Optional[Rows] = None) -> torch.Tensor:
+    """Center an NHWC feature map in a zero canvas of (h, w).  On a shard,
+    ``rows`` are x's and ``out_rows`` the canvas's (``h`` is then the
+    shard's own rows of it)."""
     dw = (w - x.shape[-2]) // 2
+    if rows is not None:
+        dh = (out_rows.height - rows.height) // 2
+        x = space.window(x, rows, [(a - dh, b - dh) for a, b in out_rows.bounds], "zero")
+        return F.pad(x, (0, 0, dw, w - x.shape[-2] - dw))
+    dh = (h - x.shape[-3]) // 2
     return F.pad(x, (0, 0, dw, w - x.shape[-2] - dw, dh, h - x.shape[-3] - dh))
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
+    """``conv(x)`` on NCHW x; on a shard a 'same' stride-1 conv reads its
+    padding's rows of the neighbours (zeros beyond the sample) and runs
+    unpadded in H."""
+    if rows is None:
+        return conv(x)
+    ph, pw = conv.padding
+    if conv.stride[0] != 1:
+        raise ValueError(f"a conv of stride {conv.stride} on a shard of rows")
+    xh = space.halo(x, rows, ph, ph, "zero", dim=-2)
+    return F.conv2d(xh, conv.weight, conv.bias, conv.stride, (0, pw), conv.dilation,
+                    conv.groups)
 
 
 def _conv3(cin: int, cout: int, bias: bool = True, dilation: int = 1) -> nn.Conv2d:
@@ -75,14 +107,43 @@ def _add_norm_params(mod: nn.Module, kind, name: str, c: int) -> None:
         mod.register_parameter(f"{name}_bn_offset", nn.Parameter(torch.zeros(c)))
 
 
-def _normalize(x: torch.Tensor, kind, mod: nn.Module, name: str) -> torch.Tensor:
+def _stats_group(kind, rows: Optional[Rows]):
+    """The group the statistics of ``kind`` span beyond this process's
+    rows: instance norm's a sample's shards, batch norm's the whole mesh
+    (the active scope's); None: this process's own."""
+    if kind == "instance":
+        return None if rows is None else rows.group
+    sc = space.active()
+    return None if sc is None else sc.batch_group
+
+
+def _moments(x: torch.Tensor, dims, group):
+    """Mean and biased variance over ``dims`` and over ``group``: the
+    sums and the count in one all-reduce, then the squared deviations from
+    the mean in another (two passes, as the single-process code), in fp32."""
+    xf = x.float()
+    s = xf.sum(dim=dims, keepdim=True)
+    count = xf.numel() // s.numel()
+    both = space.all_sum(torch.cat([s.reshape(-1), s.new_full((1,), count)]), group)
+    count = both[-1]
+    mean = (both[:-1] / count).reshape(s.shape)
+    var = space.all_sum((xf - mean).square().sum(dim=dims, keepdim=True), group) / count
+    return mean.to(x.dtype), var.to(x.dtype)
+
+
+def _normalize(x: torch.Tensor, kind, mod: nn.Module, name: str,
+               rows: Optional[Rows] = None) -> torch.Tensor:
     """The conv -> norm -> act slot on NCHW ``x`` (rvdd_tpu/models/unet.py:
-    _normalize): biased variances, eps 1e-5."""
+    _normalize): biased variances, eps 1e-5; ``rows``: x's on a shard."""
     if kind in (None, "none"):
         return x
     dims = (2, 3) if kind == "instance" else (0, 2, 3)
-    mean = x.mean(dim=dims, keepdim=True)
-    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    group = _stats_group(kind, rows)
+    if group is None:
+        mean = x.mean(dim=dims, keepdim=True)
+        var = (x - mean).square().mean(dim=dims, keepdim=True)
+    else:
+        mean, var = _moments(x, dims, group)
     y = (x - mean) * torch.rsqrt(var + 1e-5)
     if kind == "instance":
         return y
@@ -104,10 +165,10 @@ class NConvBlock(nn.Module):
         self.act = _activation(activation)
         self.normalization = normalization
 
-    def forward(self, x):
+    def forward(self, x, rows: Optional[Rows] = None):
         for j in range(self.n_blocks):
-            x = getattr(self, f"conv{j}")(x)
-            x = self.act(_normalize(x, self.normalization, self, f"conv{j}"))
+            x = conv2d(getattr(self, f"conv{j}"), x, rows)
+            x = self.act(_normalize(x, self.normalization, self, f"conv{j}", rows))
         return x
 
 
@@ -206,8 +267,9 @@ class ConvUNet(nn.Module):
             device = self.post_final.weight.device
         return torch.zeros(batch, h, w, self.filters, dtype=dtype, device=device)
 
-    def _downsample(self, h: torch.Tensor, i: int) -> torch.Tensor:
-        """NCHW in and out."""
+    def _downsample(self, h: torch.Tensor, i: int, rows: Optional[Rows] = None):
+        """NCHW in and out; on a shard each shard pools its own rows (its
+        cut is even, and only the last shard can end on an odd row)."""
         mode = self.downsampling_mode
         if mode == "stridedconv":
             # flax's 'SAME' for a 2x2 window of stride 2: one row (column)
@@ -215,61 +277,90 @@ class ConvUNet(nn.Module):
             h = F.pad(h, (0, h.shape[-1] % 2, 0, h.shape[-2] % 2))
             return getattr(self, f"enc_down{i}")(h)
         if mode in ("convmax", "convavg"):
-            h = getattr(self, f"enc_down{i}")(h)
+            h = conv2d(getattr(self, f"enc_down{i}"), h, rows)
         pool = avgpool2x2 if mode == "convavg" else maxpool2x2
         return pool(h.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
-    def _upsample(self, d: torch.Tensor, i: int) -> torch.Tensor:
-        """NCHW in and out."""
+    def _up_rows(self, rows: Optional[Rows]) -> Optional[Rows]:
+        """The rows of :meth:`_upsample`'s output on a shard (``rows``: its
+        input's): twice them, and ``transposedconv<k>``'s sample is
+        2(h - 1) - 2p + k rows tall."""
+        if rows is None:
+            return None
+        k = self._transposed_k(self.upsampling_mode)
+        if k is None:
+            return rows.scale(2)
+        return rows.scale(2).with_height(2 * (rows.height - 1) - 2 * ((k - 1) // 2) + k)
+
+    def _upsample(self, d: torch.Tensor, i: int, rows: Optional[Rows] = None) -> torch.Tensor:
+        """NCHW in and out; on a shard (``rows``: d's) the output holds the
+        rows of :meth:`_up_rows`."""
         k = self._transposed_k(self.upsampling_mode)
         if k is not None:
             w = getattr(self, f"up_transposed{i}_kernel").permute(2, 3, 0, 1)
             b = getattr(self, f"up_transposed{i}_bias", None)
-            return F.conv_transpose2d(d, w, b, stride=2, padding=(k - 1) // 2)
+            p = (k - 1) // 2
+            if rows is None:
+                return F.conv_transpose2d(d, w, b, stride=2, padding=p)
+            # output row y takes input rows (y + p - j) / 2 for taps j < k:
+            # (k - 1 - p) // 2 rows above this shard's, (p + 1) // 2 below
+            lo = (k - 1 - p) // 2
+            y = F.conv_transpose2d(space.halo(d, rows, lo, (p + 1) // 2, "zero", dim=-2), w, b,
+                                   stride=2, padding=(0, p))
+            out = self._up_rows(rows)
+            off = out.start - 2 * (rows.start - lo) + p
+            return y[:, :, off:off + out.n]
         nhwc = d.permute(0, 2, 3, 1)
         if self.upsampling_mode == "nearest":
             return upsample2x_nearest(nhwc).permute(0, 3, 1, 2)
-        return upsample2x_bilinear(nhwc, align_corners=False).permute(0, 3, 1, 2)
+        return upsample2x_bilinear(nhwc, align_corners=False, rows=rows).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, feat: Optional[torch.Tensor] = None):
         to_nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
         to_nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         norm = self.normalization
+        # this shard's rows at each level (None: the whole sample)
+        rows = [space.rows_of(x)]
+        for _ in range(self.depth - 1):
+            rows.append(None if rows[-1] is None
+                        else rows[-1].down(ceil=self.downsampling_mode == "stridedconv"))
         if self.feature_rec:
             if feat is None:
                 raise ValueError("feature-recurrent net needs a feat input")
-            y = self.pre(to_nchw(x))
+            y = conv2d(self.pre, to_nchw(x), rows[0])
             h = torch.cat([y, to_nchw(feat)], dim=1)
         else:
             h = to_nchw(x)
 
         skips = []
         for i in range(self.depth):
-            h = getattr(self, f"enc_conv{i}")(h)
+            h = getattr(self, f"enc_conv{i}")(h, rows[i])
             skips.append(h)
             if i < self.depth - 1:
-                h = self._downsample(h, i)
+                h = self._downsample(h, i, rows[i])
 
         # bottleneck with a running residual sum; no norm in the bottleneck
         d = skips[-1]
         s = d
         for i in range(self.bottleneck_depth):
-            d = self.act(getattr(self, f"bottleneck{i}")(d))
+            d = self.act(conv2d(getattr(self, f"bottleneck{i}"), d, rows[-1]))
             s = s + d
         d = s
 
         for i in range(self.depth - 1):
             skip = skips[self.depth - 2 - i]
-            d = self._upsample(d, i)
-            d = getattr(self, f"dec_up{i}")(d)
-            d = self.act(_normalize(d, norm, self, f"dec_up{i}"))
-            d = to_nchw(zero_pad_to(to_nhwc(d), skip.shape[-2], skip.shape[-1]))
+            low = rows[self.depth - 1 - i]
+            d, up_rows = self._upsample(d, i, low), self._up_rows(low)
+            d = conv2d(getattr(self, f"dec_up{i}"), d, up_rows)
+            d = self.act(_normalize(d, norm, self, f"dec_up{i}", up_rows))
+            d = to_nchw(zero_pad_to(to_nhwc(d), skip.shape[-2], skip.shape[-1], up_rows,
+                                    rows[self.depth - 2 - i]))
             d = torch.cat([skip, d], dim=1)  # [skip, d], as rvdd_tpu
-            d = getattr(self, f"dec_conv{i}")(d)
+            d = getattr(self, f"dec_conv{i}")(d, rows[self.depth - 2 - i])
 
         for i in range(self.post_depth - 1):
-            d = getattr(self, f"post{i}")(d)
-            d = self.act(_normalize(d, norm, self, f"post{i}"))
+            d = conv2d(getattr(self, f"post{i}"), d, rows[0])
+            d = self.act(_normalize(d, norm, self, f"post{i}", rows[0]))
         new_feat = to_nhwc(d).float() if self.feature_rec else None
         y = to_nhwc(self.post_final(d)).float()
         if self.residual:

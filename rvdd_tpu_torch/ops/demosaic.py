@@ -5,13 +5,26 @@ Each stencil tap is an edge-replicated shift of the full-res mosaic, with
 the same formulas and tie rules as the reference fixed-weight convolutions
 (reference: util/Hamilton_Adam_demo.py).  rvdd_tpu also has a planar,
 phase-resolved variant; that is a TPU layout and is not ported.
+
+On a shard of the mesh's space axis (``rows``, parallel/space.py) the
+shard demosaics its rows with up to two packed rows of its neighbours
+above and below (the stencils reach three mosaic rows; the sample's edge
+replicates as before) and keeps its own.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from rvdd_tpu_torch.ops.bayer import bayer_masks, green_row_masks, pack_cfa
+from rvdd_tpu_torch.parallel import space
+from rvdd_tpu_torch.parallel.space import Rows
+
+#: packed raw rows a shard reads beyond its own on each side (4 mosaic
+#: rows; the green stencil reaches 2, the chroma one 1 more)
+HALO = 2
 
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -73,8 +86,15 @@ def _interp_chroma(green, chan, mask_ochan, mask_row, mask_col):
     return diag + ch + cv + chan
 
 
-def hamilton_adams(raw4: torch.Tensor) -> torch.Tensor:
-    """Demosaic packed GBRG raw [..., H, W, 4] -> linear RGB [..., 2H, 2W, 3]."""
+def hamilton_adams(raw4: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
+    """Demosaic packed GBRG raw [..., H, W, 4] -> linear RGB [..., 2H, 2W, 3];
+    on a shard, ``rows`` are raw4's."""
+    if rows is not None:
+        h = rows.height
+        want = [(max(a - HALO, 0), min(b + HALO, h)) for a, b in rows.bounds]
+        lo = rows.start - want[rows.index][0]
+        rgb = hamilton_adams(space.window(raw4, rows, want, "zero", raw4.ndim - 3))
+        return rgb[..., 2 * lo:2 * (lo + rows.n), :, :]
     cfa = pack_cfa(raw4)
     hh, ww = cfa.shape[-2], cfa.shape[-1]
     mask_r, mask_g, mask_b = bayer_masks(hh, ww, cfa.dtype, cfa.device)

@@ -11,13 +11,22 @@ vertical v; ``warp(x, flow)`` samples x at ``(col + u, row + v)``.
 
 The bicubic ``warp`` is also the plain version of the CUDA warp kernel
 (ops/cuda/warp_bicubic.py), in both its modes.
+
+On a shard of the mesh's space axis (``rows``, parallel/space.py) a
+flow's reach is unbounded, so ``warp`` gathers the whole sample of ``x``
+and samples it at this shard's rows, counted from the shard's offset; the
+border clamp and the mask use the sample's height.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from rvdd_tpu_torch.ops.resize import resize_bilinear
+from rvdd_tpu_torch.parallel import space
+from rvdd_tpu_torch.parallel.space import Rows
 
 
 def cubic_kernel(t, a: float = -0.75):
@@ -41,20 +50,27 @@ def _gather2d(xf: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor, w: int):
     return xf[bidx, idx].reshape(b, iy.shape[1], iy.shape[2], xf.shape[-1])
 
 
-def warp(x: torch.Tensor, flow: torch.Tensor, interp: str = "bicubic", a: float = -0.75):
+def warp(x: torch.Tensor, flow: torch.Tensor, interp: str = "bicubic", a: float = -0.75,
+         rows: Optional[Rows] = None):
     """Warp ``x`` [B, H, W, C] by ``flow`` [B, H, W, 2].
 
     Returns ``(warped, mask)``; ``mask`` [B, H, W, 1] is 1.0 where the
     source position fell inside the image.  Computes in float32.  ``a`` is
     the bicubic coefficient: -0.75 (torch's) for the model, -0.5
-    (Catmull-Rom) for the TV-L1 solver's warp.
+    (Catmull-Rom) for the TV-L1 solver's warp.  On a shard, ``x`` and
+    ``flow`` hold this shard's ``rows`` and so does the result.
     """
+    row0 = 0
+    if rows is not None:
+        x = space.gather_rows(x, rows)
+        row0 = rows.start
     b, h, wd, c = x.shape
     x = x.float()
     flow = flow.float()
     dev = x.device
     gx = torch.arange(wd, device=dev, dtype=torch.float32)[None, None, :] + flow[..., 0]
-    gy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None] + flow[..., 1]
+    gy = (torch.arange(row0, row0 + flow.shape[1], device=dev, dtype=torch.float32)
+          [None, :, None] + flow[..., 1])
     mask = ((gx >= 0.0) & (gx <= wd - 1.0) & (gy >= 0.0) & (gy <= h - 1.0))
     mask = mask.to(x.dtype)[..., None]
     xf = x.reshape(b, h * wd, c)
@@ -69,7 +85,7 @@ def warp(x: torch.Tensor, flow: torch.Tensor, interp: str = "bicubic", a: float 
         # keeps the integer conversion in range
         ix = fx.clamp(-3.0, wd + 1.0).long()
         iy = fy.clamp(-3.0, h + 1.0).long()
-        out = torch.zeros_like(x)
+        out = x.new_zeros((b,) + tuple(gy.shape[1:]) + (c,))
         for j in range(4):
             iyj = (iy - 1 + j).clamp(0, h - 1)
             for i in range(4):
@@ -104,8 +120,12 @@ def warp(x: torch.Tensor, flow: torch.Tensor, interp: str = "bicubic", a: float 
     raise ValueError(f"unknown interpolation '{interp}'")
 
 
-def flow_upsample_2x(flow: torch.Tensor) -> torch.Tensor:
+def flow_upsample_2x(flow: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
     """Upsample a flow field [..., H, W, 2] x2 spatially and scale the vectors
-    by 2 (bilinear, align_corners=True, as torch F.interpolate)."""
+    by 2 (bilinear, align_corners=True, as torch F.interpolate); on a shard
+    the sample's sizes give the taps (``rows``: the flow's)."""
     h, w = flow.shape[-3], flow.shape[-2]
+    if rows is not None:
+        out = rows.scale(2)
+        return resize_bilinear(flow.float(), out.height, 2 * w, True, rows, out) * 2.0
     return resize_bilinear(flow.float(), 2 * h, 2 * w, align_corners=True) * 2.0

@@ -1,4 +1,5 @@
-"""Data parallelism over torch.distributed (port of rvdd_tpu/parallel)."""
+"""The mesh over torch.distributed: data parallelism and the spatial axis
+(port of rvdd_tpu/parallel)."""
 
 from rvdd_tpu_torch.parallel.mesh import (
     Mesh,

@@ -68,6 +68,14 @@ the gradient of whose gather is a scatter-add on the card; the train step
 only logs what rvdd_tpu's banded sweep would have clamped
 (ops/warp_shift.py).  ``remat`` recomputes each unrolling in the backward
 (``torch.utils.checkpoint``), as rvdd_tpu's ``jax.checkpoint``.
+
+On a shard of the mesh's space axis (inside parallel/space.py:scope: the
+train step and the sharded inference) the module path runs on this
+process's rows of each frame: the demosaic, the flow upsample, the warps
+(which read the whole sample of their source) and the nets exchange the
+rows they need, and ``compute_losses`` returns this shard's part of each
+global mean.  The fused path refuses a space axis, as rvdd_tpu runs no
+Pallas chain under a space mesh.
 """
 
 from __future__ import annotations
@@ -98,6 +106,7 @@ from rvdd_tpu_torch.ops.demosaic import hamilton_adams
 from rvdd_tpu_torch.ops.metrics import psnr
 from rvdd_tpu_torch.ops.tvl1 import TVL1Params, to_gray, tvl1_flow
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x, warp
+from rvdd_tpu_torch.parallel import space
 
 #: channels of the fused recurrence state: [den 3 | zero 5 | feat 48]
 STATE_DEN = 3
@@ -174,28 +183,34 @@ def prepare_frames(cfg: EngineConfig, raw_frames: torch.Tensor,
     if cfg.no_predemosaic:
         return raw_frames, flows
     t = raw_frames.shape[1]
-    rgb = torch.stack([hamilton_adams(raw_frames[:, i]) for i in range(t)], dim=1)
+    rows = space.rows_of(raw_frames)
+    rgb = torch.stack([hamilton_adams(raw_frames[:, i], rows) for i in range(t)], dim=1)
     if flows is not None and not cfg.warp_raw:
         bt, td, dd, fh, fw, _ = flows.shape
-        flows = flow_upsample_2x(flows.reshape(bt * td * dd, fh, fw, 2))
+        flows = flow_upsample_2x(flows.reshape(bt * td * dd, fh, fw, 2), rows)
         flows = flows.reshape(bt, td, dd, 2 * fh, 2 * fw, 2)
     return rgb, flows
 
 
 def _warp(cfg: EngineConfig, x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    rows = space.rows_of(x)
     if cfg.warp_impl == "kernel":
+        if rows is not None:
+            raise ValueError("warp_impl='kernel' on a shard of the space axis: the CUDA warp "
+                             "reads one process's rows; use the plain warp (ROADMAP.md)")
         return warp_bicubic(x.float().contiguous(), flow.float().contiguous(),
                             out_dtype=torch.float32)
     if cfg.warp_impl not in ("plain", "auto", "shift"):
         raise ValueError(f"unknown warp_impl {cfg.warp_impl!r}")
-    return warp(x, flow, "bicubic")[0]
+    return warp(x, flow, "bicubic", rows=rows)[0]
 
 
 def _warp_frame(cfg: EngineConfig, frame: torch.Tensor, flow: Optional[torch.Tensor]):
     if cfg.no_warp or flow is None:
         return frame
     if (not cfg.no_predemosaic) and cfg.warp_raw:
-        return hamilton_adams(_warp(cfg, remosaic(frame), flow))
+        raw = _warp(cfg, remosaic(frame), flow)
+        return hamilton_adams(raw, space.rows_of(raw))
     return _warp(cfg, frame, flow)
 
 
@@ -207,7 +222,13 @@ def _check_fused(cfg: EngineConfig, net=None) -> None:
     """The fused path's knobs, and the preset against the presets of the
     net's family (ConvUNet's where no net is given).  The settings refused
     here are those rvdd_tpu's fused step refuses too
-    (rvdd_tpu/recurrent/engine.py:375-379)."""
+    (rvdd_tpu/recurrent/engine.py:375-379), and a shard of the space axis,
+    under which rvdd_tpu runs its module path."""
+    sc = space.active()
+    if sc is not None and sc.rows is not None:
+        raise ValueError("net_impl='fused' on a shard of the space axis: the CUDA chains run "
+                         "on whole frames; run the module path (net_impl='module'), as "
+                         "rvdd_tpu does under a space mesh (ROADMAP.md)")
     bad = {
         "model_patch_depth != 2": cfg.d != 1,
         "warp_raw": cfg.warp_raw,
@@ -419,7 +440,12 @@ def compute_losses(cfg: EngineConfig, outputs: torch.Tensor, gt: torch.Tensor,
     (rvdd_tpu/recurrent/engine.py:compute_losses; reference:
     recurrent_model.py:473-510).  Given a list, ``mses`` receives each
     unrolling's mean squared error (detached), from which a data-parallel
-    step computes the global batch's PSNR."""
+    step computes the global batch's PSNR.
+
+    On a shard of the space axis each mean is this shard's part of the
+    sample's: its sum over the elements of the whole sample's rows (the
+    shards are unequal), so the shards' L1 and squared errors add up to the
+    sample's; the step sums them (its PSNR is then the global one)."""
     d = cfg.d
     l1s, psnrs = [], []
     for a in range(outputs.shape[1]):
@@ -427,10 +453,16 @@ def compute_losses(cfg: EngineConfig, outputs: torch.Tensor, gt: torch.Tensor,
         target = gt[:, a + d]
         if cfg.raw_gt and not cfg.no_predemosaic:
             den = remosaic(den)
-        l1s.append((den - target).abs().mean() * cfg.lambda_l1)
+        rows = space.rows_of(target)
+        if rows is None:
+            mean = torch.mean
+        else:
+            count = target.numel() // rows.n * rows.height
+            mean = lambda t: t.sum() / count  # noqa: E731
+        l1s.append(mean((den - target).abs()) * cfg.lambda_l1)
         psnrs.append(psnr(den, target, 2.0))
         if mses is not None:
-            mses.append(((den.detach() - target) ** 2).mean())
+            mses.append(mean((den.detach() - target) ** 2))
     weights = weights.to(outputs.device, torch.float32)
     loss_l1 = (weights * torch.stack(l1s)).sum()
     loss_psnr = (weights * torch.stack(psnrs)).sum()

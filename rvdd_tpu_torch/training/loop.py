@@ -7,8 +7,10 @@ windowed patches from ``TrainWindowDataset`` (flows from a
 batch (autograd through every unrolling, weighted by the ``--unroll_focus``
 schedule), checkpoints ('0', every epoch and 'latest', 'latest_val' at the
 best validation loss) with ``status.json`` for ``--autoresume``, and
-in-loop validation.  ``--distributed`` trains data-parallel over the
-processes torchrun starts (the mesh's ``data`` axis, parallel/mesh.py), and
+in-loop validation.  ``--distributed`` trains over the processes torchrun
+starts: data-parallel over the mesh's ``data`` axis, and with
+``--mesh_shape data<N>xspace<M>`` each sample's rows cut over its ``space``
+axis (parallel/mesh.py, parallel/space.py), and
 ``--profile_dir`` exports a torch.profiler trace of steps 2..5 of the first
 epoch.
 
@@ -433,13 +435,19 @@ def _train(opt: Options, dev: torch.device) -> dict:
         log.line(f"loaded weights from {opt.path2epoch}")
     state = create_train_state(net, opt.optimizer, opt.beta1, opt.weight_decay)
 
-    mesh = make_mesh(opt.mesh_shape, batch_size=opt.batch_size)
+    # a space axis cuts the rows in blocks that every pool of the net keeps
+    # inside a shard
+    mesh = make_mesh(opt.mesh_shape, batch_size=opt.batch_size,
+                     row_align=2 ** (net.depth - 1))
     replicate(mesh, net)
     train_step = make_train_step(cfg, opt.train_matmul_precision,
                                  mesh if opt.distributed else None)
     if opt.distributed:
         log.line(f"data-parallel: {mesh.world_size} process(es) on {dist.get_backend()}, "
-                 f"{opt.batch_size // mesh.data} of each batch's {opt.batch_size} rows a process")
+                 f"{opt.batch_size // mesh.data} of each batch's {opt.batch_size} rows a process"
+                 f" (mesh data{mesh.data}xspace{mesh.space}"
+                 + (f": each patch's rows in blocks of {mesh.row_align} raw rows over the "
+                    f"space axis" if mesh.space > 1 else "") + ")")
 
     # autoresume (reference: train.py:15-28), with the optimizer state
     # where the run saved one (an rvdd_tpu run directory has none the port
@@ -483,13 +491,16 @@ def _train(opt: Options, dev: torch.device) -> dict:
             t_data = time.time() - data_t0
             rec["data_s"] += t_data
             w = unroll_weights(opt.unroll_focus, td, epoch, it, epoch_len)
+            # this process's data rows, then its space rows of each patch
+            # (the flows come whole from the FlowCache, then are cut)
             frames, flows, gt = prepare_host_batch(
-                shard_batch(mesh, {k: batch[k] for k in ("n", "flow", "gt") if k in batch}),
-                dev)
+                shard_batch(mesh, {k: batch[k] for k in ("n", "flow", "gt") if k in batch},
+                            spatial_axis=-3 if mesh.space > 1 else None), dev)
             if opt.profile_dir and epoch == epoch_start and it == TRACE_FIRST:
                 prof = _start_trace(dev)
             t0 = time.time()
-            state, losses = train_step(state, frames, flows, gt, torch.from_numpy(w))
+            state, losses = train_step(state, frames, flows, gt, torch.from_numpy(w),
+                                       height=batch["n"].shape[-3])
             losses_seen.append(losses)
             if prof is not None and it == TRACE_LAST:
                 trace, rec["trace_s"] = _stop_trace(prof, opt.profile_dir, rank, sync)

@@ -37,6 +37,14 @@ explicit collective rather than ``DistributedDataParallel``: the step calls
 the net once an unrolling before its one backward (and again under
 ``remat``), which DDP's reducer does not expect, and the trainer is bound by
 its host, so one collective a step beats one a parameter bucket.
+
+The forward and backward run in the mesh's scope (parallel/mesh.py:
+shard_scope): batch statistics span the whole mesh, and with a ``space``
+axis each process runs its rows of each sample (parallel/space.py), whose
+losses are its part of the sample's means.  The step then sums the bucket
+over the mesh and divides by the data axis alone: (1/N) x the sum over the
+data and space shards of each shard's gradient of its part of the loss is
+the gradient of the global batch's loss.
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ import torch
 import torch.distributed as dist
 
 from rvdd_tpu_torch.ops.warp_shift import clamp_fraction
+from rvdd_tpu_torch.parallel import space
+from rvdd_tpu_torch.parallel.mesh import shard_scope
 from rvdd_tpu_torch.recurrent.engine import (
     EngineConfig,
     compute_losses,
@@ -300,11 +310,15 @@ def _losses(cfg: EngineConfig, net, raw_frames, raw_flows, gt, weights,
 
 
 def _average(mesh, flat: torch.Tensor) -> None:
-    """``flat`` <- its mean over the mesh's processes, in place, with one
+    """``flat`` <- its mean over the mesh's data axis, in place, with one
     collective: NCCL's AVG (at one process NCCL still runs its one-rank
     reduction kernel, where a SUM is a no-op), gloo's SUM then a division
-    (gloo has no AVG)."""
-    if dist.get_backend(mesh.group) == "nccl":
+    (gloo has no AVG); with a space axis, the sum over the mesh divided by
+    the data axis (each shard's values are its part of its sample's)."""
+    if mesh.space > 1:
+        dist.all_reduce(flat, group=mesh.group)
+        flat.div_(mesh.data)
+    elif dist.get_backend(mesh.group) == "nccl":
         dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=mesh.group)
     else:
         dist.all_reduce(flat, group=mesh.group)
@@ -331,26 +345,41 @@ def _reduce(mesh, net, losses: dict, mses: list, weights) -> Dict[str, torch.Ten
     return out
 
 
+def _clamp_fraction(cfg: EngineConfig, flows: torch.Tensor) -> torch.Tensor:
+    """The clamp telemetry of the step's flows; on a shard of the space
+    axis computed on the whole sample's flows (its sweep's bands span the
+    cuts) and divided by the shards, whose sum the step takes."""
+    r = cfg.shift_warp_radius
+    rows = space.rows_of(flows)
+    if rows is None:
+        return clamp_fraction(flows, radius_v=r, radius_h=r)
+    with torch.no_grad():
+        whole = space.gather_rows(flows, rows)
+    return clamp_fraction(whole, radius_v=r, radius_h=r) / rows.size
+
+
 def make_train_step(cfg: EngineConfig, matmul_precision: str = "highest", mesh=None):
     """The train step: (state, raw_frames [B, T, h, w, 4], raw_flows
-    [B, TD, D+fD, h, w, 2] or None, gt [B, T, H', W', C_gt], weights [A])
-    -> (state, losses).  ``len(weights)`` unrollings run; the losses are
-    detached device tensors ('L1', 'PSNR', 'Denoiser', and under
+    [B, TD, D+fD, h, w, 2] or None, gt [B, T, H', W', C_gt], weights [A],
+    height=None) -> (state, losses).  ``len(weights)`` unrollings run; the
+    losses are detached device tensors ('L1', 'PSNR', 'Denoiser', and under
     ``warp_impl='shift'`` 'warp_clamp').  With a ``mesh`` (parallel/mesh.py)
-    the batch is this process's shard, and the gradients and losses are
+    the batch is this process's shard (under a space axis its rows of the
+    packed raw patch ``height`` rows tall), and the gradients and losses are
     averaged over the data axis before the optimizer steps."""
     _check_precision(matmul_precision)
 
-    def train_step(state: TrainState, raw_frames, raw_flows, gt, weights):
+    def train_step(state: TrainState, raw_frames, raw_flows, gt, weights,
+                   height: Optional[int] = None):
         state.optimizer.zero_grad(set_to_none=True)
         mses = [] if mesh is not None else None
-        losses, flows = _losses(cfg, state.net, raw_frames, raw_flows, gt, weights,
-                                matmul_precision, mses)
-        losses["Denoiser"].backward()
-        out: Dict[str, torch.Tensor] = {k: v.detach() for k, v in losses.items()}
-        if cfg.warp_impl == "shift" and flows is not None and not cfg.no_warp:
-            r = cfg.shift_warp_radius
-            out["warp_clamp"] = clamp_fraction(flows, radius_v=r, radius_h=r)
+        with shard_scope(mesh, height):
+            losses, flows = _losses(cfg, state.net, raw_frames, raw_flows, gt, weights,
+                                    matmul_precision, mses)
+            losses["Denoiser"].backward()
+            out: Dict[str, torch.Tensor] = {k: v.detach() for k, v in losses.items()}
+            if cfg.warp_impl == "shift" and flows is not None and not cfg.no_warp:
+                out["warp_clamp"] = _clamp_fraction(cfg, flows)
         if mesh is not None:
             out = _reduce(mesh, state.net, out, mses, weights)
         state.optimizer.step()

@@ -67,8 +67,10 @@ def test_engine_config_maps_rvdd_tpu_values(flags, net_impl, warp_impl, preset):
 def test_not_ported_flags_raise(flags):
     """Since the data-parallel slice the options parse as rvdd_tpu's, and
     the mesh spec is checked where training builds the mesh: a bad spec
-    raises ValueError there, as rvdd_tpu's make_mesh does; the space axis
-    is still not ported and raises NotImplementedError."""
+    raises ValueError there, as rvdd_tpu's make_mesh does.  Since the space
+    slice ``data1xspace2`` builds the mesh rvdd_tpu builds over two
+    processes, and raises ValueError over one, as rvdd_tpu does over one
+    device."""
     from rvdd_tpu.parallel.mesh import make_mesh as jmake_mesh
     from rvdd_tpu_torch.parallel.mesh import make_mesh
 
@@ -81,8 +83,15 @@ def test_not_ported_flags_raise(flags):
             with pytest.raises(ValueError, match="bad mesh spec"):
                 build(opt.mesh_shape)
     elif opt.mesh_shape == "data1xspace2":
-        with pytest.raises(NotImplementedError, match="space axis"):
-            make_mesh(opt.mesh_shape, world_size=2)
+        import jax
+
+        want_mesh = jmake_mesh(opt.mesh_shape, devices=jax.devices()[:2])
+        m = make_mesh(opt.mesh_shape, world_size=2)
+        assert (m.data, m.space) == (want_mesh.shape["data"], want_mesh.shape["space"]) == (1, 2)
+        for build, kw in ((make_mesh, dict(world_size=1)),
+                          (jmake_mesh, dict(devices=jax.devices()[:1]))):
+            with pytest.raises(ValueError):
+                build(opt.mesh_shape, **kw)
     else:
         assert opt.distributed and opt.profile_dir == "/tmp/p"
         assert make_mesh(opt.mesh_shape).data == 1
