@@ -81,8 +81,9 @@ the resolved preset, with online flows
 (CUDA events around compute_window_flows) and
 ``flow_iterations_per_frame``, and the card's name and power limit.
 ``--profile`` prints device time by kernel instead, the solver's launches
-as groups of their own.  Without a card it raises; it never reports a CPU
-number.
+(those launched inside the engine's span ``rvdd.flows``) as groups of their
+own.  ``--trace_dir``'s trace carries the port's ``rvdd.*`` spans
+(tracing.py).  Without a card it raises; it never reports a CPU number.
 """
 
 from __future__ import annotations
@@ -113,6 +114,7 @@ from rvdd_tpu_torch.recurrent.engine import (
     scan_video,
     step,
 )
+from rvdd_tpu_torch.tracing import PREFIX, launched_inside
 
 #: --model -> (architecture string, future_patch_depth, feature recurrence),
 #: as bench.py:144-151
@@ -216,10 +218,6 @@ def make_model(net_impl: str = "fused", seed: int = 0, device="cuda",
     return cfg, net, packed
 
 
-#: torch.profiler range around the online flows of a frame
-SOLVER_RANGE = "tvl1_flows"
-
-
 @dataclasses.dataclass
 class FlowLog:
     """What a stream's online flows cost and gave: the duality iterations
@@ -237,20 +235,19 @@ class FlowLog:
 
 
 def online_flows(cfg, raw_window, flow_params, flow_log: Optional[FlowLog] = None):
-    """The window's flows [B, 1, D+fD, h, w, 2] from the TV-L1 solver, under
-    the profiler range SOLVER_RANGE; logged (CUDA tensors only) if
+    """The window's flows [B, 1, D+fD, h, w, 2] from the TV-L1 solver (in
+    the engine's span ``rvdd.flows``); logged (CUDA tensors only) if
     ``flow_log`` is given."""
-    with torch.profiler.record_function(SOLVER_RANGE):
-        if flow_log is None:
-            return compute_window_flows(cfg, raw_window, flow_params)[:, None]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        flows = compute_window_flows(cfg, raw_window, flow_params, flow_log.iterations)[:, None]
-        end.record()
-        flow_log.events.append((start, end))
-        flow_log.flows = flows
-        return flows
+    if flow_log is None:
+        return compute_window_flows(cfg, raw_window, flow_params)[:, None]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    flows = compute_window_flows(cfg, raw_window, flow_params, flow_log.iterations)[:, None]
+    end.record()
+    flow_log.events.append((start, end))
+    flow_log.flows = flows
+    return flows
 
 
 def step_fn(cfg, net, packed, state, raw_window, flows, flow_params=None,
@@ -484,14 +481,13 @@ def _kernel_group(name: str, in_solver: bool) -> str:
 
 
 def _device_events(events):
-    """(kernels, solver spans): the device events of a trace without the
+    """(kernels, in_solver): the device events of a trace without the
     profiler's own device-timeline copies of record_function ranges, and
-    the device-time spans of the SOLVER_RANGE copies, inside which every
-    kernel the solver launched ran (one stream)."""
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [(e.time_range.start, e.time_range.end) for e in dev if e.name == SOLVER_RANGE]
-    kernels = [e for e in dev if e.name != SOLVER_RANGE and not e.is_user_annotation]
-    return kernels, spans
+    for each whether it was launched inside the engine's span
+    ``rvdd.flows`` (tracing.launched_inside)."""
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    return kernels, launched_inside(events, kernels, PREFIX + "flows")
 
 
 def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
@@ -515,10 +511,8 @@ def profile(frames: int = 5, height: int = 540, width: int = 960, seed: int = 0,
                 _, state = frame(state)
             torch.cuda.synchronize(dev)
             wall_ms = 1e3 * (time.perf_counter() - t0) / frames
-    kernels, spans = _device_events(prof.events())
     groups: dict = {}
-    for evt in kernels:
-        in_solver = any(a <= evt.time_range.start < b for a, b in spans)
+    for evt, in_solver in zip(*_device_events(prof.events())):
         g = groups.setdefault(_kernel_group(evt.name, in_solver), [0.0, 0])
         g[0] += evt.time_range.elapsed_us() / 1e3 / frames
         g[1] += 1

@@ -19,6 +19,14 @@ cut (rvdd_tpu/parallel/mesh.py:54-77).  The port writes them out:
   whose reach is unbounded.
 * :func:`all_sum` sums over a group, with its gradient.
 
+Each exchange opens a span (tracing.py) in its forward, ``space.window``,
+``space.gather`` or ``space.all_sum``, and the same span around its
+collective in the backward.  ``all_gather.bytes`` and ``all_sum.bytes``
+count the bytes this process hands to those collectives (its input
+buffers), forward and backward: ``window``'s edge strips and
+``gather_rows``' padded shard, then their gradients (every shard's part),
+and each sum and its gradient.
+
 The ops take their :class:`Rows` as an argument (``rows=None``: the
 single-process code runs unchanged).  The engine and the nets learn the
 shard from :func:`scope`, which the train step and the sharded inference
@@ -36,6 +44,8 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from rvdd_tpu_torch.tracing import span
 
 #: the active scope (a module global, not a thread-local: the autograd
 #: engine runs a CUDA backward, and remat's recomputation, on its own thread)
@@ -128,16 +138,21 @@ def _is_nccl(group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class _AllGather(torch.autograd.Function):
     """Every shard's ``x`` (equal shapes), stacked on a new leading axis;
     the backward sums each shard's gradient over the group
     (a reduce-scatter on NCCL; gloo: an all-reduce of the whole, then this
-    shard's part)."""
+    shard's part) in the span ``name``, the caller's."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, name):
+        ctx.group, ctx.name = group, name
         x = x.contiguous()
+        all_gather.bytes += _nbytes(x)
         m = dist.get_world_size(group)
         if _is_nccl(group):
             out = torch.empty((m,) + tuple(x.shape), dtype=x.dtype, device=x.device)
@@ -150,14 +165,16 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         group = ctx.group
-        if _is_nccl(group):
-            g = g.contiguous()
-            out = torch.empty(g.shape[1:], dtype=g.dtype, device=g.device)
-            dist.reduce_scatter_tensor(out, g, group=group)
-            return out, None
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=group)
-        return g[dist.get_rank(group)], None
+        with span(ctx.name):
+            all_gather.bytes += _nbytes(g)
+            if _is_nccl(group):
+                g = g.contiguous()
+                out = torch.empty(g.shape[1:], dtype=g.dtype, device=g.device)
+                dist.reduce_scatter_tensor(out, g, group=group)
+                return out, None, None
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=group)
+            return g[dist.get_rank(group)], None, None
 
 
 class _AllSum(torch.autograd.Function):
@@ -167,24 +184,35 @@ class _AllSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         x = x.contiguous().clone()
+        all_sum.bytes += _nbytes(x)
         dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        with span("space.all_sum"):
+            g = g.contiguous().clone()
+            all_sum.bytes += _nbytes(g)
+            dist.all_reduce(g, group=ctx.group)
+            return g, None
 
 
 def all_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """``t`` summed over ``group``, differentiable."""
-    return _AllSum.apply(t, group)
+    """``t`` summed over ``group``, differentiable (the bytes it hands to
+    the collectives counted in ``all_sum.bytes``)."""
+    with span("space.all_sum"):
+        return _AllSum.apply(t, group)
 
 
-def all_gather(t: torch.Tensor, group) -> torch.Tensor:
-    """Every process's ``t`` (equal shapes) stacked [M, ...], differentiable."""
-    return _AllGather.apply(t, group)
+def all_gather(t: torch.Tensor, group, name: str) -> torch.Tensor:
+    """Every process's ``t`` (equal shapes) stacked [M, ...], differentiable
+    (the bytes it hands to the collectives counted in ``all_gather.bytes``;
+    the backward's collective in the span ``name``)."""
+    return _AllGather.apply(t, group, name)
+
+
+all_gather.bytes = 0
+all_sum.bytes = 0
 
 
 # ------------------------------------------------------------ row exchanges
@@ -232,6 +260,11 @@ def window(x: torch.Tensor, rows: Rows, want: Sequence[Tuple[int, int]],
     reaches them, which follows the graph, so every shard builds the same
     graph: no branch here depends on this shard's own rows (a shard that
     needs no halo row still selects none from the gathered strips)."""
+    with span("space.window"):
+        return _window(x, rows, want, fill, dim)
+
+
+def _window(x, rows, want, fill, dim):
     if x.shape[dim] != rows.n:
         raise ValueError(f"a shard of {x.shape[dim]} rows on axis {dim}, its rows say {rows.n}")
     if fill not in ("zero", "edge"):
@@ -263,7 +296,7 @@ def window(x: torch.Tensor, rows: Rows, want: Sequence[Tuple[int, int]],
     if k:
         t = min(k, n)
         strips = torch.cat([_pad_rows(x0[:t], k, False), _pad_rows(x0[n - t:], k, True)])
-        pieces.append(all_gather(strips, rows.group).flatten(0, 1))
+        pieces.append(all_gather(strips, rows.group, "space.window").flatten(0, 1))
     pieces.append(x0.new_zeros((1,) + tuple(x0.shape[1:])))
     zero = sum(p.shape[0] for p in pieces) - 1
 
@@ -299,10 +332,11 @@ def gather_rows(x: torch.Tensor, rows: Rows, dim: int = -3) -> torch.Tensor:
     """The whole sample on every shard (each shard padded to the largest
     for the ``all_gather``), differentiable."""
     m = max(b - a for a, b in rows.bounds)
-    x0 = x.movedim(dim, 0)
-    parts = all_gather(_pad_rows(x0, m, False), rows.group)
-    whole = torch.cat([parts[q, :b - a] for q, (a, b) in enumerate(rows.bounds)])
-    return whole.movedim(0, dim)
+    with span("space.gather"):
+        x0 = x.movedim(dim, 0)
+        parts = all_gather(_pad_rows(x0, m, False), rows.group, "space.gather")
+        whole = torch.cat([parts[q, :b - a] for q, (a, b) in enumerate(rows.bounds)])
+        return whole.movedim(0, dim)
 
 
 # ------------------------------------------------------------ the scope

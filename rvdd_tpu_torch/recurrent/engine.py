@@ -107,6 +107,7 @@ from rvdd_tpu_torch.ops.metrics import psnr
 from rvdd_tpu_torch.ops.tvl1 import TVL1Params, to_gray, tvl1_flow
 from rvdd_tpu_torch.ops.warp import flow_upsample_2x, warp
 from rvdd_tpu_torch.parallel import space
+from rvdd_tpu_torch.tracing import span
 
 #: channels of the fused recurrence state: [den 3 | zero 5 | feat 48]
 STATE_DEN = 3
@@ -182,14 +183,17 @@ def prepare_frames(cfg: EngineConfig, raw_frames: torch.Tensor,
     scaled, unless no_predemosaic."""
     if cfg.no_predemosaic:
         return raw_frames, flows
-    t = raw_frames.shape[1]
-    rows = space.rows_of(raw_frames)
-    rgb = torch.stack([hamilton_adams(raw_frames[:, i], rows) for i in range(t)], dim=1)
-    if flows is not None and not cfg.warp_raw:
-        bt, td, dd, fh, fw, _ = flows.shape
-        flows = flow_upsample_2x(flows.reshape(bt * td * dd, fh, fw, 2), rows)
-        flows = flows.reshape(bt, td, dd, 2 * fh, 2 * fw, 2)
-    return rgb, flows
+    with span("prepare_frames"):
+        t = raw_frames.shape[1]
+        rows = space.rows_of(raw_frames)
+        with span("demosaic"):
+            rgb = torch.stack([hamilton_adams(raw_frames[:, i], rows) for i in range(t)], dim=1)
+        if flows is not None and not cfg.warp_raw:
+            bt, td, dd, fh, fw, _ = flows.shape
+            with span("flow_upsample"):
+                flows = flow_upsample_2x(flows.reshape(bt * td * dd, fh, fw, 2), rows)
+            flows = flows.reshape(bt, td, dd, 2 * fh, 2 * fw, 2)
+        return rgb, flows
 
 
 def _warp(cfg: EngineConfig, x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -313,39 +317,47 @@ def step(cfg: EngineConfig, net, state: RecurrentState, cur: torch.Tensor,
     """One denoising step.  cur [B, H, W, C]; future [B, fD, H, W, C] or
     None; flows [B, D+fD, H, W, 2] to the current time.  Returns
     (denoised [B, H, W, C_out] fp32, next state)."""
-    if cfg.net_impl == "fused":
-        return _fused_step(cfg, net, state, cur, future, flows, packed)
-    if cfg.net_impl != "module":
-        raise ValueError(f"unknown net_impl {cfg.net_impl!r}")
+    with span("step"):
+        if cfg.net_impl == "fused":
+            return _fused_step(cfg, net, state, cur, future, flows, packed)
+        if cfg.net_impl != "module":
+            raise ValueError(f"unknown net_impl {cfg.net_impl!r}")
+        return _module_step(cfg, net, state, cur, future, flows)
+
+
+def _module_step(cfg, net, state, cur, future, flows):
+    """The module path's step (:func:`step`): warp the carried outputs and
+    features and the future frames, then the net's forward."""
     d = cfg.d
     sd = _state_dtype(cfg)
     cur = cur.to(sd)
-    inputs, feat_parts = [], []
+    inputs, feat_parts, futures = [], [], []
     fuse = (cfg.feature_rec and not cfg.no_warp and not cfg.warp_raw
             and cfg.warp_impl == "kernel" and flows is not None)
-    for bi in range(d):
-        fl = flows[:, bi] if flows is not None else None
-        if fuse:
-            # one launch warps the previous frame and its feature map
-            c = state.lastden.shape[-1]
-            both = torch.cat([state.lastden[:, bi], state.feat[:, bi]], dim=-1)
-            warped = _warp(cfg, both, fl)
-            inputs.append(warped[..., :c].to(sd))
-            feat_parts.append(warped[..., c:].to(sd))
-            continue
-        inputs.append(_warp_frame(cfg, state.lastden[:, bi], fl).to(sd))
-        if cfg.feature_rec and not cfg.no_warp and fl is not None:
-            feat_parts.append(_warp(cfg, state.feat[:, bi], fl).to(sd))
-        elif cfg.feature_rec:
-            feat_parts.append(state.feat[:, bi])
-    inputs.append(cur)
-    for k in range(cfg.future_patch_depth):
-        fl = flows[:, d + k] if flows is not None else None
-        inputs.append(_warp_frame(cfg, future[:, k].to(sd), fl).to(sd))
+    with span("warp"):
+        for bi in range(d):
+            fl = flows[:, bi] if flows is not None else None
+            if fuse:
+                # one launch warps the previous frame and its feature map
+                c = state.lastden.shape[-1]
+                both = torch.cat([state.lastden[:, bi], state.feat[:, bi]], dim=-1)
+                warped = _warp(cfg, both, fl)
+                inputs.append(warped[..., :c].to(sd))
+                feat_parts.append(warped[..., c:].to(sd))
+                continue
+            inputs.append(_warp_frame(cfg, state.lastden[:, bi], fl).to(sd))
+            if cfg.feature_rec and not cfg.no_warp and fl is not None:
+                feat_parts.append(_warp(cfg, state.feat[:, bi], fl).to(sd))
+            elif cfg.feature_rec:
+                feat_parts.append(state.feat[:, bi])
+        for k in range(cfg.future_patch_depth):
+            fl = flows[:, d + k] if flows is not None else None
+            futures.append(_warp_frame(cfg, future[:, k].to(sd), fl).to(sd))
 
-    netinput = torch.cat(inputs, dim=-1).float()
+    netinput = torch.cat(inputs + [cur] + futures, dim=-1).float()
     feat_in = torch.cat(feat_parts, dim=-1).float() if cfg.feature_rec else None
-    denoised, new_feat = net(netinput, feat_in)
+    with span("net"):
+        denoised, new_feat = net(netinput, feat_in)
 
     store = (cur if cfg.prev_noisy_frame else denoised).to(sd)
     lastden = torch.cat([state.lastden[:, 1:], store[:, None]], dim=1)
@@ -375,24 +387,26 @@ def _fused_step(cfg, net, state, cur, future, flows, packed):
     sd = _fused_state_dtype(cfg, net)
     fused = state.lastden
     warping = not cfg.no_warp and flows is not None
-    if not warping:
-        warped = fused.to(torch.promote_types(fused.dtype, glue))
-    elif cfg.warp_impl == "plain":
-        warped = warp_bicubic_plain(fused, flows[:, 0].float(), out_dtype=glue)
-    else:
-        warped = warp_bicubic(fused.contiguous(), flows[:, 0].float().contiguous(),
-                              out_dtype=glue)
+    futures = []
+    with span("warp"):
+        if not warping:
+            warped = fused.to(torch.promote_types(fused.dtype, glue))
+        elif cfg.warp_impl == "plain":
+            warped = warp_bicubic_plain(fused, flows[:, 0].float(), out_dtype=glue)
+        else:
+            warped = warp_bicubic(fused.contiguous(), flows[:, 0].float().contiguous(),
+                                  out_dtype=glue)
+        for k in range(cfg.future_patch_depth):
+            fk = future[:, k].to(glue)
+            if warping:
+                fk = warp_bicubic(fk.contiguous(), flows[:, cfg.d + k].float().contiguous(),
+                                  out_dtype=glue)
+            futures.append(fk)
     curp = cur.to(glue)
-    parts = [warped[..., :STATE_DEN], curp]
-    for k in range(cfg.future_patch_depth):
-        fk = future[:, k].to(glue)
-        if warping:
-            fk = warp_bicubic(fk.contiguous(), flows[:, cfg.d + k].float().contiguous(),
-                              out_dtype=glue)
-        parts.append(fk)
-    x = torch.cat(parts, dim=-1)
-    nxt = forward(net, packed, x, warped if cfg.feature_rec else None,
-                  aux_channels=(STATE_FEAT_OFF, STATE_FEAT), combine_state=True).to(sd)
+    x = torch.cat([warped[..., :STATE_DEN], curp] + futures, dim=-1)
+    with span("chains"):
+        nxt = forward(net, packed, x, warped if cfg.feature_rec else None,
+                      aux_channels=(STATE_FEAT_OFF, STATE_FEAT), combine_state=True).to(sd)
     den = nxt[..., :STATE_DEN].float().contiguous()
     if cfg.prev_noisy_frame:
         # the ablation carries the noisy current frame and the new features
@@ -530,11 +544,13 @@ def compute_window_flows(cfg: EngineConfig, raw_window: torch.Tensor,
     a list.
     """
     d, fd = cfg.d, cfg.future_patch_depth
-    gray = to_gray(raw_window)  # [B, T, h, w]
-    others = list(range(d)) + [d + 1 + k for k in range(fd)]
-    outs = []
-    for bi in range(raw_window.shape[0]):
-        cur = gray[bi, d]
-        outs.append(torch.stack([
-            tvl1_flow(cur, gray[bi, k], flow_params, iterations=iterations) for k in others]))
-    return torch.stack(outs)
+    with span("flows"):
+        gray = to_gray(raw_window)  # [B, T, h, w]
+        others = list(range(d)) + [d + 1 + k for k in range(fd)]
+        outs = []
+        for bi in range(raw_window.shape[0]):
+            cur = gray[bi, d]
+            outs.append(torch.stack([
+                tvl1_flow(cur, gray[bi, k], flow_params, iterations=iterations)
+                for k in others]))
+        return torch.stack(outs)

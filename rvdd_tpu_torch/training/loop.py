@@ -12,7 +12,10 @@ starts: data-parallel over the mesh's ``data`` axis, and with
 ``--mesh_shape data<N>xspace<M>`` each sample's rows cut over its ``space``
 axis (parallel/mesh.py, parallel/space.py), and
 ``--profile_dir`` exports a torch.profiler trace of steps 2..5 of the first
-epoch.
+epoch (with the port's ``rvdd.*`` spans, tracing.py).  On a space axis each
+epoch's record holds ``exchange_mb_per_step``: the MB a step this process
+handed to the space axis's collectives (``space.all_gather.bytes`` and
+``space.all_sum.bytes``).
 
 Serial full-frame validation carries the recurrence state across frames
 with a FirstOfVideo reset (:func:`compute_validation`), or streams each clip
@@ -43,6 +46,7 @@ from rvdd_tpu_torch.device import resolve_device
 from rvdd_tpu_torch.ops.bayer import remosaic
 from rvdd_tpu_torch.ops.metrics import psnr
 from rvdd_tpu_torch.ops.tvl1 import FLOW_PRESETS, to_gray, tvl1_flow
+from rvdd_tpu_torch.parallel import space
 from rvdd_tpu_torch.parallel.mesh import init_distributed, make_mesh, replicate, shard_batch
 from rvdd_tpu_torch.recurrent.engine import (
     EngineConfig,
@@ -374,9 +378,10 @@ def train(opt: Options) -> dict:
     whether every loss was finite, the milliseconds an optimizer step
     (synchronized, the epoch's first step left out, and the profile's
     stop and export, ``trace_s``, taken out), the seconds the steps waited
-    for data and the validation losses and seconds; the flows the caches
-    computed with their seconds; this process's rank, the processes and
-    their backend; the profile's path.
+    for data, on a space axis the MB a step handed to its collectives
+    (``exchange_mb_per_step``), and the validation losses and seconds; the
+    flows the caches computed with their seconds; this process's rank, the
+    processes and their backend; the profile's path.
 
     With ``--distributed`` the process group starts first, from torchrun's
     environment (parallel/mesh.py:init_distributed), and is destroyed when
@@ -486,6 +491,7 @@ def _train(opt: Options, dev: torch.device) -> dict:
         epoch_len = max(len(train_ds) // opt.batch_size, 1)
         rec = dict(epoch=epoch, lr=lr, data_s=0.0)
         losses_seen, t_first = [], None
+        sent0 = space.all_gather.bytes + space.all_sum.bytes
         data_t0 = time.time()
         for it, batch in enumerate(train_ds.batches(opt.batch_size)):
             t_data = time.time() - data_t0
@@ -531,6 +537,9 @@ def _train(opt: Options, dev: torch.device) -> dict:
         sync()
         steps = len(losses_seen)
         rec["steps"] = steps
+        if mesh.space > 1 and steps:
+            sent = space.all_gather.bytes + space.all_sum.bytes - sent0
+            rec["exchange_mb_per_step"] = sent / 1e6 / steps
         # the trace's stop and export are not a step's time
         rec["step_ms"] = ((time.perf_counter() - t_first - rec.get("trace_s", 0.0)) * 1e3
                           / (steps - 1) if steps > 1 else None)

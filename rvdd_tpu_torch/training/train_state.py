@@ -67,6 +67,7 @@ from rvdd_tpu_torch.recurrent.engine import (
     prepare_frames,
     unrolled_forward,
 )
+from rvdd_tpu_torch.tracing import span
 
 OPTIMIZERS = ("adamw", "adam", "adabelief", "ranger", "sgd")
 
@@ -371,18 +372,23 @@ def make_train_step(cfg: EngineConfig, matmul_precision: str = "highest", mesh=N
 
     def train_step(state: TrainState, raw_frames, raw_flows, gt, weights,
                    height: Optional[int] = None):
-        state.optimizer.zero_grad(set_to_none=True)
+        with span("train.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
         mses = [] if mesh is not None else None
         with shard_scope(mesh, height):
-            losses, flows = _losses(cfg, state.net, raw_frames, raw_flows, gt, weights,
-                                    matmul_precision, mses)
-            losses["Denoiser"].backward()
+            with span("train.forward"):
+                losses, flows = _losses(cfg, state.net, raw_frames, raw_flows, gt, weights,
+                                        matmul_precision, mses)
+            with span("train.backward"):
+                losses["Denoiser"].backward()
             out: Dict[str, torch.Tensor] = {k: v.detach() for k, v in losses.items()}
             if cfg.warp_impl == "shift" and flows is not None and not cfg.no_warp:
                 out["warp_clamp"] = _clamp_fraction(cfg, flows)
         if mesh is not None:
-            out = _reduce(mesh, state.net, out, mses, weights)
-        state.optimizer.step()
+            with span("train.reduce"):
+                out = _reduce(mesh, state.net, out, mses, weights)
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return state, out
 

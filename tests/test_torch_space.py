@@ -248,3 +248,14 @@ def test_space_cli_epoch_matches_one_process(data, cli_space):
     assert "data-parallel: 2 process(es) on gloo, 2 of each batch's 2 rows a process (mesh " \
            "data1xspace2: each patch's rows in blocks of 8 raw rows" in log
     assert set(os.listdir(sp)) == set(os.listdir(one))
+
+
+def test_space_cli_epoch_records_its_exchange_bytes(cli_space):
+    """On a space axis each rank's epoch record holds the MB a step it
+    handed to the axis's collectives (``space.all_gather.bytes`` and
+    ``space.all_sum.bytes``); the one-process epoch has none."""
+    ranks, single = cli_space
+    for r in ranks:
+        (got,) = r["epochs"]
+        assert got["exchange_mb_per_step"] > 0
+    assert "exchange_mb_per_step" not in single["epochs"][0]

@@ -26,6 +26,14 @@ tests/test_torch_space.py, started by ``python -m torch.distributed.run
                warp of x by ``flow``.  OUT_DIR/rank<r>.npz holds the
                outputs' rows, the inputs' gradients' rows and the rank's
                part of each parameter gradient, and its RGB rows.
+        trace  on ``mesh`` (one data shard): the bytes ``space.halo``
+               (``lo``, ``hi`` rows) and ``space.all_sum`` hand to their
+               collectives, forward and backward, on x [rows, W, C]
+               (``x_shape``: the sample's rows, W, C); then one AdamW step of
+               ``arch`` (``patch_depth``, ``raw_height`` x ``raw_width``) under
+               a CPU torch.profiler.  OUT_DIR/rank<r>.json holds the byte
+               counts and the step's ``rvdd.*`` spans (name, thread, start,
+               end).
 
     torch_dist_worker.py cli OUT_DIR TRAIN_ARGV...
         rvdd_tpu_torch.cli.train.main(TRAIN_ARGV); each rank writes what it
@@ -143,7 +151,57 @@ def ops(z, dev, out_dir: str) -> None:
     np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
 
 
-JOBS = {"step": step, "infer": infer, "ops": ops}
+def trace(z, dev, out_dir: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvdd_tpu_torch.models import build_network
+    from rvdd_tpu_torch.parallel import space
+    from rvdd_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from rvdd_tpu_torch.recurrent.engine import EngineConfig
+    from rvdd_tpu_torch.training.train_state import (
+        create_train_state,
+        make_train_step,
+        set_learning_rate,
+    )
+
+    h, w, c = (int(v) for v in z["x_shape"])
+    mesh = make_mesh(str(z["mesh"]), row_align=2)
+    rows = mesh.space_rows(h)
+    out = {}
+    x = torch.ones(rows.n, w, c, requires_grad=True)
+    g0 = space.all_gather.bytes
+    y = space.halo(x, rows, int(z["lo"]), int(z["hi"]))
+    out["halo_forward"] = space.all_gather.bytes - g0
+    y.sum().backward()
+    out["halo_backward"] = space.all_gather.bytes - g0 - out["halo_forward"]
+    s0 = space.all_sum.bytes
+    t = torch.ones(7, requires_grad=True)
+    space.all_sum(t, rows.group).sum().backward()
+    out["all_sum"] = space.all_sum.bytes - s0
+
+    cfg = EngineConfig(model_patch_depth=2, patch_depth=int(z["patch_depth"]), feature_rec=True,
+                       warp_impl="plain")
+    net = build_network(str(z["arch"]), cfg.network_input_nc, 3, True, seed=0, device=dev)
+    mesh = make_mesh(str(z["mesh"]), batch_size=1, row_align=2 ** (net.depth - 1))
+    state = set_learning_rate(create_train_state(net, "adamw"), 1e-3)
+    rng = np.random.default_rng(0)
+    hh, ww, pd = int(z["raw_height"]), int(z["raw_width"]), int(z["patch_depth"])
+    batch = {"raw": rng.uniform(-1, 1, (1, pd, hh, ww, 4)),
+             "flows": rng.uniform(-1, 1, (1, pd - 1, 1, hh, ww, 2)),
+             "gt": rng.uniform(-1, 1, (1, pd, 2 * hh, 2 * ww, 3))}
+    batch = shard_batch(mesh, {k: torch.from_numpy(v.astype(np.float32))
+                               for k, v in batch.items()}, spatial_axis=-3)
+    step_fn = make_train_step(cfg, "highest", mesh)
+    weights = torch.full((pd - 1,), 1.0 / (pd - 1))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step_fn(state, batch["raw"], batch["flows"], batch["gt"], weights, height=hh)
+    out["spans"] = [(e.name, e.thread, e.time_range.start, e.time_range.end)
+                    for e in prof.events() if e.name.startswith("rvdd.")]
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+JOBS = {"step": step, "infer": infer, "ops": ops, "trace": trace}
 
 
 def jobs(pairs) -> None:
