@@ -43,6 +43,8 @@
    'bf16', 'high' and 'highest' outputs must be bit-identical and the
    'w32' ones (this tree's changed mode, CONV_CHANGED) within its limits
    of the other's.
+   The demosaic kernel is held bitwise equal to its plain version on the
+   stream's window (two 540x960 packed frames) and timed beside it.
 4. Runs the TV-L1 solver on a 540x960 pair with a known flow, once per
    preset, through the kernel route and the plain route: the two agree
    within tests/test_tvl1.py's limits and both find the known flow.
@@ -72,7 +74,8 @@
    the hybrid; 2e-3 and 3e-3 for 'mixed', 2e-4 and 3e-4 for 'accurate';
    see ENVELOPE), and that it
    launched its kernels the expected number of times (launch counts set to
-   0 just before the path and read just after).  The two frames of a path
+   0 just before the path and read just after; the demosaic kernel once a
+   frame, and no CUDA demosaic through the plain version).  The two frames of a path
    in another preset than 'fast' are also run under 'fast' and compared the
    same way: its max and mean errors must be below fast's at both steps
    (BEATS_FAST; 'wf32''s are printed only).
@@ -253,7 +256,8 @@ from rvdd_tpu_torch.data.io import (  # noqa: E402
     load_image_stack,
     native_shape,
 )
-from rvdd_tpu_torch.ops.demosaic import hamilton_adams  # noqa: E402
+from rvdd_tpu_torch.ops.cuda.demosaic import hamilton_adams_cuda  # noqa: E402
+from rvdd_tpu_torch.ops.demosaic import hamilton_adams, hamilton_adams_plain  # noqa: E402
 from rvdd_tpu_torch.ops.metrics import psnr  # noqa: E402
 from rvdd_tpu_torch.models import build_network  # noqa: E402
 from rvdd_tpu_torch.ops.bayer import remosaic  # noqa: E402
@@ -280,15 +284,26 @@ def mode_counts() -> dict:
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    hamilton_adams.plain_cuda_calls = 0
     conv_chain.mode_launches = dict.fromkeys(MODES, 0)
     convnext_chain.fp32_launches = 0
 
 
 def net_launches(warps, conv=0, cnx=0, **modes):
-    """A frame's net launches: the warp, the chain kernels and each mode
-    count (mode_counts), zero where not given."""
+    """A frame's net launches: the warp, the chain kernels, the demosaic
+    (one a window) and each mode count (mode_counts), zero where not
+    given."""
     zero = dict.fromkeys([f"conv_chain_{m}" for m in MODES] + ["convnext_chain_fp32"], 0)
-    return dict(zero, warp_bicubic=warps, conv_chain=conv, convnext_chain=cnx, **modes)
+    return dict(zero, warp_bicubic=warps, conv_chain=conv, convnext_chain=cnx,
+                hamilton_adams_cuda=1, **modes)
+
+
+def check_no_plain_demosaic(name: str) -> None:
+    """Every demosaic of a main path ran the kernel: none of its CUDA raw
+    took the plain version (ops/demosaic.py:hamilton_adams)."""
+    if hamilton_adams.plain_cuda_calls:
+        raise AssertionError(f"{name}: {hamilton_adams.plain_cuda_calls} CUDA demosaics took "
+                             "the plain version")
 
 
 #: net launches per frame of each model under each preset it runs here
@@ -337,7 +352,7 @@ ENVELOPE = {"fast": (0.2, 0.3), "hybrid:glue+A+dec2": (0.1, 0.15), "mixed": (2e-
             "accurate": (2e-4, 3e-4), "wf32": (0.2, 0.3)}
 #: the presets whose first two frames must be closer than 'fast''s
 BEATS_FAST = ("hybrid:glue+A+dec2", "mixed", "accurate")
-KERNELS = (warp_bicubic, conv_chain, convnext_chain, warp_catmull_zero)
+KERNELS = (warp_bicubic, conv_chain, convnext_chain, warp_catmull_zero, hamilton_adams_cuda)
 BF16 = torch.bfloat16
 DEV = torch.device("cuda")
 CARD = ""  # nvidia-smi's name and power limit, set by main()
@@ -957,6 +972,37 @@ def check_catmull_warp() -> dict:
                 bound_by="bytes", library_ms=lib_ms)
 
 
+def check_demosaic() -> dict:
+    """The demosaic kernel on the stream's window, two [540, 960, 4] packed
+    frames: bitwise equal to the plain version (fp32 raw with negative
+    samples, so masked products give -0), and its time from a CUDA graph
+    that cycles 4 input sets (66 MB) and keeps every output, so each call
+    reads and writes HBM, as the bound counts."""
+    h, w = H // 2, W // 2
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    raw = torch.randn((1, 2, h, w, 4), generator=gen, device=DEV)
+    got = hamilton_adams_cuda(raw)
+    want = hamilton_adams_plain(raw)
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    log(f"hamilton_adams_cuda at [1, 2, {h}, {w}, 4]: {differ} of {got.numel()} values differ "
+        "in their bits from the plain version")
+    if differ:
+        raise AssertionError("the demosaic kernel is not bitwise equal to its plain version")
+    sets = [(raw.clone(),) for _ in range(4)]
+    ms = graph_ms(hamilton_adams_cuda, sets, reps=48)
+    plain_ms = time_ms(lambda: hamilton_adams_plain(raw), reps=5)
+    nbytes = 2 * h * w * (16 + 48)  # two frames: 4 fp32 packed in, 4 x 3 fp32 RGB out
+    bound = nbytes / HBM_BPS * 1e3
+    log(f"hamilton_adams_cuda timing at [1, 2, {h}, {w}, 4]: kernel {ms:.4f} ms (inputs from "
+        f"HBM), plain {plain_ms:.3f} ms, bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB at the HBM rate), {100 * bound / ms:.1f}% of "
+        f"the bound, card {CARD}")
+    del sets
+    return dict(max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes")
+
+
 def compare_warp_source(src_dir: str) -> None:
     """The warp kernel of another checkout (``src_dir``, e.g. the parent
     commit's tree) against this one, at the three shapes and in one process:
@@ -1251,6 +1297,7 @@ def main_path(model: str, flow, n_frames: int, warm: int, precision: str) -> dic
             f"iterations a frame, the last frame's stages {flow_log.iterations[-its:]}")
     if launches != want:
         raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+    check_no_plain_demosaic(name)
     del state, packed
 
     with plain_mode():
@@ -1329,6 +1376,7 @@ def streams_path(model: str) -> dict:
         f"stream's a step: {NET_LAUNCHES[model, preset]})")
     if launches != want:
         raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+    check_no_plain_demosaic(name)
     alone = []
     for b in range(STREAMS):
         d0, st = step_fn(cfg, net, packed, None, raw[b:b + 1], flows[b:b + 1])
@@ -2310,6 +2358,7 @@ def main(argv=None):
                                   precision="mixed")
         cnx_rec.update(check_cnx_chains(packed, gen))
         catmull_rec = check_catmull_warp()
+        demosaic_rec = check_demosaic()
         if args.warp_source:
             compare_warp_source(args.warp_source)
         if args.cnx_source:
@@ -2357,6 +2406,9 @@ def main(argv=None):
         dict(name="warp_catmull_zero", route="cuda", source="rvdd_tpu_torch/csrc/warp_bicubic.cu",
              replaces="rvdd_tpu/ops/pallas/warp_pallas.py:166",
              launches=total["warp_catmull_zero"], **catmull_rec),
+        dict(name="hamilton_adams_cuda", route="cuda", source="rvdd_tpu_torch/csrc/demosaic.cu",
+             replaces="none (rvdd_tpu/ops/demosaic.py:hamilton_adams, in XLA)",
+             launches=total["hamilton_adams_cuda"], **demosaic_rec),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "future_ms", "future_plain_ms",

@@ -36,7 +36,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 #: the CUDA sources (``csrc/<name>.cu``)
-SOURCES = ("warp_bicubic", "conv_chain", "convnext_chain")
+SOURCES = ("warp_bicubic", "conv_chain", "convnext_chain", "demosaic")
 #: the host sources (``csrc/<name>.cpp``)
 HOST_SOURCES = ("rvdd_io",)
 NVCC_FLAGS = (

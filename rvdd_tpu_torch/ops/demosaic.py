@@ -10,6 +10,12 @@ On a shard of the mesh's space axis (``rows``, parallel/space.py) the
 shard demosaics its rows with up to two packed rows of its neighbours
 above and below (the stencils reach three mosaic rows; the sample's edge
 replicates as before) and keeps its own.
+
+CUDA raw for which no gradient is wanted goes to the hand-written kernel
+(ops/cuda/demosaic.py), which computes the same function, bitwise, in one
+launch, and takes float32 alone (other dtypes raise TypeError there).  The
+CPU, and CUDA raw that requires grad under autograd (the kernel has no
+backward), run the plain version here.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Optional
 import torch
 
 from rvdd_tpu_torch.ops.bayer import bayer_masks, green_row_masks, pack_cfa
+from rvdd_tpu_torch.ops.cuda.demosaic import hamilton_adams_cuda
 from rvdd_tpu_torch.parallel import space
 from rvdd_tpu_torch.parallel.space import Rows
 
@@ -88,13 +95,31 @@ def _interp_chroma(green, chan, mask_ochan, mask_row, mask_col):
 
 def hamilton_adams(raw4: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
     """Demosaic packed GBRG raw [..., H, W, 4] -> linear RGB [..., 2H, 2W, 3];
-    on a shard, ``rows`` are raw4's."""
+    on a shard, ``rows`` are raw4's.  CUDA inputs that take the plain
+    version (those that require grad) are counted in
+    ``hamilton_adams.plain_cuda_calls``."""
     if rows is not None:
         h = rows.height
         want = [(max(a - HALO, 0), min(b + HALO, h)) for a, b in rows.bounds]
         lo = rows.start - want[rows.index][0]
         rgb = hamilton_adams(space.window(raw4, rows, want, "zero", raw4.ndim - 3))
         return rgb[..., 2 * lo:2 * (lo + rows.n), :, :]
+    if kernel_takes(raw4):
+        return hamilton_adams_cuda(raw4)
+    if raw4.is_cuda:
+        hamilton_adams.plain_cuda_calls += 1
+    return hamilton_adams_plain(raw4)
+
+
+def kernel_takes(raw4: torch.Tensor) -> bool:
+    """Whether :func:`hamilton_adams` sends raw4 to the CUDA kernel: on a
+    CUDA device, and no gradient wanted."""
+    return raw4.is_cuda and not (torch.is_grad_enabled() and raw4.requires_grad)
+
+
+def hamilton_adams_plain(raw4: torch.Tensor) -> torch.Tensor:
+    """The plain version: [..., H, W, 4] -> [..., 2H, 2W, 3] on any device
+    and dtype, differentiable."""
     cfa = pack_cfa(raw4)
     hh, ww = cfa.shape[-2], cfa.shape[-1]
     mask_r, mask_g, mask_b = bayer_masks(hh, ww, cfa.dtype, cfa.device)
@@ -104,3 +129,6 @@ def hamilton_adams(raw4: torch.Tensor, rows: Optional[Rows] = None) -> torch.Ten
     red = _interp_chroma(green, cfa * mask_r, mask_b, mask_gr, mask_gb)
     blue = _interp_chroma(green, cfa * mask_b, mask_r, mask_gb, mask_gr)
     return torch.stack([red, green, blue], dim=-1)
+
+
+hamilton_adams.plain_cuda_calls = 0

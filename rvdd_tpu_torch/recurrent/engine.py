@@ -184,10 +184,9 @@ def prepare_frames(cfg: EngineConfig, raw_frames: torch.Tensor,
     if cfg.no_predemosaic:
         return raw_frames, flows
     with span("prepare_frames"):
-        t = raw_frames.shape[1]
         rows = space.rows_of(raw_frames)
         with span("demosaic"):
-            rgb = torch.stack([hamilton_adams(raw_frames[:, i], rows) for i in range(t)], dim=1)
+            rgb = hamilton_adams(raw_frames, rows)
         if flows is not None and not cfg.warp_raw:
             bt, td, dd, fh, fw, _ = flows.shape
             with span("flow_upsample"):
